@@ -1,0 +1,6 @@
+"""``python -m attackfl_tpu_torch``."""
+
+from attackfl_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,87 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface and loaded with ``ctypes``.
+The build happens at first use, from the sources in the checkout, into
+``attackfl_tpu_torch/_build/`` (git-ignored).  The library's file name
+carries a hash of its source and flags, so an edited source is rebuilt and
+a stale library is never loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C signatures of each library's exported functions: (restype, argtypes)
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+SIGNATURES = {
+    "fused_step": {
+        "fused_step_scratch_floats": (ctypes.c_int, [_I]),
+        "fused_step_run_epoch": (ctypes.c_int, [
+            ctypes.POINTER(ctypes.c_void_p), _P, _P, _P,   # ptrs, batches, loss, scratch
+            _I, _I, _I, _U, _I, _F, _F,                    # C nb B seed t_offset lr clip
+            _U, _F, _U, _F, _U, _F,                        # dropout thr/scale x3
+            _P]),                                          # stream
+    },
+}
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                           "the CUDA toolkit is installed")
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` unless its library exists.  Returns the
+    library's path and the compiler's output (``-Xptxas -v`` lists each
+    kernel's registers, shared memory and spills; empty if not built)."""
+    out = library_path(name)
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")],
+            capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, proc.stdout + proc.stderr
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` with its C signatures set."""
+    path, _ = build(name)
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in SIGNATURES[name].items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib

@@ -1,0 +1,213 @@
+"""The Simulator: the in-process federation engine (the port's
+``attackfl_tpu/training/engine.py``, synchronous executor).
+
+One Python loop around the round program: sample -> train -> attack ->
+aggregate -> validate -> accept or retry.  A failed round (client NaN or
+failed validation) is retried without decrementing the remaining-round
+counter (reference server.py:546-563), at most ``MAX_ROUND_RETRIES``
+times in a row; the attack clock advances per broadcast (the client-side
+counter, RpcClient.py:72).
+
+The port runs on one device and draws its randomness from
+``torch.Generator``s: model init from a CPU generator seeded with
+``random_seed`` (so CPU and GPU runs start from the same weights), round
+draws from a generator on the run's device.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any
+
+import torch
+
+from attackfl_tpu_torch.config import Config
+from attackfl_tpu_torch.data.partition import draw_round
+from attackfl_tpu_torch.data.synthetic import get_dataset
+from attackfl_tpu_torch.device import resolve_device
+from attackfl_tpu_torch.eval.validation import Validation
+from attackfl_tpu_torch.ops import pytree as pt
+from attackfl_tpu_torch.registry import get_model
+from attackfl_tpu_torch.training.round import (
+    attacking_groups, build_aggregator, build_attack_groups, build_round_step,
+    leak_size,
+)
+
+MAX_ROUND_RETRIES = 20
+log = logging.getLogger("attackfl_tpu_torch")
+
+
+def _refuse(what: str, item: str) -> None:
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue 1, {item})")
+
+
+def check_slice(cfg: Config) -> None:
+    """Refuse what the port cannot run yet, naming the ROADMAP item that
+    will port it.  The slice: ICU TransformerModel, fedavg, LIE attackers,
+    the synchronous executor, local_backend pallas."""
+    if cfg.model != "TransformerModel" or cfg.data_name != "ICU":
+        _refuse(f"model {cfg.model!r} on {cfg.data_name!r}", "item 11")
+    if cfg.mode == "hyper":
+        _refuse("hyper mode", "item 12")
+    if cfg.mode != "fedavg":
+        _refuse(f"aggregation mode {cfg.mode!r}", "item 10")
+    if cfg.local_backend != "pallas":
+        _refuse("local_backend 'xla' (the torch-autograd local update)", "item 3")
+    for spec in cfg.attacks:
+        if spec.mode not in ("LIE", "none"):
+            _refuse(f"attack {spec.mode!r}", "item 9")
+    if cfg.pipeline or cfg.validation_async:
+        _refuse("the pipelined executor and async validation", "item 13")
+    if cfg.load_parameters or cfg.resume or cfg.checkpoint_async:
+        _refuse("checkpoints (load, resume, async writer)", "item 8")
+    if cfg.client_dropout_rate > 0.0:
+        _refuse("straggler injection (client_dropout_rate)", "item 4")
+    if cfg.partition != "iid":
+        _refuse(f"partition {cfg.partition!r}", "item 4")
+    if cfg.mesh.num_devices > 1:
+        _refuse("the multi-GPU client axis", "item 14")
+    tel = cfg.telemetry
+    if tel.monitor or tel.numerics or tel.profile_rounds or tel.hotspots:
+        _refuse("telemetry (monitor, numerics, profiling windows)", "item 16")
+
+
+class Simulator:
+    """End-to-end federated simulation of one Config on one device."""
+
+    def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
+        check_slice(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = get_model(cfg.model)
+        data_seed = cfg.data_seed if cfg.data_seed is not None else cfg.random_seed
+        train_np = get_dataset(cfg.data_name, "train", cfg.train_size, data_seed)
+        test_np = get_dataset(cfg.data_name, "test", cfg.test_size, data_seed)
+        self.train_data = {k: torch.as_tensor(v, device=self.device)
+                           for k, v in train_np.items()}
+        self.pool_size = next(iter(train_np.values())).shape[0]
+        self.attack_groups, self.genuine_idx = build_attack_groups(cfg)
+        self.leak_k = leak_size(cfg, len(self.genuine_idx))
+        self.validation = (Validation(self.model, cfg.data_name, test_np, self.device, log)
+                           if cfg.validation else None)
+        self.round_step = build_round_step(self.model, cfg, self.train_data,
+                                           self.attack_groups, self.genuine_idx)
+        self.aggregate = build_aggregator(cfg)
+
+    # ------------------------------------------------------------------
+    # state
+    # ------------------------------------------------------------------
+
+    def init_state(self, seed: int | None = None) -> dict[str, Any]:
+        """Fresh simulation state (the reference's fresh-init path,
+        server.py:160-162)."""
+        seed = self.cfg.random_seed if seed is None else seed
+        params = self.model.init(torch.Generator().manual_seed(seed), self.device)
+        num_genuine = len(self.genuine_idx)
+        return {
+            "global_params": params,
+            "prev_genuine": pt.tree_map(
+                lambda x: torch.zeros((num_genuine,) + tuple(x.shape),
+                                      dtype=x.dtype, device=x.device), params),
+            "have_genuine": False,
+            "rng": torch.Generator(device=self.device).manual_seed(seed),
+            "completed_rounds": 0,
+            "broadcasts": 0,
+        }
+
+    def draw_round(self, gen: torch.Generator):
+        lo, hi = self.cfg.num_data_range
+        return draw_round(
+            gen, num_clients=self.cfg.total_clients, pool_size=self.pool_size,
+            lo=lo, hi=hi, epochs=self.cfg.epochs, num_genuine=len(self.genuine_idx),
+            leak_groups=[len(g.indices) for g in attacking_groups(self.attack_groups)],
+            leak_k=self.leak_k)
+
+    # ------------------------------------------------------------------
+    # one round
+    # ------------------------------------------------------------------
+
+    def _validation_due(self, broadcast_number: int) -> bool:
+        return (self.validation is not None
+                and broadcast_number % self.cfg.validation_every == 0)
+
+    def run_round(self, state: dict[str, Any]) -> tuple[dict[str, Any], dict[str, Any]]:
+        """Broadcast -> train -> attack -> aggregate -> validate.
+
+        Returns (new_state, metrics).  On failure (``metrics["ok"]``
+        False) the new state keeps the previous global params but advances
+        the generator, the broadcast clock and the genuine-leak pool
+        (reference retry path, server.py:546-567)."""
+        t0 = time.perf_counter()
+        broadcast_number = state["broadcasts"] + 1
+        metrics: dict[str, Any] = {"round": state["completed_rounds"] + 1,
+                                   "broadcast": broadcast_number}
+        draws = self.draw_round(state["rng"])
+        stacked, sizes, new_genuine, ok, loss = self.round_step(
+            state["global_params"], state["prev_genuine"], state["have_genuine"],
+            draws, broadcast_number)
+        ok = train_ok = bool(ok)
+        metrics["train_loss"] = float(loss)
+
+        weights_mask = (sizes > 0).to(torch.float32)
+        if ok and not bool(torch.any(weights_mask > 0)):
+            ok = False
+        new_global = state["global_params"]
+        if ok:
+            new_global = self.aggregate(state["global_params"], stacked, sizes,
+                                        weights_mask)
+            if self._validation_due(broadcast_number):
+                val_ok, val_metrics = self.validation.test(new_global)
+                metrics.update(val_metrics)
+                ok = ok and val_ok
+
+        metrics["ok"] = ok
+        new_state = dict(state)
+        new_state["broadcasts"] = broadcast_number
+        # the leak pool absorbs clean training only (selected inside the
+        # round step); validation-failed rounds still leak (server.py:596-616)
+        new_state["prev_genuine"] = new_genuine
+        if train_ok:
+            new_state["have_genuine"] = True
+        if ok:
+            new_state["global_params"] = new_global
+            new_state["completed_rounds"] = state["completed_rounds"] + 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        metrics["seconds"] = time.perf_counter() - t0
+        return new_state, metrics
+
+    # ------------------------------------------------------------------
+    # the loop
+    # ------------------------------------------------------------------
+
+    def run(self, num_rounds: int | None = None, state: dict[str, Any] | None = None,
+            verbose: bool = True) -> tuple[dict[str, Any], list[dict[str, Any]]]:
+        """Run until ``num_rounds`` rounds complete (reference main loop,
+        server.py:559-567)."""
+        num_rounds = num_rounds if num_rounds is not None else self.cfg.num_round
+        state = state if state is not None else self.init_state()
+        history: list[dict[str, Any]] = []
+        retries = 0
+        while state["completed_rounds"] < num_rounds:
+            round_no = state["completed_rounds"] + 1
+            state, metrics = self.run_round(state)
+            history.append(metrics)
+            if metrics["ok"]:
+                retries = 0
+                if verbose:
+                    keys = [k for k in ("roc_auc", "train_loss") if k in metrics]
+                    msg = " ".join(f"{k}={metrics[k]:.4f}" for k in keys)
+                    print(f"Round {round_no} done in {metrics['seconds']:.2f}s {msg}",
+                          flush=True)
+            else:
+                retries += 1
+                if verbose:
+                    print("Training failed!", flush=True)
+                log.warning("Round %d failed (retry %d)", round_no, retries)
+                if retries > MAX_ROUND_RETRIES:
+                    raise RuntimeError(
+                        f"Round {round_no} failed {retries} times; aborting "
+                        "(the reference would retry forever, server.py:546-556)")
+        return state, history

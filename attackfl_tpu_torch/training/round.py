@@ -1,0 +1,162 @@
+"""The federated round (the port's ``attackfl_tpu/training/round.py``).
+
+    local training of every client -> attackers overwrite their rows with
+    an attack on the previous round's leaked genuine updates -> the new
+    genuine set -> aggregation.
+
+Fidelity points kept from the JAX package (reference server.py and
+RpcClient.py behaviour):
+* attackers do not train in attack rounds: their update comes from the
+  broadcast params and the genuine models leaked from the *previous*
+  round; before any genuine set exists they train genuinely;
+* each attacker gets its own leak sample of ``max(int(genuine_rate * G),
+  1)`` genuine models drawn without replacement;
+* the attack fires when ``broadcast >= attack_round`` and a genuine set
+  exists; an attacking row's ok flag is reset (it did not train);
+* the genuine-leak pool absorbs only rounds whose training was clean.
+
+Randomness enters only through a :class:`~attackfl_tpu_torch.data.partition.RoundDraws`
+record, drawn by the engine.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Sequence
+
+import torch
+
+from attackfl_tpu_torch.config import NONE_ATTACK, Config
+from attackfl_tpu_torch.data.partition import RoundDraws
+from attackfl_tpu_torch.ops import aggregators, attacks
+from attackfl_tpu_torch.ops import pytree as pt
+
+# Element budget of one chunk of the per-attacker leak gather: each
+# attacker materializes its own (leak_k, P) sample, so all of them at once
+# is (attackers, leak_k, P) — 3.8e9 floats at 1000 clients.  Attackers are
+# processed in chunks that stay under this many elements (~800 MB f32).
+ATTACK_GATHER_BUDGET = int(2e8)
+
+
+def map_attackers(attack_rows: Callable[[torch.Tensor], dict], leaks: torch.Tensor,
+                  params_template: dict) -> dict:
+    """``attack_rows(leak_rows (n, k)) -> stacked (n, ...)`` over all
+    attackers' leak rows, in chunks whose gather stays inside
+    ``ATTACK_GATHER_BUDGET``; identical results to one call."""
+    n_attackers, leak_k = leaks.shape
+    p_total = sum(x.numel() for x in pt.tree_leaves(params_template))
+    chunk = max(1, ATTACK_GATHER_BUDGET // max(leak_k * p_total, 1))
+    if chunk >= n_attackers:
+        return attack_rows(leaks)
+    parts = [attack_rows(leaks[i:i + chunk]) for i in range(0, n_attackers, chunk)]
+    return pt.tree_map(lambda *xs: torch.cat(xs, dim=0), *parts)
+
+
+@dataclass(frozen=True)
+class AttackGroup:
+    """Static attacker geometry for one attack spec."""
+
+    mode: str
+    indices: tuple[int, ...]
+    attack_round: int
+    args: tuple[float, ...]
+
+
+def build_attack_groups(cfg: Config) -> tuple[list[AttackGroup], list[int]]:
+    """Resolve config attack specs into (groups, genuine client indices)."""
+    assignment = cfg.attacker_assignment()
+    by_spec: dict[int, list[int]] = {}
+    specs: dict[int, Any] = {}
+    for cid, spec in assignment.items():
+        by_spec.setdefault(id(spec), []).append(cid)
+        specs[id(spec)] = spec
+    groups = [AttackGroup(mode=specs[k].mode, indices=tuple(sorted(ids)),
+                          attack_round=specs[k].attack_round,
+                          args=tuple(specs[k].args))
+              for k, ids in by_spec.items()]
+    genuine = sorted(set(range(cfg.total_clients)) - set(assignment))
+    return groups, genuine
+
+
+def attacking_groups(groups: Sequence[AttackGroup]) -> list[AttackGroup]:
+    """Groups that can fire (``none`` cohorts never do and draw nothing)."""
+    return [g for g in groups if g.mode != NONE_ATTACK]
+
+
+def leak_size(cfg: Config, num_genuine: int) -> int:
+    """Genuine models leaked to each attacker (reference server.py:599-600)."""
+    return min(max(int(cfg.genuine_rate * num_genuine), 1), num_genuine)
+
+
+def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
+                     attack_groups: Sequence[AttackGroup],
+                     genuine_idx: Sequence[int]) -> Callable:
+    """Build ``round_step(global_params, prev_genuine, have_genuine, draws,
+    broadcast_number) -> (stacked, sizes, new_genuine, ok, mean_loss)``.
+
+    ``train_data`` lies on the device the round runs on."""
+    if cfg.local_backend != "pallas":
+        raise NotImplementedError(
+            "local_backend 'xla' (the torch-autograd local update) is not "
+            "ported yet (ROADMAP.md queue 1, item 3); use local_backend: pallas")
+    from attackfl_tpu_torch.ops import fused_step
+
+    device = next(iter(train_data.values())).device
+    # dropout rates mirror TransformerModel: block/attention 0.1, head =
+    # model.dropout_rate.  On the CPU dropout is off, as on the JAX
+    # package's interpret path: there the round is a correctness path.
+    dropout = (0.1, 0.1, float(getattr(model, "dropout_rate", 0.3)))
+    if device.type == "cpu":
+        dropout = (0.0, 0.0, 0.0)
+    batched_update = fused_step.build_fused_local_update(
+        train_data, epochs=cfg.epochs, batch_size=cfg.batch_size, lr=cfg.lr,
+        clip_grad_norm=cfg.clip_grad_norm, dropout=dropout)
+    genuine_arr = torch.as_tensor(list(genuine_idx), dtype=torch.int64, device=device)
+    firing = attacking_groups(attack_groups)
+
+    def round_step(global_params: dict, prev_genuine: dict, have_genuine: bool,
+                   draws: RoundDraws, broadcast_number: int):
+        stacked, ok, losses = batched_update(
+            global_params, draws.idx, draws.mask, draws.perms, draws.dropout_seed)
+
+        for grp, leaks in zip(firing, draws.leaks):
+            if not (broadcast_number >= grp.attack_round and have_genuine):
+                continue
+            grp_arr = torch.as_tensor(grp.indices, dtype=torch.int64, device=device)
+
+            def attack_rows(rows, grp=grp):
+                leaked = pt.tree_take(prev_genuine, rows)      # (n, k, ...)
+                return attacks.apply_attack(grp.mode, global_params, leaked,
+                                            grp.args, dim=1)
+
+            attacked = map_attackers(attack_rows, leaks, global_params)
+
+            def scatter(s, a, grp_arr=grp_arr):
+                s[grp_arr] = a
+                return s
+
+            stacked = pt.tree_map(scatter, stacked, attacked)
+            # attackers that attacked did not train: their NaN flag resets
+            ok[grp_arr] = True
+
+        train_ok = torch.all(ok)
+        fresh = pt.tree_take(stacked, genuine_arr)
+        new_genuine = pt.tree_map(lambda n, p: torch.where(train_ok, n, p),
+                                  fresh, prev_genuine)
+        return stacked, draws.sizes, new_genuine, train_ok, torch.mean(losses)
+
+    return round_step
+
+
+def build_aggregator(cfg: Config) -> Callable:
+    """``aggregate(global_params, stacked, sizes, weights_mask) ->
+    new_global`` for the configured mode."""
+    if cfg.mode != "fedavg":
+        raise NotImplementedError(
+            f"aggregation mode {cfg.mode!r} is not ported yet (ROADMAP.md "
+            "queue 1, items 10 and 12)")
+
+    def aggregate(global_params, stacked, sizes, weights_mask):
+        return aggregators.fedavg(stacked, sizes.to(torch.float32) * weights_mask)
+
+    return aggregate

@@ -1,0 +1,104 @@
+"""The port's engine, round draws and CLI on the CPU, at a small size."""
+
+import math
+
+import pytest
+import torch
+
+from attackfl_tpu_torch import cli
+from attackfl_tpu_torch.config import AttackSpec, Config
+from attackfl_tpu_torch.data.partition import draw_round
+from attackfl_tpu_torch.ops import fused_step
+from attackfl_tpu_torch.ops import pytree as pt
+from attackfl_tpu_torch.training.engine import MAX_ROUND_RETRIES, Simulator
+
+SMALL = dict(num_round=3, total_clients=8, mode="fedavg", model="TransformerModel",
+             data_name="ICU", num_data_range=(24, 32), epochs=2, batch_size=16,
+             train_size=256, test_size=128, local_backend="pallas",
+             attacks=(AttackSpec(mode="LIE", num_clients=2, attack_round=2),))
+
+
+def test_simulator_runs_three_rounds_on_cpu():
+    sim = Simulator(Config(**SMALL), device="cpu")
+    launches = fused_step.run_epoch.launches
+    state, history = sim.run(verbose=False)
+    assert [h["ok"] for h in history] == [True, True, True]
+    assert state["completed_rounds"] == 3 and state["have_genuine"]
+    assert all(math.isfinite(h["roc_auc"]) for h in history)
+    assert history[-1]["roc_auc"] > 0.5
+    assert all(bool(torch.isfinite(x).all()) for x in pt.tree_leaves(state["global_params"]))
+    # the CPU path runs the plain version: no kernel launch is counted
+    assert fused_step.run_epoch.launches == launches
+
+
+def test_same_seed_same_run():
+    runs = [Simulator(Config(**{**SMALL, "num_round": 1}), device="cpu").run(verbose=False)
+            for _ in range(2)]
+    (s1, h1), (s2, h2) = runs
+    assert h1[0]["roc_auc"] == h2[0]["roc_auc"]
+    for a, b in zip(pt.tree_leaves(s1["global_params"]), pt.tree_leaves(s2["global_params"])):
+        assert torch.equal(a, b)
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Simulator(Config(**SMALL))
+
+
+@pytest.mark.parametrize("override", [
+    {"mode": "median"}, {"local_backend": "xla"}, {"pipeline": True},
+    {"attacks": (AttackSpec(mode="Random", num_clients=1),)},
+    {"client_dropout_rate": 0.1}, {"resume": True},
+])
+def test_outside_the_slice_is_refused(override):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Simulator(Config(**{**SMALL, **override}), device="cpu")
+
+
+def test_failed_round_keeps_params_and_leak_pool():
+    """NaN training fails the round: global params stay, the leak pool is
+    not refreshed, the broadcast clock still advances (server.py:546-567)."""
+    sim = Simulator(Config(**SMALL), device="cpu")
+    state = sim.init_state()
+    state["global_params"]["fc1"]["bias"][0] = float("nan")
+    new, metrics = sim.run_round(state)
+    assert not metrics["ok"] and new["broadcasts"] == 1 and new["completed_rounds"] == 0
+    assert new["global_params"] is state["global_params"]
+    for a, b in zip(pt.tree_leaves(new["prev_genuine"]), pt.tree_leaves(state["prev_genuine"])):
+        assert torch.equal(a, b)
+    assert not new["have_genuine"]
+
+
+def test_retry_cap(monkeypatch):
+    sim = Simulator(Config(**SMALL), device="cpu")
+    monkeypatch.setattr(sim.validation, "test", lambda params: (False, {"roc_auc": 0.5}))
+    with pytest.raises(RuntimeError, match="failed"):
+        sim.run(num_rounds=1, verbose=False)
+    assert MAX_ROUND_RETRIES == 20
+
+
+def test_draw_round_semantics():
+    gen = torch.Generator().manual_seed(0)
+    d = draw_round(gen, num_clients=6, pool_size=50, lo=3, hi=9, epochs=2,
+                   num_genuine=4, leak_groups=[2], leak_k=3)
+    assert d.idx.shape == (6, 9) and int(d.idx.min()) >= 0 and int(d.idx.max()) < 50
+    assert int(d.sizes.min()) >= 3 and int(d.sizes.max()) <= 9
+    assert torch.equal(d.mask.sum(1), d.sizes)
+    assert torch.equal(torch.sort(d.perms, dim=-1).values,
+                       torch.arange(9).expand(2, 6, 9))
+    (leaks,) = d.leaks
+    assert leaks.shape == (2, 3)
+    assert all(len(set(row.tolist())) == 3 for row in leaks)   # without replacement
+
+
+def test_cli_run_on_cpu(tmp_path, capsys):
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(
+        "server: {num-round: 2, clients: 6, data-name: ICU, model: TransformerModel,\n"
+        "         train-size: 128, test-size: 64,\n"
+        "         data-distribution: {num-data-range: [16, 24]}}\n"
+        "learning: {epoch: 1, batch-size: 16}\n"
+        "tpu: {local-backend: pallas}\n")
+    assert cli.main(["run", "--config", str(cfg), "--device", "cpu"]) == 0
+    assert "Finished: 2 successful rounds." in capsys.readouterr().out

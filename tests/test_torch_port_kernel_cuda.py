@@ -1,0 +1,79 @@
+"""The CUDA kernel of the port (csrc/fused_step.cu) against its plain
+PyTorch version, on the card.
+
+Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no JAX, so it runs
+where JAX is absent:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_kernel_cuda.py
+
+Small inputs (C=8, B=16, two minibatches) from a seed; tolerances 2e-4 on
+p and 1e-4 per step on the loss, as the CPU parity tests, and m and v each
+within 1e-3 of the plain version's largest |m| or |v|, as chip_smoke.py.  At this
+size the cold Adam start is well conditioned (chip_smoke.py explains why it
+is not at 100 clients).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from attackfl_tpu_torch.models.icu import TransformerModel
+from attackfl_tpu_torch.ops import fused_step as tfs
+from attackfl_tpu_torch.ops.pytree import tree_map
+
+C, B, NB = 8, 16, 2
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _max_abs(groups):
+    return max(float(x.abs().max()) for x in groups.values())
+
+
+def _inputs(device, masked_client):
+    rng = np.random.default_rng(1)
+    params = TransformerModel().init(torch.Generator().manual_seed(0))
+    stacked = tree_map(lambda x: (x.expand((C,) + tuple(x.shape)) + 0.01 * torch.from_numpy(
+        rng.standard_normal((C,) + tuple(x.shape)).astype(np.float32))).contiguous(), params)
+    b = np.zeros((C, NB, B, 32), np.float32)
+    b[..., :23] = rng.standard_normal((C, NB, B, 23))
+    b[..., 23] = rng.random((C, NB, B)) < 0.3
+    b[..., 24] = rng.random((C, NB, B)) < 0.9
+    b[masked_client, ..., 24] = 0.0
+    groups = tfs.pack_params(tree_map(lambda x: x.to(device), stacked))
+    return groups, torch.from_numpy(b).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates", [(0.0, 0.0, 0.0), (0.1, 0.1, 0.3)])
+def test_kernel_matches_plain_version(card, rates):
+    groups, batches = _inputs(card, masked_client=3)
+    kw = dict(lr=0.004, clip=1.0, drop_attn=rates[0], drop_block=rates[1],
+              drop_head=rates[2])
+    kp, rp = ({k: v.clone() for k, v in groups.items()} for _ in range(2))
+    km, kv, rm, rv = (tfs.zeros_like_groups(groups) for _ in range(4))
+    launches = tfs.run_epoch.launches
+    kp, km, kv, kloss = tfs.run_epoch(kp, km, kv, batches, 5, 0, **kw)
+    rp, rm, rv, rloss = tfs.run_epoch_reference(rp, rm, rv, batches, 5, 0, **kw)
+    torch.cuda.synchronize()
+    assert tfs.run_epoch.launches == launches + 1
+    assert float((kloss - rloss).abs().max()) <= 1e-4 * NB
+    for a, b, tol in ((kp, rp, 2e-4), (km, rm, 1e-3 * _max_abs(rm)), (kv, rv, 1e-3 * _max_abs(rv))):
+        for k in tfs.GROUP_ORDER:
+            assert float((a[k] - b[k]).abs().max()) <= tol, k
+    for k in tfs.GROUP_ORDER:
+        assert torch.equal(kp[k][3], groups[k][3]), k
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_cpu_cuda_mix(card):
+    groups, batches = _inputs(card, masked_client=0)
+    m = tfs.zeros_like_groups(groups)
+    with pytest.raises(ValueError, match="is on"):
+        tfs.run_epoch(groups, m, tfs.zeros_like_groups(groups), batches.cpu(), 0, 0,
+                      lr=0.004, clip=1.0)
