@@ -5,7 +5,7 @@ names, defaults and validation, and the same reference-schema YAML reader
 (``config_from_dict`` / ``load_config``), so one ``config.yaml`` loads in
 both packages.  The port reads ``local_backend: pallas`` as its
 hand-written CUDA kernel (``ops/fused_step.py``) and ``xla`` as the
-torch-autograd local update, which is not ported yet.
+torch-autograd local update (``training/local.py``).
 
 What the port does not run yet is refused where it is asked for:
 ``faults`` here, every other knob in ``training/engine.check_slice``.
@@ -259,7 +259,7 @@ class Config:
     prng_impl: str = "rbg"
     scan_unroll: int = 1
     # "pallas": the hand-written CUDA kernel (ops/fused_step.py);
-    # "xla": the torch-autograd local update (not ported yet)
+    # "xla": the torch-autograd local update (training/local.py)
     local_backend: str = "xla"
     train_size: int = 20000
     test_size: int = 4000

@@ -24,8 +24,8 @@
 // * fp32 on the CUDA cores, no TF32 and no tensor cores: the port's parity
 //   tolerances are fp32 tolerances.
 // * Dropout bits come from a counter-based hash (murmur3 fmix32 over seed,
-//   step, client, tensor id and element index) instead of the TPU's
-//   hardware PRNG, with _mask's threshold and scale.
+//   step, client, tensor id and element index; dropout_hash.cuh) instead of
+//   the TPU's hardware PRNG, with _mask's threshold and scale.
 //
 // What bounds it: 22.4 MFLOP of live fp32 multiply-adds per client-step
 // at B=128 (ops/fused_step.py:epoch_work) against ~0.8 MB of
@@ -38,6 +38,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -82,10 +84,6 @@ constexpr int OFF_WH2 = OFF_WH1 + SZ_WH1;
 constexpr int OFF_VECS = OFF_WH2 + SZ_WH2;
 constexpr int P_TOTAL = OFF_VECS + SZ_VECS;   // 34,432 floats per client
 static_assert(P_TOTAL == 34432, "packed layout drifted from the JAX package");
-
-// dropout tensor ids (per branch b: + 4 * b)
-constexpr uint32_t T_MW = 0, T_M1 = 1, T_MF = 2, T_M2 = 3, T_M4 = 8;
-constexpr uint32_t GOLDEN = 0x9E3779B9u;
 
 struct Groups {
   float* p[N_G];
@@ -154,22 +152,6 @@ __device__ inline Scratch carve(float* s, int B) {
   S.dz2 = q;  q += B * FF;
   S.grad = q;
   return S;
-}
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-// mask value of element `elem` of the tensor keyed `kt`
-__device__ __forceinline__ float mask_at(uint32_t kt, uint32_t elem, uint32_t thr,
-                                         float scale) {
-  if (thr == 0u) return scale;   // rate 0: keep everything, scale 1
-  return fmix32(kt ^ elem) >= thr ? scale : 0.0f;
 }
 
 __device__ __forceinline__ float gelu(float x) {
@@ -328,7 +310,7 @@ train_epoch_kernel(Groups grp, const float* __restrict__ batches, float* __restr
   for (int j = 0; j < nb; ++j) {
     const float* data = batches + ((size_t)c * nb + j) * B * NCOL;
     const uint32_t step = (uint32_t)(t_offset + j);
-    const uint32_t kc = fmix32(fmix32(fmix32(seed ^ GOLDEN) ^ step) ^ (uint32_t)c);
+    const uint32_t kc = client_key(seed, step, (uint32_t)c);
 
     // ---------------- forward ----------------
     for (int b = 0; b < 2; ++b) {

@@ -3,9 +3,11 @@
 
 Per branch: Dense(F -> 64) + GELU, one TransformerBlock (4 heads, ff 6)
 over a length-1 sequence, LayerNorm.  Head: 128 -> 64 (GELU, dropout) ->
-32 (GELU) -> 1, sigmoid.  The module's forward is the evaluation path;
-training runs through the fused kernel (``ops/fused_step.py``), which
-carries its own dropout.
+32 (GELU) -> 1, sigmoid.  Without masks the forward is the evaluation
+path (flax ``train=False``); with a dict of pre-drawn dropout masks it is
+the training forward of the torch-autograd local update
+(``training/local.py``).  The fused kernel (``ops/fused_step.py``) carries
+its own forward and dropout.
 
 Parameters travel as plain trees (nested dicts keyed by the flax names,
 see ``ops/pytree.py``): ``init`` draws one, ``apply`` runs the forward
@@ -39,16 +41,24 @@ class TransformerModel(nn.Module):
         self.fc2 = Dense((D,), (32,))
         self.output = Dense((32,), (1,))
 
-    def _branch(self, x: torch.Tensor, prefix: str) -> torch.Tensor:
+    def _branch(self, x: torch.Tensor, prefix: str, masks) -> torch.Tensor:
         x = gelu(getattr(self, f"{prefix}_dense")(x))
-        x = getattr(self, f"{prefix}_transformer")(x)
+        x = getattr(self, f"{prefix}_transformer")(
+            x, None if masks is None else masks[prefix])
         return getattr(self, f"{prefix}_bn")(x)
 
-    def forward(self, vitals: torch.Tensor, labs: torch.Tensor) -> torch.Tensor:
-        """Sigmoid probabilities (B, 1), deterministic (eval) mode."""
-        x = torch.cat([self._branch(vitals, "vitals"),
-                       self._branch(labs, "labs")], dim=1)
+    def forward(self, vitals: torch.Tensor, labs: torch.Tensor,
+                masks: dict | None = None) -> torch.Tensor:
+        """Sigmoid probabilities (B, 1).  ``masks``: None (deterministic),
+        or {"vitals": block masks, "labs": block masks, "head": (B, 64)},
+        block masks as :class:`TransformerBlock` takes them; the head mask
+        is the ``dropout_rate`` dropout after fc1's GELU (JAX package
+        icu.py:143-144)."""
+        x = torch.cat([self._branch(vitals, "vitals", masks),
+                       self._branch(labs, "labs", masks)], dim=1)
         x = gelu(self.fc1(x))
+        if masks is not None:
+            x = x * masks["head"]
         x = gelu(self.fc2(x))
         return torch.sigmoid(self.output(x))
 
@@ -68,8 +78,9 @@ class TransformerModel(nn.Module):
             node[leaf] = param.detach().clone().to(device)
         return tree
 
-    def apply(self, params: dict, vitals: torch.Tensor,
-              labs: torch.Tensor) -> torch.Tensor:
-        """Forward with the parameters of ``params`` (flax ``apply``)."""
+    def apply(self, params: dict, vitals: torch.Tensor, labs: torch.Tensor,
+              masks: dict | None = None) -> torch.Tensor:
+        """Forward with the parameters of ``params`` (flax ``apply``);
+        ``masks`` as :meth:`forward` takes them."""
         flat = {path.replace("/", "."): leaf for path, leaf in tree_items(params)}
-        return functional_call(self, flat, (vitals, labs))
+        return functional_call(self, flat, (vitals, labs, masks))

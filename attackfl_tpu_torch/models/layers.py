@@ -85,13 +85,24 @@ class Seq1Attention(nn.Module):
         self.value = Dense((dim,), (num_heads, head_dim))
         self.out = Dense((num_heads, head_dim), (dim,))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out(self.value(x))
+    def forward(self, x: torch.Tensor, head_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """``head_mask`` (B, H): attention-weight dropout, which over the
+        (B, H, 1, 1) weights of a length-1 sequence is one scaled Bernoulli
+        scalar per (batch, head) on the value (JAX package layers.py:97-104)."""
+        value = self.value(x)                              # (B, H, dh)
+        if head_mask is not None:
+            value = value * head_mask.unsqueeze(-1)
+        return self.out(value)
 
 
 class TransformerBlock(nn.Module):
-    """x = LN(x + MHA(x)); x = LN(x + FFN(x)), FFN = Dense(ff) -> GELU ->
-    Dense(dim) (reference src/Model.py:166-191), deterministic."""
+    """x = LN(x + Drop(MHA(x))); x = LN(x + Drop(FFN(x))), FFN = Dense(ff)
+    -> GELU -> Drop -> Dense(dim) (reference src/Model.py:166-191).
+
+    Dropout takes pre-drawn inverted-dropout masks (values 0 or
+    1/(1 - rate)): ``masks`` = (attention (B, H), attention output (B, D),
+    FFN hidden (B, ff), FFN output (B, D)), the places of the JAX package's
+    layers.py:134-160; ``None`` is the deterministic forward."""
 
     def __init__(self, dim: int, num_heads: int, ff_dim: int):
         super().__init__()
@@ -101,7 +112,12 @@ class TransformerBlock(nn.Module):
         self.ffn_dense2 = Dense((ff_dim,), (dim,))
         self.ffn_norm = LayerNorm(dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.attention_norm(x + self.attention(x))
-        y = self.ffn_dense2(gelu(self.ffn_dense1(x)))
-        return self.ffn_norm(x + y)
+    def forward(self, x: torch.Tensor, masks=None) -> torch.Tensor:
+        if masks is None:
+            x = self.attention_norm(x + self.attention(x))
+            y = self.ffn_dense2(gelu(self.ffn_dense1(x)))
+            return self.ffn_norm(x + y)
+        m_head, m_attn, m_ffn, m_out = masks
+        x = self.attention_norm(x + self.attention(x, m_head) * m_attn)
+        y = self.ffn_dense2(gelu(self.ffn_dense1(x)) * m_ffn)
+        return self.ffn_norm(x + y * m_out)

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface and loaded with ``ctypes``.
 The build happens at first use, from the sources in the checkout, into
 ``attackfl_tpu_torch/_build/`` (git-ignored).  The library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
-a stale library is never loaded.
+carries a hash of its source, of every shared header ``csrc/*.cuh`` and of
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded.
 """
 
 from __future__ import annotations
@@ -36,6 +37,12 @@ SIGNATURES = {
             _U, _F, _U, _F, _U, _F,                        # dropout thr/scale x3
             _P]),                                          # stream
     },
+    "dropout_mask": {
+        "dropout_mask_fill": (ctypes.c_int, [
+            _P, _P, _I, _I, _I,                            # keys, out, C rows width
+            _U, _U, _F,                                    # tensor_id thr scale
+            _P]),                                          # stream
+    },
 }
 
 
@@ -48,32 +55,56 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> dict[str, tuple[Path, str]]:
+    """Compile each ``csrc/<name>.cu`` whose library does not exist, one
+    ``nvcc`` per source, all started together.  Returns each library's
+    path and the compiler's output (``-Xptxas -v`` lists each kernel's
+    registers, shared memory and spills; empty if not built)."""
+    out: dict[str, tuple[Path, str]] = {}
+    jobs = []
+    try:
+        for name in names:
+            path = library_path(name)
+            if path.exists():
+                out[name] = (path, "")
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            jobs.append((name, path, tmp, subprocess.Popen(
+                [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for name, path, tmp, proc in jobs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {name}.cu:\n{stderr}")
+                continue
+            os.replace(tmp, path)
+            out[name] = (path, stdout + stderr)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return out
 
 
 def build(name: str) -> tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` unless its library exists.  Returns the
-    library's path and the compiler's output (``-Xptxas -v`` lists each
-    kernel's registers, shared memory and spills; empty if not built)."""
-    out = library_path(name)
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+    """Compile ``csrc/<name>.cu`` unless its library exists (see
+    :func:`build_all`)."""
+    return build_all([name])[name]
 
 
 @functools.cache

@@ -26,6 +26,12 @@ tensor id and element index) gives each mask element its 32 random bits;
 scale 1/(1 - rate)).  The hash uses only operations that int64 tensor
 arithmetic repeats exactly, so the kernel and the plain version draw the
 same masks.  Masks stay elementwise, as the TPU kernel's are.
+
+``fill_mask`` fills one such mask tensor with CUDA kernel K3
+(``csrc/dropout_mask.cu``, the port of the mask kernel of
+``scripts/tpu_validate_pallas.py``); the torch-autograd local update
+(``training/local.py``) draws its dropout masks with it.  The hash itself
+lives in ``csrc/dropout_hash.cuh``, shared by both kernels.
 """
 
 from __future__ import annotations
@@ -204,6 +210,44 @@ def dropout_mask(keys: torch.Tensor, tensor_id: int, rows: int, width: int,
                         device=keys.device).reshape(1, rows, width)
     bits = fmix32(kt.reshape(-1, 1, 1) ^ elem)
     return torch.where(bits >= thr, scale, 0.0).to(torch.float32)
+
+
+def fill_mask(keys: torch.Tensor, tensor_id: int, rows: int, width: int,
+              rate: float) -> torch.Tensor:
+    """:func:`dropout_mask` from CUDA kernel K3 (``csrc/dropout_mask.cu``),
+    the port of the mask kernel of ``scripts/tpu_validate_pallas.py:125``
+    (``_mask``).  ``keys``: int64 [C] from :func:`client_keys`.
+
+    CUDA tensors go to the kernel (counted in ``fill_mask.launches``); CPU
+    tensors to :func:`dropout_mask`; anything else raises."""
+    if not isinstance(keys, torch.Tensor) or keys.ndim != 1 or keys.dtype != torch.int64:
+        raise ValueError("keys must be a 1-D int64 tensor")
+    if keys.numel() < 1 or rows < 1 or width < 1:
+        raise ValueError(f"empty mask: {keys.numel()} keys, rows {rows}, width {width}")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    if keys.device.type == "cpu":
+        return dropout_mask(keys, tensor_id, rows, width, rate)
+    if keys.device.type != "cuda":
+        raise ValueError(f"fill_mask runs on cuda or cpu, not {keys.device}")
+    from attackfl_tpu_torch.ops.build import load_library
+
+    lib = load_library("dropout_mask")
+    keys = keys.contiguous()
+    out = torch.empty((keys.numel(), rows, width), dtype=torch.float32, device=keys.device)
+    thr, scale = drop_params(rate)
+    with torch.cuda.device(keys.device):
+        rc = lib.dropout_mask_fill(
+            keys.data_ptr(), out.data_ptr(), keys.numel(), rows, width,
+            tensor_id & _M32, thr, scale,
+            torch.cuda.current_stream(keys.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dropout_mask kernel launch failed: CUDA error {rc}")
+    fill_mask.launches += 1
+    return out
+
+
+fill_mask.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -46,15 +46,17 @@ def _refuse(what: str, item: str) -> None:
 def check_slice(cfg: Config) -> None:
     """Refuse what the port cannot run yet, naming the ROADMAP item that
     will port it.  The slice: ICU TransformerModel, fedavg, LIE attackers,
-    the synchronous executor, local_backend pallas."""
+    the synchronous executor, local_backend xla (float32) or pallas."""
     if cfg.model != "TransformerModel" or cfg.data_name != "ICU":
         _refuse(f"model {cfg.model!r} on {cfg.data_name!r}", "item 11")
     if cfg.mode == "hyper":
         _refuse("hyper mode", "item 12")
     if cfg.mode != "fedavg":
         _refuse(f"aggregation mode {cfg.mode!r}", "item 10")
-    if cfg.local_backend != "pallas":
-        _refuse("local_backend 'xla' (the torch-autograd local update)", "item 3")
+    # the pallas path ignores compute-dtype (K1 is float32), as in JAX
+    if cfg.local_backend == "xla" and cfg.mesh.compute_dtype != "float32":
+        _refuse(f"compute-dtype {cfg.mesh.compute_dtype!r} (mixed-precision local "
+                "training)", "item 3, rest")
     for spec in cfg.attacks:
         if spec.mode not in ("LIE", "none"):
             _refuse(f"attack {spec.mode!r}", "item 9")

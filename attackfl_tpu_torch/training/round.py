@@ -28,8 +28,9 @@ import torch
 
 from attackfl_tpu_torch.config import NONE_ATTACK, Config
 from attackfl_tpu_torch.data.partition import RoundDraws
-from attackfl_tpu_torch.ops import aggregators, attacks
+from attackfl_tpu_torch.ops import aggregators, attacks, fused_step
 from attackfl_tpu_torch.ops import pytree as pt
+from attackfl_tpu_torch.training import local
 
 # Element budget of one chunk of the per-attacker leak gather: each
 # attacker materializes its own (leak_k, P) sample, so all of them at once
@@ -94,23 +95,26 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
     """Build ``round_step(global_params, prev_genuine, have_genuine, draws,
     broadcast_number) -> (stacked, sizes, new_genuine, ok, mean_loss)``.
 
-    ``train_data`` lies on the device the round runs on."""
-    if cfg.local_backend != "pallas":
-        raise NotImplementedError(
-            "local_backend 'xla' (the torch-autograd local update) is not "
-            "ported yet (ROADMAP.md queue 1, item 3); use local_backend: pallas")
-    from attackfl_tpu_torch.ops import fused_step
-
+    ``train_data`` lies on the device the round runs on.  ``local_backend``
+    ``xla`` trains with torch autograd (``training/local.py``), ``pallas``
+    with the fused kernel (``ops/fused_step.py``)."""
     device = next(iter(train_data.values())).device
     # dropout rates mirror TransformerModel: block/attention 0.1, head =
-    # model.dropout_rate.  On the CPU dropout is off, as on the JAX
-    # package's interpret path: there the round is a correctness path.
+    # model.dropout_rate
     dropout = (0.1, 0.1, float(getattr(model, "dropout_rate", 0.3)))
-    if device.type == "cpu":
-        dropout = (0.0, 0.0, 0.0)
-    batched_update = fused_step.build_fused_local_update(
-        train_data, epochs=cfg.epochs, batch_size=cfg.batch_size, lr=cfg.lr,
-        clip_grad_norm=cfg.clip_grad_norm, dropout=dropout)
+    kw = dict(epochs=cfg.epochs, batch_size=cfg.batch_size, lr=cfg.lr,
+              clip_grad_norm=cfg.clip_grad_norm)
+    if cfg.local_backend == "xla":
+        # dropout on wherever it runs, as the JAX package's xla path
+        batched_update = local.build_local_update(
+            model, cfg.data_name, train_data, dropout=dropout, **kw)
+    else:
+        # on the CPU the fused path trains with dropout off, as the JAX
+        # package's interpret path does: there it is a correctness path
+        if device.type == "cpu":
+            dropout = (0.0, 0.0, 0.0)
+        batched_update = fused_step.build_fused_local_update(
+            train_data, dropout=dropout, **kw)
     genuine_arr = torch.as_tensor(list(genuine_idx), dtype=torch.int64, device=device)
     firing = attacking_groups(attack_groups)
 

@@ -6,14 +6,20 @@
 Phases, each fatal on failure (the script then exits non-zero and prints
 no result line):
   1. device   -- the card's name and power limit, torch and CUDA versions;
-  2. build    -- compile every CUDA kernel from csrc/ with nvcc (sm_90a);
-  3. kernels  -- each kernel against its plain PyTorch version on the same
-                 inputs at the main path's shapes, with the stated
+  2. build    -- compile every CUDA kernel from csrc/ with nvcc (sm_90a),
+                 one nvcc per source, all started together;
+  3. kernels  -- the kernel validator's checks (validate_kernels.py), then
+                 each kernel against its plain PyTorch version on the same
+                 inputs at the main paths' shapes, with the stated
                  tolerances, and its time beside its roofline bound;
   4. main     -- the port's Simulator on the card with BASELINE config 4
                  (ICU TransformerModel, 100 clients, 25 LIE attackers,
-                 fedavg, local_backend pallas), cut in depth only, and
-                 the kernels' launch counts over that run.
+                 fedavg), cut in depth only: first with local_backend
+                 pallas (kernel K1), then with local_backend xla (torch
+                 autograd, dropout masks from kernel K3); then the repo's
+                 config.yaml as it stands, one round, through the CLI.
+                 Each run's kernel launch counts are reset just before it
+                 and read just after.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
 toolkit, imports nothing of JAX, and fails when run outside the repository.
@@ -30,17 +36,21 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from attackfl_tpu_torch.config import Config  # noqa: E402
+from attackfl_tpu_torch import cli, validate_kernels  # noqa: E402
+from attackfl_tpu_torch.config import Config, load_config  # noqa: E402
 from attackfl_tpu_torch.data.synthetic import get_dataset  # noqa: E402
 from attackfl_tpu_torch.device import resolve_device  # noqa: E402
 from attackfl_tpu_torch.models.icu import TransformerModel  # noqa: E402
 from attackfl_tpu_torch.ops import build  # noqa: E402
 from attackfl_tpu_torch.ops import fused_step as tfs  # noqa: E402
 from attackfl_tpu_torch.ops.pytree import tree_leaves, tree_map  # noqa: E402
-from attackfl_tpu_torch.profile_round import CONFIG4, DEPTH  # noqa: E402
+from attackfl_tpu_torch.profile_round import CONFIG4, DEPTH, self_device_us  # noqa: E402
+from attackfl_tpu_torch.training import local  # noqa: E402
 from attackfl_tpu_torch.training.engine import Simulator  # noqa: E402
 
 # BASELINE config 4 is cut in depth only (width, clients, attackers and
@@ -49,8 +59,17 @@ from attackfl_tpu_torch.training.engine import Simulator  # noqa: E402
 ROUNDS = (30, 3)
 
 # published peaks of the H100 SXM (NVIDIA's data sheet): fp32 outside the
-# tensor cores, and HBM bandwidth
+# tensor cores, and HBM bandwidth.  INT32: an SM issues 64 INT32 lanes per
+# clock against 128 FP32 lanes (Hopper architecture white paper), half the
+# fp32 rate
 FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12
+INT32_OPS = FP32_FLOPS / 2
+# integer operations of one K3 mask element: fmix32 of (key ^ tensor id)
+# is amortised over the client's elements, the element's own fmix32 is 2
+# multiplies, 3 shifts and 4 xors, then a compare and a select
+K3_OPS_PER_ELEMENT = 11
+KERNELS = ("fused_step", "dropout_mask")
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 # kernel vs plain version: p absolute, loss absolute per step, m and v
 # each relative to the largest magnitude of the plain version's tensor
@@ -92,6 +111,22 @@ def time_ms(fn, warmup: int = 2, reps: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def device_ms(fn, reps: int = 200) -> float:
+    """Milliseconds of one ``fn`` on the device, by CUDA events around
+    ``reps`` back-to-back calls.  The device first sleeps while the host
+    enqueues them all, so host time between launches does not count."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def kernel_inputs(C: int, nb: int, B: int, masked_client: int):
@@ -277,41 +312,168 @@ def check_fused_step(card: str) -> dict:
             "library_ms": None}
 
 
-def main_path() -> dict:
-    """The port's Simulator on the card with config 4, depth cut."""
-    cfg = Config(**CONFIG4, **DEPTH["cut"], num_round=ROUNDS[1])
-    for key in DEPTH["cut"]:
-        log(f"[main] reduced {key}: {DEPTH['full'][key]} -> {DEPTH['cut'][key]}")
-    log(f"[main] reduced num_round: {ROUNDS[0]} -> {ROUNDS[1]}")
+def check_validator() -> None:
+    """The kernel validator's checks (a)-(c) on the card."""
+    out = validate_kernels.run_checks("cuda")
+    a, b, c = out["autodiff_match"], out["mask_statistics"], out["dropout_on_step"]
+    log(f"[kernels] validator (a) K1 vs autograd, dropout off, {validate_kernels.C} clients: "
+        f"max |diff| p {a['max_abs_param_diff']:.3g} on live entries with first |g| >= "
+        f"{validate_kernels.GRAD_FLOOR:g} (tol {validate_kernels.PARAM_TOL}; "
+        f"{a['live_entries_below_grad_floor']} of {a['live_entries']} below; all entries "
+        f"{a['max_abs_param_diff_all_entries']:.3g}), loss {a['loss_diff']:.3g} "
+        f"(tol {validate_kernels.LOSS_TOL}) ok={a['ok']}")
+    for rate in (0.1, 0.3, 0.5):
+        r = b[f"rate_{rate}"]
+        log(f"[kernels] validator (b) K3 {validate_kernels.MASK_SHAPE} rate {rate}: keep "
+            f"{r['keep_frac']:.5f} (expected {r['expected']:.1f} +- {r['tol_4sigma']:.5f}), "
+            f"mean {r['mask_mean']:.5f}, values ok {r['values_ok']}, bit-equal to plain "
+            f"{r['bit_equal_to_plain']}")
+    log(f"[kernels] validator (c) K1 dropout on: finite {c['finite']}, max |on - off| "
+        f"{c['max_abs_vs_dropout_off']:.3g}, mean loss {c['mean_loss']:.4f} ok={c['ok']}")
+    if not out["ok"]:
+        raise AssertionError("the kernel validator failed: " + json.dumps(
+            {k: out[k]["ok"] for k in ("autodiff_match", "mask_statistics", "dropout_on_step")}))
+
+
+def check_dropout_mask() -> dict:
+    """K3 against dropout_mask, bit for bit, at the validator's shape and
+    at every shape the xla path's step_masks asks of it at the config-4
+    width, and its time at the largest of those."""
+    C, B = CONFIG4["total_clients"], CONFIG4["batch_size"]
+    widths = local.mask_widths(TransformerModel())
+    big = (C, B, max(widths.values()))
+    path_shapes = sorted({(C, B, w) for w in widths.values()})
+    max_err = 0.0
+    for shape in [(1,) + validate_kernels.MASK_SHAPE] + path_shapes:
+        keys = tfs.client_keys(2024, 5, torch.arange(shape[0], device="cuda"))
+        for rate in (0.1, 0.3):
+            got = tfs.fill_mask(keys, local.T_HEAD, shape[1], shape[2], rate)
+            want = tfs.dropout_mask(keys, local.T_HEAD, shape[1], shape[2], rate)
+            torch.cuda.synchronize()
+            max_err = max(max_err, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"K3 differs from dropout_mask at {shape}, rate {rate}")
+        log(f"[kernels] K3 dropout_mask {list(shape)}: bit-equal to its plain version "
+            f"at rates 0.1 and 0.3")
+    keys = tfs.client_keys(2024, 5, torch.arange(C, device="cuda"))
+    ms = device_ms(lambda: tfs.fill_mask(keys, local.T_HEAD, B, big[2], 0.1))
+    plain_ms = device_ms(lambda: tfs.dropout_mask(keys, local.T_HEAD, B, big[2], 0.1),
+                         reps=50)
+    n = math.prod(big)
+    t_bytes = (4 * n + 8 * C) / HBM_BYTES * 1e3
+    t_ops = K3_OPS_PER_ELEMENT * n / INT32_OPS * 1e3
+    log(f"[kernels] K3 {list(big)}: kernel {ms * 1e3:.3f} us/launch, plain {plain_ms * 1e3:.3f} "
+        f"us, bound {max(t_bytes, t_ops) * 1e3:.3f} us ({4 * n / 1e6:.2f} MB written at "
+        f"3.35 TB/s; {K3_OPS_PER_ELEMENT * n / 1e6:.1f} M int32 ops take "
+        f"{t_ops * 1e3:.3f} us)")
+    return {"name": "dropout_mask", "route": "cuda",
+            "source": "attackfl_tpu_torch/csrc/dropout_mask.cu",
+            "replaces": "scripts/tpu_validate_pallas.py:125",
+            "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def xla_epoch_ms() -> float:
+    """One epoch of the xla local update at C=100, nb=12, B=128 (the
+    config-4 cut): CUDA events around the call (host time included), and
+    the device time of its kernels and copies under torch.profiler."""
+    C, B = CONFIG4["total_clients"], CONFIG4["batch_size"]
+    hi = DEPTH["cut"]["num_data_range"][1]
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in get_dataset(
+        "ICU", "train", CONFIG4["train_size"], CONFIG4["random_seed"]).items()}
+    update = local.build_local_update(
+        TransformerModel(), "ICU", data, epochs=1, batch_size=B, lr=CONFIG4["lr"],
+        clip_grad_norm=CONFIG4["clip_grad_norm"])
+    params = TransformerModel().init(torch.Generator().manual_seed(0), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    idx = torch.randint(0, data["label"].shape[0], (C, hi), generator=g, device="cuda")
+    mask = torch.ones((C, hi), dtype=torch.bool, device="cuda")
+    perms = torch.argsort(torch.rand((1, C, hi), generator=g, device="cuda"), dim=-1)
+    ms = time_ms(lambda: update(params, idx, mask, perms, 0), warmup=1, reps=5)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        update(params, idx, mask, perms, 0)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU and self_device_us(e) > 0]
+    busy = sum(self_device_us(e) for e in device) / 1e3
+    nb = -(-hi // B)
+    log(f"[kernels] xla local update C={C} nb={nb} B={B}: {ms:.3f} ms/epoch "
+        f"(CUDA events around the call, host time included), device busy {busy:.3f} ms/epoch, "
+        f"{sum(e.count for e in device) / nb:.0f} device kernels and copies per step "
+        f"(torch.profiler)")
+    return ms
+
+
+def run_config(cfg: Config, label: str) -> tuple[dict, list, dict]:
+    """The Simulator on the card; kernel launch counts over the run."""
     sim = Simulator(cfg, device="cuda")
     state = sim.init_state()
     torch.cuda.synchronize()
-    tfs.run_epoch.launches = 0
+    tfs.run_epoch.launches = tfs.fill_mask.launches = 0
     state, history = sim.run(state=state, verbose=False)
-    launches = tfs.run_epoch.launches
+    launches = {"fused_step": tfs.run_epoch.launches, "dropout_mask": tfs.fill_mask.launches}
     for h in history:
-        log(f"[main] round {h['round']} broadcast {h['broadcast']} ok={h['ok']} "
+        log(f"[main] {label} round {h['round']} broadcast {h['broadcast']} ok={h['ok']} "
             f"roc_auc={h.get('roc_auc', float('nan')):.4f} "
             f"train_loss={h['train_loss']:.4f} seconds={h['seconds']:.4f}")
     if not all(h["ok"] for h in history):
-        raise AssertionError("a main-path round failed")
+        raise AssertionError(f"a {label} round failed")
     auc = history[-1]["roc_auc"]
     if not (math.isfinite(auc) and auc > 0.5):
-        raise AssertionError(f"ROC-AUC {auc} is not above 0.5 by round {len(history)}")
-    if launches != len(history) * cfg.epochs:
-        raise AssertionError(f"K1 launched {launches} times, expected "
-                             f"{len(history) * cfg.epochs}")
+        raise AssertionError(f"{label}: ROC-AUC {auc} is not above 0.5 by round {len(history)}")
     if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(state["global_params"])):
-        raise AssertionError("global params are not finite")
-    log(f"[main] {len(history)} rounds ok; K1 launches {launches}; seconds per "
-        f"round {[round(h['seconds'], 4) for h in history]}")
-    return {"fused_step": launches}
+        raise AssertionError(f"{label}: global params are not finite")
+    return state, history, launches
+
+
+def main_path() -> dict:
+    """Config 4, depth cut, under both local backends, then the repo's
+    config.yaml.  Returns the kernels' launch counts: K1's from the
+    pallas run, K3's from the xla run."""
+    for key in DEPTH["cut"]:
+        log(f"[main] reduced {key}: {DEPTH['full'][key]} -> {DEPTH['cut'][key]}")
+    log(f"[main] reduced num_round: {ROUNDS[0]} -> {ROUNDS[1]}")
+    counts = {}
+    for backend in ("pallas", "xla"):
+        cfg = Config(**{**CONFIG4, "local_backend": backend}, **DEPTH["cut"],
+                     num_round=ROUNDS[1])
+        _, history, launches = run_config(cfg, backend)
+        nb = -(-cfg.num_data_range[1] // cfg.batch_size)
+        expect = ({"fused_step": len(history) * cfg.epochs, "dropout_mask": 0}
+                  if backend == "pallas" else
+                  {"fused_step": 0,
+                   "dropout_mask": len(history) * cfg.epochs * nb * local.MASKS_PER_STEP})
+        if launches != expect:
+            raise AssertionError(f"{backend}: kernel launches {launches}, expected {expect}")
+        log(f"[main] {backend}: {len(history)} rounds ok; launches {launches}; seconds per "
+            f"round {[round(h['seconds'], 4) for h in history]}")
+        counts.update({k: v for k, v in launches.items() if v})
+
+    # config.yaml as it stands: 3 clients at full depth, local_backend xla
+    path = os.path.join(REPO, "config.yaml")
+    cfg = load_config(path)
+    per_round = (cfg.epochs * -(-cfg.num_data_range[1] // cfg.batch_size)
+                 * local.MASKS_PER_STEP)
+    tfs.run_epoch.launches = tfs.fill_mask.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.run_main(["--config", path, "--rounds", "1"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1, k3 = tfs.run_epoch.launches, tfs.fill_mask.launches
+    if rc != 0 or k1 != 0 or k3 == 0 or k3 % per_round:
+        raise AssertionError(f"config.yaml run: exit {rc}, K1 launches {k1}, K3 launches {k3}")
+    log(f"[main] config.yaml, 1 round: ok in {seconds:.3f} s (construction included); "
+        f"K1 launches {k1}, K3 launches {k3} ({k3 // per_round} round(s) trained)")
+    return counts
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     card = card_line()
     log(f"[device] {card}")
     check_card(card)
@@ -320,17 +482,21 @@ def main() -> int:
     resolve_device("cuda")
 
     t0 = time.perf_counter()
-    _, ptxas = build.build("fused_step")
-    log(f"[build] fused_step.cu in {time.perf_counter() - t0:.1f} s")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
-    build.load_library("fused_step")
+    built = build.build_all(KERNELS)
+    log(f"[build] {', '.join(k + '.cu' for k in KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        for line in built[name][1].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build] {name}: {line.strip()}")
+        build.load_library(name)
 
-    kernels = [check_fused_step(card)]
+    check_validator()
+    kernels = [check_fused_step(card), check_dropout_mask()]
+    xla_epoch_ms()
     launches = main_path()
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    log(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,11 @@ import pytest
 import torch
 
 from attackfl_tpu_torch import cli
-from attackfl_tpu_torch.config import AttackSpec, Config
+from attackfl_tpu_torch.config import AttackSpec, Config, MeshConfig
 from attackfl_tpu_torch.data.partition import draw_round
 from attackfl_tpu_torch.ops import fused_step
 from attackfl_tpu_torch.ops import pytree as pt
-from attackfl_tpu_torch.training.engine import MAX_ROUND_RETRIES, Simulator
+from attackfl_tpu_torch.training.engine import MAX_ROUND_RETRIES, Simulator, check_slice
 
 SMALL = dict(num_round=3, total_clients=8, mode="fedavg", model="TransformerModel",
              data_name="ICU", num_data_range=(24, 32), epochs=2, batch_size=16,
@@ -47,13 +47,27 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    {"mode": "median"}, {"local_backend": "xla"}, {"pipeline": True},
+    {"mode": "median"},
+    {"local_backend": "xla", "mesh": MeshConfig(compute_dtype="bfloat16")},
+    {"pipeline": True},
     {"attacks": (AttackSpec(mode="Random", num_clients=1),)},
     {"client_dropout_rate": 0.1}, {"resume": True},
 ])
 def test_outside_the_slice_is_refused(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulator(Config(**{**SMALL, **override}), device="cpu")
+
+
+def test_compute_dtype_is_refused_where_it_applies():
+    """As in JAX, compute-dtype reaches only the xla local update.  For
+    pallas the config itself refuses it (K1 is float32), so check_slice's
+    refusal is the xla path's: mixed precision is not ported yet."""
+    bf16 = MeshConfig(compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="computes in float32"):
+        Config(**{**SMALL, "mesh": bf16})
+    check_slice(Config(**{**SMALL, "local_backend": "xla"}))
+    with pytest.raises(NotImplementedError, match="item 3, rest"):
+        check_slice(Config(**{**SMALL, "local_backend": "xla", "mesh": bf16}))
 
 
 def test_failed_round_keeps_params_and_leak_pool():

@@ -1,5 +1,5 @@
-"""The CUDA kernel of the port (csrc/fused_step.cu) against its plain
-PyTorch version, on the card.
+"""The CUDA kernels of the port (csrc/fused_step.cu, csrc/dropout_mask.cu)
+against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no JAX, so it runs
 where JAX is absent:
@@ -10,16 +10,21 @@ Small inputs (C=8, B=16, two minibatches) from a seed; tolerances 2e-4 on
 p and 1e-4 per step on the loss, as the CPU parity tests, and m and v each
 within 1e-3 of the plain version's largest |m| or |v|, as chip_smoke.py.  At this
 size the cold Adam start is well conditioned (chip_smoke.py explains why it
-is not at 100 clients).
+is not at 100 clients).  K3 must be bit-equal to its plain version; the
+torch-autograd local update with dropout on agrees between the card and
+the CPU at 2e-4 (both draw the same masks from the hash), gated as the
+kernel validator gates its check (a).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from attackfl_tpu_torch import validate_kernels as vk
 from attackfl_tpu_torch.models.icu import TransformerModel
 from attackfl_tpu_torch.ops import fused_step as tfs
 from attackfl_tpu_torch.ops.pytree import tree_map
+from attackfl_tpu_torch.training import local
 
 C, B, NB = 8, 16, 2
 
@@ -77,3 +82,32 @@ def test_kernel_rejects_cpu_cuda_mix(card):
     with pytest.raises(ValueError, match="is on"):
         tfs.run_epoch(groups, m, tfs.zeros_like_groups(groups), batches.cpu(), 0, 0,
                       lr=0.004, clip=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 256, 128), (100, 128, 64), (100, 128, 6),
+                                   (100, 128, 4), (3, 7, 5), (5, 1, 1)])
+def test_k3_is_bit_equal_to_plain_version(card, shape):
+    C_, rows, width = shape
+    keys = tfs.client_keys(1234, 7, torch.arange(C_, device=card))
+    for rate in (0.1, 0.3, 0.5):
+        launches = tfs.fill_mask.launches
+        got = tfs.fill_mask(keys, local.T_HEAD, rows, width, rate)
+        torch.cuda.synchronize()
+        assert tfs.fill_mask.launches == launches + 1
+        assert torch.equal(got, tfs.dropout_mask(keys, local.T_HEAD, rows, width, rate))
+
+
+@pytest.mark.cuda
+def test_xla_update_with_dropout_matches_cpu(card):
+    rates = (0.1, 0.1, 0.3)
+    cp, cok, closs = vk.train("cpu", rates, fused=False)
+    launches = tfs.fill_mask.launches
+    gp, gok, gloss = vk.train(card, rates, fused=False)
+    torch.cuda.synchronize()
+    nb = -(-vk.HI // vk.B)
+    assert tfs.fill_mask.launches == launches + vk.EPOCHS * nb * local.MASKS_PER_STEP
+    assert bool(cok.all()) and bool(gok.all())
+    assert float((gloss.cpu() - closs).abs().max()) <= vk.LOSS_TOL
+    sure = tree_map(lambda g: g >= vk.GRAD_FLOOR, vk.first_step_grads("cpu", rates))
+    assert vk.max_abs(tree_map(lambda x: x.cpu(), gp), cp, sure) <= vk.PARAM_TOL
