@@ -21,6 +21,16 @@
 //   the same way); at 100 clients they are ~40 MB, inside the 50 MB L2.
 //   Gradients and the forward stash live in per-client global scratch that
 //   the wrapper allocates.
+// * Every matrix product stages its operands in dynamic shared memory with
+//   cp.async (the weight whole, the activations in chunks of MC rows, rows
+//   padded by PAD floats) and computes its outputs as per-thread register
+//   tiles: gemm for A @ W and A @ W^T, gemm_tn for the weight gradients
+//   A^T @ dZ, which also folds in the bias gradient (the column sums of dZ).
+//   The products' epilogues (bias, GELU, dropout mask, residual) are applied
+//   per output as it leaves the registers.  Column sums over the batch
+//   (LayerNorm dg/db, the output layer) run on all threads and meet in
+//   shared memory.  The minibatch is read from global memory (it is staged
+//   with the other operands by the products that take it).
 // * fp32 on the CUDA cores, no TF32 and no tensor cores: the port's parity
 //   tolerances are fp32 tolerances.
 // * Dropout bits come from a counter-based hash (murmur3 fmix32 over seed,
@@ -29,12 +39,19 @@
 //
 // What bounds it: 22.4 MFLOP of live fp32 multiply-adds per client-step
 // at B=128 (ops/fused_step.py:epoch_work) against ~0.8 MB of
-// parameter-state traffic, so operations, not
-// bytes, bound the function.  This first version reads every operand
-// straight from global memory (L1/L2 resident) with one thread per output
-// element, and leaves 32 of the H100's 132 SMs idle at 100 clients: it is
-// load-issue bound, far from the fp32 peak.  Staging weights in shared
-// memory and splitting a client over several blocks are the next steps.
+// parameter-state traffic, so operations, not bytes, bound the function.
+// A register tile of TM x TN outputs costs TM + TN 16-byte shared loads per
+// 4 k against 4 TM TN fmaf (12 loads to 128 fmaf at 8 x 4), so the products
+// issue far fewer loads than fmaf.  What still holds it back: chip_smoke.py's
+// split of a step by batch size puts about 40% of a step in work that does
+// not grow with the rows (the clip and Adam over p, m, v and the gradients
+// in L2, one 4-byte access per thread at a time; weight staging; barriers)
+// and under a fifth in the forward and input-gradient tile loops; the rest
+// grows with the rows (the weight-gradient loops, LayerNorms, masks, loss,
+// staging, epilogues), and the split cannot part those.  One block of 8
+// warps per client, so at 100 clients 32 of the 132 SMs idle and each SM
+// has little to hide latency with; and every product's output goes out to
+// the global scratch and is staged back in by the next one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,6 +68,12 @@ constexpr int NCOL = 32;
 constexpr int H2 = 32;        // fc2 width
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+// dynamic shared memory: the staged operands of one product.  The largest
+// product is the head's first layer, w_h1 [128, 64] plus a 128-row chunk of cc [., 128], each row
+// padded by PAD floats against bank conflicts
+constexpr int PAD = 4;
+constexpr int MC = 128;   // rows of a staged chunk
+constexpr int SMEM_FLOATS = 2 * D * (D + PAD) + MC * (2 * D + PAD);
 
 constexpr float B1 = 0.9f;
 constexpr float B2 = 0.999f;
@@ -183,52 +206,199 @@ __device__ float block_sum(float v, float* red) {
   return t;
 }
 
-// out(m, n) = epi(m, n, sum_k A[m*lda + k] * W[k*ldw + n])          (A @ W)
-template <class Epi>
-__device__ __forceinline__ void gemm_nn(int M, int N, int K, const float* A, int lda,
-                                        const float* W, int ldw, Epi epi) {
-  for (int idx = threadIdx.x; idx < M * N; idx += THREADS) {
-    const int m = idx / N, n = idx - m * N;
-    const float* a = A + (size_t)m * lda;
-    float acc = 0.0f;
-    for (int k = 0; k < K; ++k) acc = fmaf(a[k], W[k * ldw + n], acc);
-    epi(m, n, acc);
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Asynchronous copies from global to shared memory (cp.async) of 16 or 4
+// bytes: a thread issues all of its copies before any has landed.
+// stage_wait() waits for every copy the thread issued, then for the block.
+__device__ __forceinline__ unsigned smem_addr(const float* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// s[r*lds + c] = g[r*ld + c] for r < rows, c < COLS (COLS % 4 == 0, lds % 4
+// == 0, s 16-byte aligned), visible after stage_wait(): 16-byte copies where
+// g and ld allow them, else 4-byte ones
+template <int COLS>
+__device__ __forceinline__ void stage(float* s, int lds, const float* g, int ld, int rows) {
+  constexpr int C4 = COLS / 4;
+  if (((reinterpret_cast<uintptr_t>(g) & 15) | (ld & 3)) == 0) {
+    for (int i = threadIdx.x; i < rows * C4; i += THREADS) {
+      const int r = i / C4, q = i - r * C4;
+      copy16(s + r * lds + 4 * q, g + (size_t)r * ld + 4 * q);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * COLS; i += THREADS) {
+      const int r = i / COLS, q = i - r * COLS;
+      copy4(s + r * lds + q, g + (size_t)r * ld + q);
+    }
   }
 }
 
-// out(m, k) = epi(m, k, sum_n Dz[m*ldd + n] * W[k*ldw + n])         (dZ @ W^T)
-template <class Epi>
-__device__ __forceinline__ void gemm_nt(int M, int K, int N, const float* Dz, int ldd,
-                                        const float* W, int ldw, Epi epi) {
-  for (int idx = threadIdx.x; idx < M * K; idx += THREADS) {
-    const int m = idx / K, k = idx - m * K;
-    const float* d = Dz + (size_t)m * ldd;
-    const float* w = W + k * ldw;
-    float acc = 0.0f;
-    for (int n = 0; n < N; ++n) acc = fmaf(d[n], w[n], acc);
-    epi(m, k, acc);
+// s[k*lds + n] = W[n*ldw + k] for n < N, k < K, visible after stage_wait():
+// W [N, K] staged transposed; consecutive threads write consecutive n, so
+// the stores share no bank
+template <int N, int K>
+__device__ __forceinline__ void stage_t(float* s, int lds, const float* W, int ldw) {
+  for (int i = threadIdx.x; i < N * K; i += THREADS) {
+    const int n = i % N, k = i / N;
+    copy4(s + k * lds + n, W + n * ldw + k);
   }
 }
 
-// out[k*ldo + n] = sum_m A[m*lda + k] * Dz[m*ldd + n]                (A^T @ dZ)
-__device__ __forceinline__ void gemm_tn(int K, int N, int M, const float* A, int lda,
-                                        const float* Dz, int ldd, float* out, int ldo) {
-  for (int idx = threadIdx.x; idx < K * N; idx += THREADS) {
-    const int k = idx / N, n = idx - k * N;
-    float acc = 0.0f;
-    for (int m = 0; m < M; ++m) acc = fmaf(A[(size_t)m * lda + k], Dz[(size_t)m * ldd + n], acc);
-    out[k * ldo + n] = acc;
+// out(m, n) = epi(m, n, sum_k A[m*lda + k] * W(k, n)) for m < M, n < N, with
+// W(k, n) = W[k*ldw + n] (NN: A @ W) or W[n*ldw + k] (NT: A @ W^T).
+// W is staged in shared memory whole, as [K, N], and A in chunks of MCH rows;
+// each thread holds a TM x TN register tile of the chunk's output and reads,
+// per 4 k, TM float4 of A and TN float4 of W from shared memory.  Each output
+// is one chain of fmaf over k = 0 .. K-1, the plain loop's order.
+constexpr bool NN = false, NT = true;
+
+template <int N, int K, int TM, int TN, bool WT, class Epi>
+__device__ __forceinline__ void gemm(int M, const float* A, int lda, const float* W, int ldw,
+                                     float* sm, Epi epi) {
+  constexpr int CG = N / TN, RG = THREADS / CG, MCH = RG * TM;
+  constexpr int LDW = N + PAD, LDA = K + PAD;
+  static_assert(N % TN == 0 && TN % 4 == 0 && K % 4 == 0 && THREADS % CG == 0, "tile");
+  static_assert(K * LDW + MCH * LDA <= SMEM_FLOATS, "shared-memory budget");
+  float* sW = sm;
+  float* sA = sm + K * LDW;
+  if constexpr (WT)
+    stage_t<N, K>(sW, LDW, W, ldw);
+  else
+    stage<N>(sW, LDW, W, ldw, K);
+  const int cg = threadIdx.x % CG, rg = threadIdx.x / CG;
+  for (int m0 = 0; m0 < M; m0 += MCH) {
+    stage<K>(sA, LDA, A + (size_t)m0 * lda, lda, min(MCH, M - m0));
+    stage_wait();
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+#pragma unroll 2
+    for (int k = 0; k < K; k += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = ld4(sA + (rg * TM + i) * LDA + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float w[TN];
+#pragma unroll
+        for (int q = 0; q < TN / 4; ++q) {
+          const float4 t = ld4(sW + (k + kk) * LDW + cg * TN + 4 * q);
+          w[4 * q] = t.x; w[4 * q + 1] = t.y; w[4 * q + 2] = t.z; w[4 * q + 3] = t.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(lane4(a[i], kk), w[j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = m0 + rg * TM + i;
+      if (m < M)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) epi(m, cg * TN + j, acc[i][j]);
+    }
+    __syncthreads();   // sA (and, after the last chunk, sW) may be restaged
   }
 }
 
-// out[n] = sum_m X[m*ldx + n] for n < N, zero for N <= n < D         (bias grads)
-__device__ __forceinline__ void colsum_row(int M, int N, const float* X, int ldx, float* out) {
-  for (int n = threadIdx.x; n < D; n += THREADS) {
-    float acc = 0.0f;
+// Weight and bias gradients of one layer (A^T @ dZ and the column sums of dZ):
+//   out[k*N + n] = sum_m A[m*lda + k] * Dz[m*ldd + n] for klo <= k < khi, and
+//                  exactly zero for the other k;
+//   bias[n]      = sum_m Dz[m*ldd + n] for n < N, zero for N <= n < D.
+// Chunks of MC rows of A and Dz are staged in shared memory.  Each thread
+// holds a TK x TN register tile of out and walks every R-th row of the chunk,
+// R = THREADS / (tiles of out), reading TK/4 + TN/4 float4 per row; for the
+// bias it sums one column over every (THREADS/N)-th row.  The R partial
+// tiles and the bias's row slices are added up in shared memory at the end.
+template <int K, int N, int TK, int TN>
+__device__ __forceinline__ void gemm_tn(int M, const float* A, int lda, const float* Dz, int ldd,
+                                        float* out, float* bias, float* sm, int klo = 0,
+                                        int khi = K) {
+  constexpr int CG = N / TN, G = (K / TK) * CG, R = THREADS / G, S = THREADS / N;
+  constexpr int LDA = K + PAD, LDD = N + PAD;
+  static_assert(K % TK == 0 && N % TN == 0 && TK % 4 == 0 && TN % 4 == 0, "tile");
+  static_assert(THREADS % G == 0 && THREADS % N == 0 && N <= D, "tile");
+  static_assert(MC * (LDA + LDD) <= SMEM_FLOATS && R * K * N + THREADS <= SMEM_FLOATS,
+                "shared-memory budget");
+  float* sA = sm;
+  float* sD = sm + MC * LDA;
+  const int tid = threadIdx.x, g = tid % G, r = tid / G, cg = g % CG, kg = g / CG;
+  float acc[TK][TN];
+#pragma unroll
+  for (int i = 0; i < TK; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+  float bsum = 0.0f;
+  for (int m0 = 0; m0 < M; m0 += MC) {
+    const int rows = min(MC, M - m0);
+    stage<K>(sA, LDA, A + (size_t)m0 * lda, lda, rows);
+    stage<N>(sD, LDD, Dz + (size_t)m0 * ldd, ldd, rows);
+    stage_wait();
+    for (int m = r; m < rows; m += R) {
+      float a[TK], d[TN];
+#pragma unroll
+      for (int q = 0; q < TK / 4; ++q) {
+        const float4 t = ld4(sA + m * LDA + kg * TK + 4 * q);
+        a[4 * q] = t.x; a[4 * q + 1] = t.y; a[4 * q + 2] = t.z; a[4 * q + 3] = t.w;
+      }
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q) {
+        const float4 t = ld4(sD + m * LDD + cg * TN + 4 * q);
+        d[4 * q] = t.x; d[4 * q + 1] = t.y; d[4 * q + 2] = t.z; d[4 * q + 3] = t.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TK; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], d[j], acc[i][j]);
+    }
+    for (int m = tid / N; m < rows; m += S) bsum += sD[m * LDD + tid % N];
+    __syncthreads();
+  }
+  float* red = sm;   // [R][K][N] partial tiles, then [S][N] bias slices
+#pragma unroll
+  for (int i = 0; i < TK; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) red[(r * K + kg * TK + i) * N + cg * TN + j] = acc[i][j];
+  red[R * K * N + tid] = bsum;
+  __syncthreads();
+  for (int idx = tid; idx < K * N; idx += THREADS) {
+    float s = 0.0f;
+#pragma unroll
+    for (int q = 0; q < R; ++q) s += red[q * K * N + idx];
+    const int k = idx / N;
+    out[idx] = (k >= klo && k < khi) ? s : 0.0f;
+  }
+  for (int n = tid; n < D; n += THREADS) {
+    float s = 0.0f;
     if (n < N)
-      for (int m = 0; m < M; ++m) acc += X[(size_t)m * ldx + n];
-    out[n] = acc;
+#pragma unroll
+      for (int q = 0; q < S; ++q) s += red[R * K * N + q * N + n];
+    bias[n] = s;
   }
+  __syncthreads();
 }
 
 // LayerNorm forward over rows of width D, one warp per row:
@@ -251,10 +421,35 @@ __device__ void ln_fwd(int B, const float* r, int ldr, const float* g, const flo
   }
 }
 
+// out0[n] = sum_m s0 and out1[n] = sum_m s1 for n < D, where f(m, n, s0, s1)
+// adds row m's terms of column n: THREADS / D row groups of D columns, then
+// a reduction of the groups' partial sums in shared memory (red, 2 THREADS)
+template <class F>
+__device__ __forceinline__ void col_sums(int M, F f, float* out0, float* out1, float* red) {
+  constexpr int Q = THREADS / D;
+  const int n = threadIdx.x % D;
+  float s0 = 0.0f, s1 = 0.0f;
+  for (int m = threadIdx.x / D; m < M; m += Q) f(m, n, s0, s1);
+  red[threadIdx.x] = s0;
+  red[THREADS + threadIdx.x] = s1;
+  __syncthreads();
+  if (threadIdx.x < D) {
+    float a = 0.0f, b = 0.0f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      a += red[q * D + n];
+      b += red[THREADS + q * D + n];
+    }
+    out0[n] = a;
+    out1[n] = b;
+  }
+  __syncthreads();
+}
+
 // LayerNorm backward: dx rows (one warp per row), then dg = sum dy*xhat and
 // db = sum dy over rows into the vecs-gradient rows.
 __device__ void ln_bwd(int B, const float* dy, int lddy, const float* xhat, const float* rstd,
-                       const float* g, float* dx, float* dg, float* db) {
+                       const float* g, float* dx, float* dg, float* db, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int m = warp; m < B; m += WARPS) {
     const float ya = dy[(size_t)m * lddy + lane], yb = dy[(size_t)m * lddy + lane + 32];
@@ -266,16 +461,11 @@ __device__ void ln_bwd(int B, const float* dy, int lddy, const float* xhat, cons
     dx[m * D + lane] = (ga - mean1 - ha * mean2) * rs;
     dx[m * D + lane + 32] = (gb - mean1 - hb * mean2) * rs;
   }
-  for (int n = threadIdx.x; n < D; n += THREADS) {
-    float sg = 0.0f, sb = 0.0f;
-    for (int m = 0; m < B; ++m) {
-      const float y = dy[(size_t)m * lddy + n];
-      sg = fmaf(y, xhat[m * D + n], sg);
-      sb += y;
-    }
-    dg[n] = sg;
-    db[n] = sb;
-  }
+  col_sums(B, [&](int m, int n, float& sg, float& sb) {
+    const float y = dy[(size_t)m * lddy + n];
+    sg = fmaf(y, xhat[m * D + n], sg);
+    sb += y;
+  }, dg, db, red);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -283,6 +473,7 @@ train_epoch_kernel(Groups grp, const float* __restrict__ batches, float* __restr
                    float* __restrict__ scratch, int nb, int B, uint32_t seed, int t_offset,
                    float lr, float clip, Drop drop) {
   __shared__ float red[WARPS];
+  extern __shared__ __align__(16) float sm[];
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
   const int sizes[N_G] = {SZ_WIN, SZ_WSQ, SZ_WFF1, SZ_WFF2, SZ_WH1, SZ_WH2, SZ_VECS};
@@ -323,17 +514,18 @@ train_epoch_kernel(Groups grp, const float* __restrict__ batches, float* __restr
       // z1 = data @ w_in[b] + bd ; x1 = gelu(z1)
       {
         const float* bias = vecs + (base + S_BD) * D;
-        gemm_nn(B, D, NCOL, data, NCOL, w_in + b * NIN * D, D, [&](int m, int n, float acc) {
-          const float z = acc + bias[n];
-          z1[m * D + n] = z;
-          x1[m * D + n] = gelu(z);
-        });
+        gemm<D, NCOL, 8, 4, NN>(
+            B, data, NCOL, w_in + b * NIN * D, D, sm, [&](int m, int n, float acc) {
+              const float z = acc + bias[n];
+              z1[m * D + n] = z;
+              x1[m * D + n] = gelu(z);
+            });
       }
       __syncthreads();
       // vd = (x1 @ w_v + bv) * mw
       {
         const float* bias = vecs + (base + S_BV) * D;
-        gemm_nn(B, D, D, x1, D, w_sq + (2 * b) * D * D, D, [&](int m, int n, float acc) {
+        gemm<D, D, 8, 4, NN>(B, x1, D, w_sq + (2 * b) * D * D, D, sm, [&](int m, int n, float acc) {
           vd[m * D + n] = (acc + bias[n]) *
                           mask_at(k_mw, m * D + n, drop.thr_attn, drop.scale_attn);
         });
@@ -342,10 +534,11 @@ train_epoch_kernel(Groups grp, const float* __restrict__ batches, float* __restr
       // r1 = x1 + (vd @ w_o + bo) * m1   -> t1
       {
         const float* bias = vecs + (base + S_BO) * D;
-        gemm_nn(B, D, D, vd, D, w_sq + (2 * b + 1) * D * D, D, [&](int m, int n, float acc) {
-          S.t1[m * D + n] = x1[m * D + n] + (acc + bias[n]) *
-                            mask_at(k_m1, m * D + n, drop.thr_block, drop.scale_block);
-        });
+        gemm<D, D, 8, 4, NN>(
+            B, vd, D, w_sq + (2 * b + 1) * D * D, D, sm, [&](int m, int n, float acc) {
+              S.t1[m * D + n] = x1[m * D + n] + (acc + bias[n]) *
+                                mask_at(k_m1, m * D + n, drop.thr_block, drop.scale_block);
+            });
       }
       __syncthreads();
       ln_fwd(B, S.t1, D, vecs + (base + S_G1) * D, vecs + (base + S_BE1) * D, S.xh1[b],
@@ -356,21 +549,24 @@ train_epoch_kernel(Groups grp, const float* __restrict__ batches, float* __restr
         const float* bias = vecs + (base + S_B1F) * D;
         float* z2 = S.z2[b];
         float* hd = S.hd[b];
-        gemm_nn(B, FF, D, S.x2[b], D, w_ff1 + b * D * FF, FF, [&](int m, int n, float acc) {
-          const float z = acc + bias[n];
-          z2[m * FF + n] = z;
-          hd[m * FF + n] = gelu(z) * mask_at(k_mf, m * FF + n, drop.thr_block, drop.scale_block);
-        });
+        gemm<FF, D, 1, 4, NN>(
+            B, S.x2[b], D, w_ff1 + b * D * FF, FF, sm, [&](int m, int n, float acc) {
+              const float z = acc + bias[n];
+              z2[m * FF + n] = z;
+              hd[m * FF + n] =
+                  gelu(z) * mask_at(k_mf, m * FF + n, drop.thr_block, drop.scale_block);
+            });
       }
       __syncthreads();
       // r2 = x2 + (hd @ w_ff2[b] + b2f) * m2   -> t1
       {
         const float* bias = vecs + (base + S_B2F) * D;
         const float* x2 = S.x2[b];
-        gemm_nn(B, D, FF, S.hd[b], FF, w_ff2 + b * FF * D, D, [&](int m, int n, float acc) {
-          S.t1[m * D + n] = x2[m * D + n] + (acc + bias[n]) *
-                            mask_at(k_m2, m * D + n, drop.thr_block, drop.scale_block);
-        });
+        gemm<D, FF, 8, 4, NN>(
+            B, S.hd[b], FF, w_ff2 + b * FF * D, D, sm, [&](int m, int n, float acc) {
+              S.t1[m * D + n] = x2[m * D + n] + (acc + bias[n]) *
+                                mask_at(k_m2, m * D + n, drop.thr_block, drop.scale_block);
+            });
       }
       __syncthreads();
       ln_fwd(B, S.t1, D, vecs + (base + S_G2) * D, vecs + (base + S_BE2) * D, S.xh2[b],
@@ -386,7 +582,7 @@ train_epoch_kernel(Groups grp, const float* __restrict__ batches, float* __restr
     // z4 = cc @ w_h1 + bf1 ; x4d = gelu(z4) * m4
     {
       const float* bias = vecs + S_BF1 * D;
-      gemm_nn(B, D, 2 * D, S.cc, 2 * D, w_h1, D, [&](int m, int n, float acc) {
+      gemm<D, 2 * D, 8, 4, NN>(B, S.cc, 2 * D, w_h1, D, sm, [&](int m, int n, float acc) {
         const float z = acc + bias[n];
         S.z4[m * D + n] = z;
         S.x4d[m * D + n] = gelu(z) * mask_at(k_m4, m * D + n, drop.thr_head, drop.scale_head);
@@ -396,7 +592,7 @@ train_epoch_kernel(Groups grp, const float* __restrict__ batches, float* __restr
     // z5 = x4d @ w_h2 + bf2 ; x5 = gelu(z5)
     {
       const float* bias = vecs + S_BF2 * D;
-      gemm_nn(B, H2, D, S.x4d, D, w_h2, H2, [&](int m, int n, float acc) {
+      gemm<H2, D, 4, 4, NN>(B, S.x4d, D, w_h2, H2, sm, [&](int m, int n, float acc) {
         const float z = acc + bias[n];
         S.z5[m * H2 + n] = z;
         S.x5[m * H2 + n] = gelu(z);
@@ -434,33 +630,26 @@ train_epoch_kernel(Groups grp, const float* __restrict__ batches, float* __restr
     }
     __syncthreads();
     // g_wout, g_bout (vecs rows, zero-padded) and dz5 = dz6 * wo * gelu'(z5)
-    for (int n = tid; n < D; n += THREADS) {
-      float sw = 0.0f, sb = 0.0f;
-      for (int m = 0; m < B; ++m) {
-        if (n < H2) sw = fmaf(S.x5[m * H2 + n], S.dz6[m], sw);
-        if (n == 0) sb += S.dz6[m];
-      }
-      gvecs[S_WOUT * D + n] = sw;
-      gvecs[S_BOUT * D + n] = sb;
-    }
+    col_sums(B, [&](int m, int n, float& sw, float& sb) {
+      if (n < H2) sw = fmaf(S.x5[m * H2 + n], S.dz6[m], sw);
+      if (n == 0) sb += S.dz6[m];
+    }, gvecs + S_WOUT * D, gvecs + S_BOUT * D, sm);
     for (int idx = tid; idx < B * H2; idx += THREADS) {
       const int m = idx / H2, n = idx - m * H2;
       S.dz5[idx] = S.dz6[m] * wo[n] * gelu_grad(S.z5[idx]);
     }
     __syncthreads();
-    gemm_tn(D, H2, B, S.x4d, D, S.dz5, H2, gw_h2, H2);
-    colsum_row(B, H2, S.dz5, H2, gvecs + S_BF2 * D);
+    gemm_tn<D, H2, 4, 4>(B, S.x4d, D, S.dz5, H2, gw_h2, gvecs + S_BF2 * D, sm);
     // dz4 = (dz5 @ w_h2^T) * m4 * gelu'(z4)
-    gemm_nt(B, D, H2, S.dz5, H2, w_h2, H2, [&](int m, int k, float acc) {
+    gemm<D, H2, 8, 4, NT>(B, S.dz5, H2, w_h2, H2, sm, [&](int m, int k, float acc) {
       S.dz4[m * D + k] = acc * mask_at(k_m4, m * D + k, drop.thr_head, drop.scale_head) *
                          gelu_grad(S.z4[m * D + k]);
     });
     __syncthreads();
-    gemm_tn(2 * D, D, B, S.cc, 2 * D, S.dz4, D, gw_h1, D);
-    colsum_row(B, D, S.dz4, D, gvecs + S_BF1 * D);
+    gemm_tn<2 * D, D, 8, 4>(B, S.cc, 2 * D, S.dz4, D, gw_h1, gvecs + S_BF1 * D, sm);
     // dcc = dz4 @ w_h1^T
-    gemm_nt(B, 2 * D, D, S.dz4, D, w_h1, D,
-            [&](int m, int k, float acc) { S.dcc[m * 2 * D + k] = acc; });
+    gemm<2 * D, D, 8, 8, NT>(B, S.dz4, D, w_h1, D, sm,
+                             [&](int m, int k, float acc) { S.dcc[m * 2 * D + k] = acc; });
     __syncthreads();
 
     for (int b = 0; b < 2; ++b) {
@@ -469,73 +658,65 @@ train_epoch_kernel(Groups grp, const float* __restrict__ batches, float* __restr
       const uint32_t k_mf = fmix32(kc ^ (T_MF + 4 * b)), k_m2 = fmix32(kc ^ (T_M2 + 4 * b));
       // branch LayerNorm, then the FFN LayerNorm:  dx3 -> t1, dr2 -> t2
       ln_bwd(B, S.dcc + b * D, 2 * D, S.xh3[b], S.rs3[b], vecs + (base + S_G3) * D, S.t1,
-             gvecs + (base + S_G3) * D, gvecs + (base + S_BE3) * D);
+             gvecs + (base + S_G3) * D, gvecs + (base + S_BE3) * D, sm);
       __syncthreads();
       ln_bwd(B, S.t1, D, S.xh2[b], S.rs2[b], vecs + (base + S_G2) * D, S.t2,
-             gvecs + (base + S_G2) * D, gvecs + (base + S_BE2) * D);
+             gvecs + (base + S_G2) * D, gvecs + (base + S_BE2) * D, sm);
       __syncthreads();
       // dyf = dr2 * m2 -> t3
       for (int idx = tid; idx < B * D; idx += THREADS)
         S.t3[idx] = S.t2[idx] * mask_at(k_m2, idx, drop.thr_block, drop.scale_block);
       __syncthreads();
-      gemm_tn(FF, D, B, S.hd[b], FF, S.t3, D, gw_ff2 + b * FF * D, D);
-      colsum_row(B, D, S.t3, D, gvecs + (base + S_B2F) * D);
+      gemm_tn<FF, D, 4, 4>(B, S.hd[b], FF, S.t3, D, gw_ff2 + b * FF * D,
+                           gvecs + (base + S_B2F) * D, sm);
       // dz2 = (dyf @ w_ff2[b]^T) * mf * gelu'(z2)
       {
         const float* z2 = S.z2[b];
-        gemm_nt(B, FF, D, S.t3, D, w_ff2 + b * FF * D, D, [&](int m, int k, float acc) {
+        gemm<FF, D, 1, 4, NT>(B, S.t3, D, w_ff2 + b * FF * D, D, sm, [&](int m, int k, float acc) {
           S.dz2[m * FF + k] = acc * mask_at(k_mf, m * FF + k, drop.thr_block, drop.scale_block) *
                               gelu_grad(z2[m * FF + k]);
         });
       }
       __syncthreads();
-      gemm_tn(D, FF, B, S.x2[b], D, S.dz2, FF, gw_ff1 + b * D * FF, FF);
-      colsum_row(B, FF, S.dz2, FF, gvecs + (base + S_B1F) * D);
+      gemm_tn<D, FF, 4, 4>(B, S.x2[b], D, S.dz2, FF, gw_ff1 + b * D * FF,
+                           gvecs + (base + S_B1F) * D, sm);
       // dx2 = dr2 + dz2 @ w_ff1[b]^T -> t1
-      gemm_nt(B, D, FF, S.dz2, FF, w_ff1 + b * D * FF, FF, [&](int m, int k, float acc) {
+      gemm<D, FF, 8, 4, NT>(B, S.dz2, FF, w_ff1 + b * D * FF, FF, sm, [&](int m, int k, float acc) {
         S.t1[m * D + k] = S.t2[m * D + k] + acc;
       });
       __syncthreads();
       // attention LayerNorm: dr1 -> t2
       ln_bwd(B, S.t1, D, S.xh1[b], S.rs1[b], vecs + (base + S_G1) * D, S.t2,
-             gvecs + (base + S_G1) * D, gvecs + (base + S_BE1) * D);
+             gvecs + (base + S_G1) * D, gvecs + (base + S_BE1) * D, sm);
       __syncthreads();
       // da = dr1 * m1 -> t3
       for (int idx = tid; idx < B * D; idx += THREADS)
         S.t3[idx] = S.t2[idx] * mask_at(k_m1, idx, drop.thr_block, drop.scale_block);
       __syncthreads();
-      gemm_tn(D, D, B, S.vd[b], D, S.t3, D, gw_sq + (2 * b + 1) * D * D, D);
-      colsum_row(B, D, S.t3, D, gvecs + (base + S_BO) * D);
+      gemm_tn<D, D, 4, 4>(B, S.vd[b], D, S.t3, D, gw_sq + (2 * b + 1) * D * D,
+                          gvecs + (base + S_BO) * D, sm);
       // dv = (da @ w_o^T) * mw -> t1
-      gemm_nt(B, D, D, S.t3, D, w_sq + (2 * b + 1) * D * D, D, [&](int m, int k, float acc) {
-        S.t1[m * D + k] = acc * mask_at(k_mw, m * D + k, drop.thr_attn, drop.scale_attn);
-      });
+      gemm<D, D, 8, 4, NT>(
+          B, S.t3, D, w_sq + (2 * b + 1) * D * D, D, sm, [&](int m, int k, float acc) {
+            S.t1[m * D + k] = acc * mask_at(k_mw, m * D + k, drop.thr_attn, drop.scale_attn);
+          });
       __syncthreads();
-      gemm_tn(D, D, B, S.x1[b], D, S.t1, D, gw_sq + (2 * b) * D * D, D);
-      colsum_row(B, D, S.t1, D, gvecs + (base + S_BV) * D);
+      gemm_tn<D, D, 4, 4>(B, S.x1[b], D, S.t1, D, gw_sq + (2 * b) * D * D,
+                          gvecs + (base + S_BV) * D, sm);
       // dz1 = (dr1 + dv @ w_v^T) * gelu'(z1) -> t3
       {
         const float* z1 = S.z1[b];
-        gemm_nt(B, D, D, S.t1, D, w_sq + (2 * b) * D * D, D, [&](int m, int k, float acc) {
-          S.t3[m * D + k] = (S.t2[m * D + k] + acc) * gelu_grad(z1[m * D + k]);
-        });
+        gemm<D, D, 8, 4, NT>(
+            B, S.t1, D, w_sq + (2 * b) * D * D, D, sm, [&](int m, int k, float acc) {
+              S.t3[m * D + k] = (S.t2[m * D + k] + acc) * gelu_grad(z1[m * D + k]);
+            });
       }
       __syncthreads();
       // input projection: only the branch's own rows train; the rest of the
       // padded [32, D] matrix (other branch, label, mask) gets exactly zero
-      {
-        const int lo = b == 0 ? IN_LO0 : IN_LO1, hi = b == 0 ? IN_HI0 : IN_HI1;
-        float* gw = gw_in + b * NIN * D;
-        for (int idx = tid; idx < NIN * D; idx += THREADS) {
-          const int k = idx / D, n = idx - k * D;
-          float acc = 0.0f;
-          if (k >= lo && k < hi)
-            for (int m = 0; m < B; ++m) acc = fmaf(data[m * NCOL + k], S.t3[m * D + n], acc);
-          gw[idx] = acc;
-        }
-      }
-      colsum_row(B, D, S.t3, D, gvecs + (base + S_BD) * D);
-      __syncthreads();
+      gemm_tn<NIN, D, 4, 4>(B, data, NCOL, S.t3, D, gw_in + b * NIN * D,
+                            gvecs + (base + S_BD) * D, sm, b == 0 ? IN_LO0 : IN_LO1,
+                            b == 0 ? IN_HI0 : IN_HI1);
     }
 
     // ---------------- clip + Adam ----------------
@@ -589,7 +770,11 @@ int fused_step_run_epoch(void* const* ptrs, const float* batches, float* loss, f
     grp.v[g] = static_cast<float*>(ptrs[2 * N_G + g]);
   }
   Drop drop{thr_attn, thr_block, thr_head, scale_attn, scale_block, scale_head};
-  train_epoch_kernel<<<C, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  constexpr int smem = SMEM_FLOATS * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      train_epoch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  train_epoch_kernel<<<C, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       grp, batches, loss, scratch, nb, B, seed, t_offset, lr, clip, drop);
   return (int)cudaGetLastError();
 }

@@ -30,6 +30,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +70,11 @@ INT32_OPS = FP32_FLOPS / 2
 # multiplies, 3 shifts and 4 xors, then a compare and a select
 K3_OPS_PER_ELEMENT = 11
 KERNELS = ("fused_step", "dropout_mask")
+# rows of the chunks K1 stages for its products (MC in csrc/fused_step.cu)
+K1_CHUNK_ROWS = 128
+# K1's dynamic shared memory per block, SMEM_FLOATS * 4 in csrc/fused_step.cu:
+# w_h1 [128, 64] and a chunk of cc [128, 128], rows padded by 4 floats
+K1_SMEM_BYTES = (2 * 64 * (64 + 4) + K1_CHUNK_ROWS * (2 * 64 + 4)) * 4
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # kernel vs plain version: p absolute, loss absolute per step, m and v
@@ -225,7 +231,19 @@ def cold_float64(groups, batches, rates, nb: int):
     return p, g1
 
 
-def check_fused_step(card: str) -> dict:
+def ptxas_facts(ptxas: str) -> str:
+    """Registers, stack frame and spills of the build's one kernel, from
+    nvcc's ``-Xptxas -v`` output."""
+    regs = re.search(r"Used (\d+) registers", ptxas)
+    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ptxas)
+    if not (regs and frame):
+        return "registers and spills not reported (library built earlier)"
+    return (f"{regs.group(1)} registers, {frame.group(1)} bytes stack frame, "
+            f"{frame.group(2)} bytes spill stores, {frame.group(3)} bytes spill loads")
+
+
+def check_fused_step(card: str, ptxas: str) -> dict:
     """K1: the CUDA kernel against run_epoch_reference at config-4 shapes,
     two launches from a mid-training (warm) and from the cold Adam state,
     dropout off and on.
@@ -300,14 +318,43 @@ def check_fused_step(card: str) -> dict:
                        warmup=1, reps=5)
     work = tfs.epoch_work(C, nb, B)
     t_ops, t_bytes = work["flops"] / FP32_FLOPS * 1e3, work["bytes"] / HBM_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
     log(f"[kernels] K1 C={C} nb={nb} B={B}: kernel {ms:.3f} ms/launch, plain "
-        f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms "
         f"({work['flops'] / 1e9:.2f} GFLOP, {work['bytes'] / 1e6:.1f} MB)")
+    log(f"[kernels] K1 facts: {K1_SMEM_BYTES} bytes of dynamic shared memory per block; "
+        f"{ptxas_facts(ptxas)}; {work['flops'] / ms / 1e9:.3f} TFLOP/s of live products "
+        f"achieved; {bound / ms:.2%} of the bound")
+    # A step's time against the batch size.  The forward and input-gradient
+    # products (gemm) run their register-tile loops over whole chunks of
+    # K1_CHUNK_ROWS rows, so within one chunk their cost is fixed and the
+    # slope is the rest of the row work: the weight-gradient loops (gemm_tn
+    # walks the real rows), LayerNorms, masks, loss, staging and epilogues.
+    # Over whole chunks the slope is all row work and the intercept the work
+    # that does not grow with the rows (global-norm clip, Adam, weight
+    # staging, barriers).
+    sizes = (32, 64, 128, 256, 384)
+    per_step = []
+    for rows in sizes:
+        rb = batches.repeat(1, 1, -(-rows // B), 1)[:, :, :rows].contiguous()
+        per_step.append(time_ms(lambda: tfs.run_epoch(tp, tm, tv, rb, 1, 0, **kw), reps=15) / nb)
+    one = np.polyfit(sizes[:3], per_step[:3], 1)
+    whole = np.polyfit(sizes[2:], per_step[2:], 1)
+    parts = {"row-independent (clip, Adam, weight staging, barriers)": whole[1],
+             "forward and input-gradient tile loops": (whole[0] - one[0]) * K1_CHUNK_ROWS,
+             "row-proportional work (weight-gradient loops, LayerNorms, masks, loss, "
+             "staging, epilogues)": one[0] * K1_CHUNK_ROWS}
+    step = sum(parts.values())
+    log(f"[kernels] K1 ms per step at C={C} by batch size: "
+        f"{', '.join(f'B={r} {t:.4f}' for r, t in zip(sizes, per_step))}; over whole chunks "
+        f"{whole[1]:.4f} ms + {whole[0] * 1e3:.3f} us per row, within one chunk "
+        f"{one[0] * 1e3:.3f} us per row; so a {K1_CHUNK_ROWS}-row step of {step:.4f} ms is "
+        + ", ".join(f"{name} {t:.4f} ms ({t / step:.1%})" for name, t in parts.items()))
     return {"name": "fused_step", "route": "cuda",
             "source": "attackfl_tpu_torch/csrc/fused_step.cu",
             "replaces": "attackfl_tpu/ops/fused_step.py:524",
             "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
+            "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
 
@@ -491,7 +538,7 @@ def main() -> int:
         build.load_library(name)
 
     check_validator()
-    kernels = [check_fused_step(card), check_dropout_mask()]
+    kernels = [check_fused_step(card, built["fused_step"][1]), check_dropout_mask()]
     xla_epoch_ms()
     launches = main_path()
     for k in kernels:

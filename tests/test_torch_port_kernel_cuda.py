@@ -10,7 +10,11 @@ Small inputs (C=8, B=16, two minibatches) from a seed; tolerances 2e-4 on
 p and 1e-4 per step on the loss, as the CPU parity tests, and m and v each
 within 1e-3 of the plain version's largest |m| or |v|, as chip_smoke.py.  At this
 size the cold Adam start is well conditioned (chip_smoke.py explains why it
-is not at 100 clients).  K3 must be bit-equal to its plain version; the
+is not at 100 clients).  The tiling cases run K1 at batch sizes that are
+not multiples of its register tiles or that take several row chunks, at
+more clients than the card has SMs, from a mid-training Adam state, where
+every entry is gated.
+K3 must be bit-equal to its plain version; the
 torch-autograd local update with dropout on agrees between the card and
 the CPU at 2e-4 (both draw the same masks from the hash), gated as the
 kernel validator gates its check (a).
@@ -40,18 +44,36 @@ def _max_abs(groups):
     return max(float(x.abs().max()) for x in groups.values())
 
 
-def _inputs(device, masked_client):
+def _inputs(device, masked_client, C=C, B=B, nb=NB):
     rng = np.random.default_rng(1)
     params = TransformerModel().init(torch.Generator().manual_seed(0))
     stacked = tree_map(lambda x: (x.expand((C,) + tuple(x.shape)) + 0.01 * torch.from_numpy(
         rng.standard_normal((C,) + tuple(x.shape)).astype(np.float32))).contiguous(), params)
-    b = np.zeros((C, NB, B, 32), np.float32)
-    b[..., :23] = rng.standard_normal((C, NB, B, 23))
-    b[..., 23] = rng.random((C, NB, B)) < 0.3
-    b[..., 24] = rng.random((C, NB, B)) < 0.9
+    b = np.zeros((C, nb, B, 32), np.float32)
+    b[..., :23] = rng.standard_normal((C, nb, B, 23))
+    b[..., 23] = rng.random((C, nb, B)) < 0.3
+    b[..., 24] = rng.random((C, nb, B)) < 0.9
     b[masked_client, ..., 24] = 0.0
     groups = tfs.pack_params(tree_map(lambda x: x.to(device), stacked))
     return groups, torch.from_numpy(b).to(device)
+
+
+def _warm_state(groups, masked_client):
+    """A seeded mid-training Adam state (|m| ~ 1e-3, v in [1e-7, 1.1e-6]) on
+    the live entries; padding and the fully masked client keep m = v = 0."""
+    rng = np.random.default_rng(2)
+    clients = groups["w_h1"].shape[0]
+    live = tfs.pack_params(tree_map(lambda x: torch.ones((clients,) + tuple(x.shape)),
+                                    TransformerModel().init(torch.Generator().manual_seed(0))))
+    m, v = {}, {}
+    for k, x in groups.items():
+        on = (live[k] != 0).to(x.device, torch.float32)
+        on[masked_client] = 0.0
+        m[k] = (1e-3 * torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+                .to(x.device) * on).contiguous()
+        v[k] = ((1e-7 + 1e-6 * torch.from_numpy(rng.random(x.shape).astype(np.float32)))
+                .to(x.device) * on).contiguous()
+    return m, v
 
 
 @pytest.mark.cuda
@@ -73,6 +95,36 @@ def test_kernel_matches_plain_version(card, rates):
             assert float((a[k] - b[k]).abs().max()) <= tol, k
     for k in tfs.GROUP_ORDER:
         assert torch.equal(kp[k][3], groups[k][3]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates", [(0.0, 0.0, 0.0), (0.1, 0.1, 0.3)])
+@pytest.mark.parametrize("clients,batch", [(8, 1), (8, 7), (8, 33), (8, 128), (8, 300),
+                                           (150, 16)])
+def test_kernel_tiling_matches_plain_version(card, clients, batch, rates):
+    masked = 1
+    groups, batches = _inputs(card, masked, C=clients, B=batch)
+    m0, v0 = _warm_state(groups, masked)
+    kw = dict(lr=0.004, clip=1.0, drop_attn=rates[0], drop_block=rates[1],
+              drop_head=rates[2])
+    k = [{n: x.clone() for n, x in s.items()} for s in (groups, m0, v0)]
+    r = [{n: x.clone() for n, x in s.items()} for s in (groups, m0, v0)]
+    launches = tfs.run_epoch.launches
+    *k, kloss = tfs.run_epoch(*k, batches, 5, 100, **kw)
+    *r, rloss = tfs.run_epoch_reference(*r, batches, 5, 100, **kw)
+    torch.cuda.synchronize()
+    assert tfs.run_epoch.launches == launches + 1
+    assert float((kloss - rloss).abs().max()) <= 1e-4 * NB
+    (kp, km, kv), (rp, rm, rv) = k, r
+    for a, b, tol in ((kp, rp, 2e-4), (km, rm, 1e-3 * _max_abs(rm)), (kv, rv, 1e-3 * _max_abs(rv))):
+        for n in tfs.GROUP_ORDER:
+            assert float((a[n] - b[n]).abs().max()) <= tol, n
+    for n in tfs.GROUP_ORDER:
+        assert torch.equal(kp[n][masked], groups[n][masked]), n
+    for branch, (off, f) in enumerate(zip(tfs.IN_OFFS, tfs.IN_DIMS)):
+        rows = torch.ones(tfs.NIN, dtype=torch.bool, device=card)
+        rows[off:off + f] = False
+        assert bool((kp["w_in"][:, branch, rows] == 0).all())
 
 
 @pytest.mark.cuda
