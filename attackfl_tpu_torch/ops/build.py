@@ -26,6 +26,14 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+
+class MaskSpec(ctypes.Structure):
+    """One mask tensor of K3's arena, as ``csrc/dropout_mask.cu:MaskSpec``."""
+    _fields_ = [("first_quad", ctypes.c_int64), ("per_client", ctypes.c_uint32),
+                ("tensor_id", ctypes.c_uint32), ("thr", ctypes.c_uint32),
+                ("scale", ctypes.c_float)]
+
+
 # C signatures of each library's exported functions: (restype, argtypes)
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 SIGNATURES = {
@@ -38,9 +46,9 @@ SIGNATURES = {
             _P]),                                          # stream
     },
     "dropout_mask": {
-        "dropout_mask_fill": (ctypes.c_int, [
-            _P, _P, _I, _I, _I,                            # keys, out, C rows width
-            _U, _U, _F,                                    # tensor_id thr scale
+        "dropout_masks_fill": (ctypes.c_int, [
+            _P, _P, _I,                                    # keys, arena, C
+            ctypes.POINTER(MaskSpec), _I,                  # specs, count
             _P]),                                          # stream
     },
 }

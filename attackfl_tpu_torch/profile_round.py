@@ -41,7 +41,7 @@ DEPTH = {"cut": dict(epochs=2, num_data_range=(1200, 1500)),
          "full": dict(epochs=5, num_data_range=(12000, 15000))}
 PROFILED_ROUNDS = {"cut": 3, "full": 1}
 TOP = 12
-PORT_KERNELS = ("train_epoch_kernel", "fill_mask")    # K1, K3
+PORT_KERNELS = ("train_epoch_kernel", "fill_masks")    # K1, K3
 
 
 def self_device_us(evt) -> float:

@@ -16,10 +16,11 @@ gradient, so Adam leaves them unchanged.
 
 Dropout takes pre-drawn masks at the places and rates of the JAX package's
 ``xla`` path (see ``models/icu.py``): 9 mask tensors per step and client,
-drawn on the card by kernel K3 (``ops/fused_step.fill_mask``) from the
-counter-based hash keyed on (seed + epoch, step, client), with tensor ids
-apart from the fused kernel's.  The hash gives the same bits on the CPU and
-the card, so this path with dropout on is reproducible across devices.
+drawn on the card by one launch of kernel K3 (``ops/fused_step.fill_masks``)
+per step from the counter-based hash keyed on (seed + epoch, step,
+client), with tensor ids apart from the fused kernel's.  The hash gives
+the same bits on the CPU and the card, so this path with dropout on is
+reproducible across devices.
 """
 
 from __future__ import annotations
@@ -81,29 +82,38 @@ def adam_step_(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.Tenso
     p.add_((m / bc1) / (torch.sqrt(v / bc2) + EPS), alpha=-lr)
 
 
+def mask_specs(rates, *, heads: int, ff: int, width: int) -> list[tuple[int, int, float]]:
+    """The ``(tensor_id, width, rate)`` of each of a step's
+    ``MASKS_PER_STEP`` mask tensors, in the order :func:`step_masks`
+    returns them: per branch (attention, attention output, FFN hidden, FFN
+    output), then the head.  ``rates``: (attention, block, head)."""
+    attn, block, head = rates
+    specs = []
+    for b in range(len(BRANCHES)):
+        tid = T_BRANCH + 4 * b
+        specs += [(tid, heads, attn), (tid + 1, width, block), (tid + 2, ff, block),
+                  (tid + 3, width, block)]
+    return specs + [(T_HEAD, width, head)]
+
+
 def step_masks(keys: torch.Tensor, rows: int, rates, *, heads: int, ff: int,
                width: int) -> dict | None:
     """The dropout masks of one step for every client (keys [C]), as
-    ``TransformerModel.apply`` takes them; None when every rate is 0.  A
-    rate of 0 gives masks of ones without a launch.  ``heads``: attention
-    heads; ``ff``: FFN hidden width; ``width``: the model width, which the
-    attention output, the FFN output and fc1's output all have."""
-    attn, block, head = rates
-    if attn == block == head == 0.0:
+    ``TransformerModel.apply`` takes them; None when every rate is 0.  The
+    tensors with a rate above 0 come from one K3 launch
+    (``fused_step.fill_masks``); a rate of 0 gives masks of ones, left out
+    of the launch.  ``heads``: attention heads; ``ff``: FFN hidden width;
+    ``width``: the model width, which the attention output, the FFN output
+    and fc1's output all have."""
+    if all(r == 0.0 for r in rates):
         return None
-
-    def mask(tensor_id: int, cols: int, rate: float) -> torch.Tensor:
-        if rate == 0.0:
-            return torch.ones((keys.numel(), rows, cols), dtype=torch.float32,
-                              device=keys.device)
-        return fused_step.fill_mask(keys, tensor_id, rows, cols, rate)
-
-    out = {}
-    for b, name in enumerate(BRANCHES):
-        tid = T_BRANCH + 4 * b
-        out[name] = (mask(tid, heads, attn), mask(tid + 1, width, block),
-                     mask(tid + 2, ff, block), mask(tid + 3, width, block))
-    out["head"] = mask(T_HEAD, width, head)
+    specs = mask_specs(rates, heads=heads, ff=ff, width=width)
+    drawn = iter(fused_step.fill_masks(keys, [s for s in specs if s[2] > 0.0], rows))
+    masks = [next(drawn) if rate > 0.0 else
+             torch.ones((keys.numel(), rows, cols), dtype=torch.float32, device=keys.device)
+             for _, cols, rate in specs]
+    out = {name: tuple(masks[4 * b:4 * b + 4]) for b, name in enumerate(BRANCHES)}
+    out["head"] = masks[-1]
     return out
 
 

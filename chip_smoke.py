@@ -69,6 +69,8 @@ INT32_OPS = FP32_FLOPS / 2
 # is amortised over the client's elements, the element's own fmix32 is 2
 # multiplies, 3 shifts and 4 xors, then a compare and a select
 K3_OPS_PER_ELEMENT = 11
+# the xla path's dropout rates (attention, block, head) at config 4
+STEP_RATES = (0.1, 0.1, 0.3)
 KERNELS = ("fused_step", "dropout_mask")
 # rows of the chunks K1 stages for its products (MC in csrc/fused_step.cu)
 K1_CHUNK_ROWS = 128
@@ -122,11 +124,19 @@ def time_ms(fn, warmup: int = 2, reps: int = 7) -> float:
 def device_ms(fn, reps: int = 200) -> float:
     """Milliseconds of one ``fn`` on the device, by CUDA events around
     ``reps`` back-to-back calls.  The device first sleeps while the host
-    enqueues them all, so host time between launches does not count."""
+    enqueues them all, so host time between launches does not count: the
+    sleep lasts twice the host's own time for ``reps`` calls (at up to
+    2 GHz), measured first.  Keep ``reps`` times the launches of one call
+    under the ~1000 launches a stream queues, or the host waits on it."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
+    torch.cuda._sleep(int(2 * host_s * 2e9) + 20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -382,12 +392,25 @@ def check_validator() -> None:
             {k: out[k]["ok"] for k in ("autodiff_match", "mask_statistics", "dropout_on_step")}))
 
 
+def k3_bound_ms(C: int, elements: int) -> tuple[float, float]:
+    """K3's bound in ms, (bytes, operations): ``elements`` floats written
+    and C int64 keys read at HBM_BYTES; K3_OPS_PER_ELEMENT int32
+    operations per element at INT32_OPS."""
+    return ((4 * elements + 8 * C) / HBM_BYTES * 1e3,
+            K3_OPS_PER_ELEMENT * elements / INT32_OPS * 1e3)
+
+
 def check_dropout_mask() -> dict:
-    """K3 against dropout_mask, bit for bit, at the validator's shape and
-    at every shape the xla path's step_masks asks of it at the config-4
-    width, and its time at the largest of those."""
+    """K3 against its plain version, bit for bit: one tensor per launch at
+    the validator's shape and at every shape the xla path's step asks of
+    it at the config-4 width, and a whole step's nine tensors in one
+    launch (``fill_masks``, as ``step_masks`` calls it) at C=100 and at
+    C=150.  Then its time per step-launch at C=100, B=128 beside its bound
+    and beside the same nine tensors drawn one launch each, and the
+    one-tensor ``[100, 128, 64]`` time."""
     C, B = CONFIG4["total_clients"], CONFIG4["batch_size"]
     widths = local.mask_widths(TransformerModel())
+    step = local.mask_specs(STEP_RATES, **widths)
     big = (C, B, max(widths.values()))
     path_shapes = sorted({(C, B, w) for w in widths.values()})
     max_err = 0.0
@@ -402,23 +425,53 @@ def check_dropout_mask() -> dict:
                 raise AssertionError(f"K3 differs from dropout_mask at {shape}, rate {rate}")
         log(f"[kernels] K3 dropout_mask {list(shape)}: bit-equal to its plain version "
             f"at rates 0.1 and 0.3")
+    for clients in (C, 150):
+        keys = tfs.client_keys(2024, 5, torch.arange(clients, device="cuda"))
+        launches = tfs.fill_masks.launches
+        got = tfs.fill_masks(keys, step, B)
+        torch.cuda.synchronize()
+        if tfs.fill_masks.launches != launches + 1:
+            raise AssertionError("K3 took more than one launch for a step's masks")
+        for g, w, (tensor_id, width, rate) in zip(got, tfs.dropout_masks(keys, step, B), step):
+            max_err = max(max_err, float((g - w).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(f"K3 differs from dropout_masks at C={clients}, "
+                                     f"tensor {tensor_id} [{clients}, {B}, {width}] rate {rate}")
+        log(f"[kernels] K3 step set C={clients} B={B} (widths "
+            f"{[w for _, w, _ in step]}, rates {STEP_RATES}): one launch, bit-equal to its "
+            f"plain version")
+
     keys = tfs.client_keys(2024, 5, torch.arange(C, device="cuda"))
-    ms = device_ms(lambda: tfs.fill_mask(keys, local.T_HEAD, B, big[2], 0.1))
-    plain_ms = device_ms(lambda: tfs.dropout_mask(keys, local.T_HEAD, B, big[2], 0.1),
-                         reps=50)
-    n = math.prod(big)
-    t_bytes = (4 * n + 8 * C) / HBM_BYTES * 1e3
-    t_ops = K3_OPS_PER_ELEMENT * n / INT32_OPS * 1e3
-    log(f"[kernels] K3 {list(big)}: kernel {ms * 1e3:.3f} us/launch, plain {plain_ms * 1e3:.3f} "
-        f"us, bound {max(t_bytes, t_ops) * 1e3:.3f} us ({4 * n / 1e6:.2f} MB written at "
-        f"3.35 TB/s; {K3_OPS_PER_ELEMENT * n / 1e6:.1f} M int32 ops take "
-        f"{t_ops * 1e3:.3f} us)")
+    n_step = C * B * sum(w for _, w, _ in step)
+    t_bytes, t_ops = k3_bound_ms(C, n_step)
+    bound = max(t_bytes, t_ops)
+    ms = device_ms(lambda: tfs.fill_masks(keys, step, B))
+    nine_ms = device_ms(lambda: [tfs.fill_mask(keys, t, B, w, r) for t, w, r in step], reps=100)
+    plain_ms = device_ms(lambda: tfs.dropout_masks(keys, step, B), reps=3)
+    # the same launch after a 64 MB write, so that the arena's lines are
+    # not in L2 and dirty lines of another buffer must leave for HBM first
+    flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device="cuda")
+    cold_ms = (device_ms(lambda: (flush.zero_(), tfs.fill_masks(keys, step, B)))
+               - device_ms(flush.zero_))
+    log(f"[kernels] K3 step C={C} B={B}: kernel {ms * 1e3:.3f} us/launch, the same nine tensors "
+        f"one launch each {nine_ms * 1e3:.3f} us, after a 64 MB write {cold_ms * 1e3:.3f} us, "
+        f"plain {plain_ms * 1e3:.3f} us; bound {bound * 1e3:.3f} us ({4 * n_step / 1e6:.2f} MB "
+        f"written at 3.35 TB/s; {K3_OPS_PER_ELEMENT * n_step / 1e6:.1f} M int32 ops take "
+        f"{t_ops * 1e3:.3f} us); {bound / ms:.1%} of the bound")
+
+    one_ms = device_ms(lambda: tfs.fill_mask(keys, local.T_HEAD, B, big[2], 0.1))
+    one_plain = device_ms(lambda: tfs.dropout_mask(keys, local.T_HEAD, B, big[2], 0.1), reps=20)
+    one_bytes, one_ops = k3_bound_ms(C, math.prod(big))
+    log(f"[kernels] K3 {list(big)}: kernel {one_ms * 1e3:.3f} us/launch, plain "
+        f"{one_plain * 1e3:.3f} us, bound {max(one_bytes, one_ops) * 1e3:.3f} us "
+        f"({4 * math.prod(big) / 1e6:.2f} MB written at 3.35 TB/s; "
+        f"{K3_OPS_PER_ELEMENT * math.prod(big) / 1e6:.1f} M int32 ops take "
+        f"{one_ops * 1e3:.3f} us)")
     return {"name": "dropout_mask", "route": "cuda",
             "source": "attackfl_tpu_torch/csrc/dropout_mask.cu",
             "replaces": "scripts/tpu_validate_pallas.py:125",
             "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
 
 
@@ -458,9 +511,9 @@ def run_config(cfg: Config, label: str) -> tuple[dict, list, dict]:
     sim = Simulator(cfg, device="cuda")
     state = sim.init_state()
     torch.cuda.synchronize()
-    tfs.run_epoch.launches = tfs.fill_mask.launches = 0
+    tfs.run_epoch.launches = tfs.fill_masks.launches = 0
     state, history = sim.run(state=state, verbose=False)
-    launches = {"fused_step": tfs.run_epoch.launches, "dropout_mask": tfs.fill_mask.launches}
+    launches = {"fused_step": tfs.run_epoch.launches, "dropout_mask": tfs.fill_masks.launches}
     for h in history:
         log(f"[main] {label} round {h['round']} broadcast {h['broadcast']} ok={h['ok']} "
             f"roc_auc={h.get('roc_auc', float('nan')):.4f} "
@@ -490,8 +543,7 @@ def main_path() -> dict:
         nb = -(-cfg.num_data_range[1] // cfg.batch_size)
         expect = ({"fused_step": len(history) * cfg.epochs, "dropout_mask": 0}
                   if backend == "pallas" else
-                  {"fused_step": 0,
-                   "dropout_mask": len(history) * cfg.epochs * nb * local.MASKS_PER_STEP})
+                  {"fused_step": 0, "dropout_mask": len(history) * cfg.epochs * nb})
         if launches != expect:
             raise AssertionError(f"{backend}: kernel launches {launches}, expected {expect}")
         log(f"[main] {backend}: {len(history)} rounds ok; launches {launches}; seconds per "
@@ -501,14 +553,13 @@ def main_path() -> dict:
     # config.yaml as it stands: 3 clients at full depth, local_backend xla
     path = os.path.join(REPO, "config.yaml")
     cfg = load_config(path)
-    per_round = (cfg.epochs * -(-cfg.num_data_range[1] // cfg.batch_size)
-                 * local.MASKS_PER_STEP)
-    tfs.run_epoch.launches = tfs.fill_mask.launches = 0
+    per_round = cfg.epochs * -(-cfg.num_data_range[1] // cfg.batch_size)
+    tfs.run_epoch.launches = tfs.fill_masks.launches = 0
     t0 = time.perf_counter()
     rc = cli.run_main(["--config", path, "--rounds", "1"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    k1, k3 = tfs.run_epoch.launches, tfs.fill_mask.launches
+    k1, k3 = tfs.run_epoch.launches, tfs.fill_masks.launches
     if rc != 0 or k1 != 0 or k3 == 0 or k3 % per_round:
         raise AssertionError(f"config.yaml run: exit {rc}, K1 launches {k1}, K3 launches {k3}")
     log(f"[main] config.yaml, 1 round: ok in {seconds:.3f} s (construction included); "

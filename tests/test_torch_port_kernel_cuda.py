@@ -14,10 +14,10 @@ is not at 100 clients).  The tiling cases run K1 at batch sizes that are
 not multiples of its register tiles or that take several row chunks, at
 more clients than the card has SMs, from a mid-training Adam state, where
 every entry is gated.
-K3 must be bit-equal to its plain version; the
-torch-autograd local update with dropout on agrees between the card and
-the CPU at 2e-4 (both draw the same masks from the hash), gated as the
-kernel validator gates its check (a).
+K3 must be bit-equal to its plain version, one tensor or a whole step's
+set per launch; the torch-autograd local update with dropout on agrees
+between the card and the CPU at 2e-4 (both draw the same masks from the
+hash), gated as the kernel validator gates its check (a).
 """
 
 import numpy as np
@@ -143,22 +143,50 @@ def test_k3_is_bit_equal_to_plain_version(card, shape):
     C_, rows, width = shape
     keys = tfs.client_keys(1234, 7, torch.arange(C_, device=card))
     for rate in (0.1, 0.3, 0.5):
-        launches = tfs.fill_mask.launches
+        launches = tfs.fill_masks.launches
         got = tfs.fill_mask(keys, local.T_HEAD, rows, width, rate)
         torch.cuda.synchronize()
-        assert tfs.fill_mask.launches == launches + 1
+        assert tfs.fill_masks.launches == launches + 1
         assert torch.equal(got, tfs.dropout_mask(keys, local.T_HEAD, rows, width, rate))
+
+
+# (clients, rows, specs): the config-4 step's nine tensors, at C=100 and
+# at more clients, then the odd shapes of tests/test_torch_port_masks.py
+STEP_SPECS = local.mask_specs((0.1, 0.1, 0.3), **local.mask_widths(TransformerModel()))
+MASK_SETS = {
+    "config-4 step C=100 B=128": (100, 128, STEP_SPECS),
+    "config-4 step C=150 B=128": (150, 128, STEP_SPECS),
+    "C=3 rows 7 widths 5, 1, 6": (3, 7, [(16, 5, 0.1), (17, 1, 0.3), (18, 6, 0.5)]),
+    "one row and one column": (1, 1, [(24, 1, 0.1)]),
+    "C=5 one row": (5, 1, [(16, 1, 0.1), (17, 5, 0.3), (24, 3, 0.7)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MASK_SETS)
+def test_k3_step_launch_is_bit_equal_to_plain_version(card, case):
+    C_, rows, specs = MASK_SETS[case]
+    keys = tfs.client_keys(1234, 7, torch.arange(C_, device=card))
+    launches = tfs.fill_masks.launches
+    got = tfs.fill_masks(keys, specs, rows)
+    torch.cuda.synchronize()
+    assert tfs.fill_masks.launches == launches + 1
+    want = tfs.dropout_masks(keys, specs, rows)
+    assert len(got) == len(want) == len(specs)
+    for g, w in zip(got, want):
+        assert g.storage_offset() == w.storage_offset()
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
 def test_xla_update_with_dropout_matches_cpu(card):
     rates = (0.1, 0.1, 0.3)
     cp, cok, closs = vk.train("cpu", rates, fused=False)
-    launches = tfs.fill_mask.launches
+    launches = tfs.fill_masks.launches
     gp, gok, gloss = vk.train(card, rates, fused=False)
     torch.cuda.synchronize()
     nb = -(-vk.HI // vk.B)
-    assert tfs.fill_mask.launches == launches + vk.EPOCHS * nb * local.MASKS_PER_STEP
+    assert tfs.fill_masks.launches == launches + vk.EPOCHS * nb
     assert bool(cok.all()) and bool(gok.all())
     assert float((gloss.cpu() - closs).abs().max()) <= vk.LOSS_TOL
     sure = tree_map(lambda g: g >= vk.GRAD_FLOOR, vk.first_step_grads("cpu", rates))

@@ -86,10 +86,10 @@ def test_library_name_tracks_shared_headers(tmp_path, monkeypatch):
 
 def test_fill_mask_plain_on_cpu_and_checks_inputs():
     keys = fused_step.client_keys(5, 2, torch.arange(3))
-    before = fused_step.fill_mask.launches
+    before = fused_step.fill_masks.launches
     got = fused_step.fill_mask(keys, 17, 8, 6, 0.1)
     assert torch.equal(got, fused_step.dropout_mask(keys, 17, 8, 6, 0.1))
-    assert fused_step.fill_mask.launches == before
+    assert fused_step.fill_masks.launches == before
     with pytest.raises(ValueError, match="int64"):
         fused_step.fill_mask(keys.to(torch.int32), 17, 8, 6, 0.1)
     with pytest.raises(ValueError, match="empty"):
