@@ -11,7 +11,7 @@ _USAGE = """usage: python -m attackfl_tpu_torch <command> [options]
 
 commands:
   run      run a simulation from a reference-schema config.yaml
-           (--config PATH, --device cuda|cpu, --rounds N)
+           (--config PATH, --device cuda|cpu, --rounds N, --resume)
 """
 
 
@@ -23,12 +23,19 @@ def run_main(argv=None) -> int:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--rounds", type=int, default=None, help="override num-round")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue from the checkpoint directory's manifest.json: "
+                             "the newest valid entry wins, a torn one falls back to the "
+                             "one before, round numbering continues (server.resume)")
     args = parser.parse_args(argv)
 
     from attackfl_tpu_torch.config import load_config
     from attackfl_tpu_torch.training.engine import Simulator
 
-    sim = Simulator(load_config(args.config), device=args.device)
+    cfg = load_config(args.config)
+    if args.resume:
+        cfg = cfg.replace(resume=True)
+    sim = Simulator(cfg, device=args.device)
     _, history = sim.run(num_rounds=args.rounds)
     ok_rounds = sum(1 for h in history if h["ok"])
     print(f"Finished: {ok_rounds} successful rounds.")

@@ -12,18 +12,25 @@ The port runs on one device and draws its randomness from
 ``torch.Generator``s: model init from a CPU generator seeded with
 ``random_seed`` (so CPU and GPU runs start from the same weights), round
 draws from a generator on the run's device.
+
+``run`` saves a checkpoint after every ok round by default (reference
+server.py:549-553) through ``utils/checkpoint.CheckpointManager``:
+``{model}.pth``, round-stamped entries and ``manifest.json`` under
+``checkpoint_dir``.  ``resume`` continues from the newest valid entry,
+``load_parameters`` from the ``{model}.pth`` alias.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Any
 
 import torch
 
 from attackfl_tpu_torch.config import Config
-from attackfl_tpu_torch.data.partition import draw_round
+from attackfl_tpu_torch.data.partition import dirichlet_label_partition, draw_round
 from attackfl_tpu_torch.data.synthetic import get_dataset
 from attackfl_tpu_torch.device import resolve_device
 from attackfl_tpu_torch.eval.validation import Validation
@@ -33,6 +40,8 @@ from attackfl_tpu_torch.training.round import (
     attacking_groups, build_aggregator, build_attack_groups, build_round_step,
     leak_size,
 )
+from attackfl_tpu_torch.utils import checkpoint as ckpt
+from attackfl_tpu_torch.utils.fingerprint import config_fingerprint
 
 MAX_ROUND_RETRIES = 20
 log = logging.getLogger("attackfl_tpu_torch")
@@ -45,8 +54,9 @@ def _refuse(what: str, item: str) -> None:
 
 def check_slice(cfg: Config) -> None:
     """Refuse what the port cannot run yet, naming the ROADMAP item that
-    will port it.  The slice: ICU TransformerModel, fedavg, LIE attackers,
-    the synchronous executor, local_backend xla (float32) or pallas."""
+    will port it.  The slice: ICU TransformerModel, fedavg, every attack,
+    stragglers and the Dirichlet split, checkpoints, the synchronous
+    executor, local_backend xla (float32) or pallas."""
     if cfg.model != "TransformerModel" or cfg.data_name != "ICU":
         _refuse(f"model {cfg.model!r} on {cfg.data_name!r}", "item 11")
     if cfg.mode == "hyper":
@@ -57,17 +67,10 @@ def check_slice(cfg: Config) -> None:
     if cfg.local_backend == "xla" and cfg.mesh.compute_dtype != "float32":
         _refuse(f"compute-dtype {cfg.mesh.compute_dtype!r} (mixed-precision local "
                 "training)", "item 3, rest")
-    for spec in cfg.attacks:
-        if spec.mode not in ("LIE", "none"):
-            _refuse(f"attack {spec.mode!r}", "item 9")
     if cfg.pipeline or cfg.validation_async:
         _refuse("the pipelined executor and async validation", "item 13")
-    if cfg.load_parameters or cfg.resume or cfg.checkpoint_async:
-        _refuse("checkpoints (load, resume, async writer)", "item 8")
-    if cfg.client_dropout_rate > 0.0:
-        _refuse("straggler injection (client_dropout_rate)", "item 4")
-    if cfg.partition != "iid":
-        _refuse(f"partition {cfg.partition!r}", "item 4")
+    if cfg.checkpoint_async:
+        _refuse("the async checkpoint writer", "item 13")
     if cfg.mesh.num_devices > 1:
         _refuse("the multi-GPU client axis", "item 14")
     tel = cfg.telemetry
@@ -89,6 +92,11 @@ class Simulator:
         self.train_data = {k: torch.as_tensor(v, device=self.device)
                            for k, v in train_np.items()}
         self.pool_size = next(iter(train_np.values())).shape[0]
+        self.client_pools = None
+        if cfg.partition == "dirichlet":
+            pools = dirichlet_label_partition(train_np["label"], cfg.total_clients,
+                                              cfg.dirichlet_alpha, seed=cfg.random_seed)
+            self.client_pools = torch.as_tensor(pools, dtype=torch.int64, device=self.device)
         self.attack_groups, self.genuine_idx = build_attack_groups(cfg)
         self.leak_k = leak_size(cfg, len(self.genuine_idx))
         self.validation = (Validation(self.model, cfg.data_name, test_np, self.device, log)
@@ -96,6 +104,18 @@ class Simulator:
         self.round_step = build_round_step(self.model, cfg, self.train_data,
                                            self.attack_groups, self.genuine_idx)
         self.aggregate = build_aggregator(cfg)
+        self.num_params = sum(x.numel() for x in self.model.parameters())
+        # temp files of killed writes go before any new checkpoint activity
+        swept = ckpt.sweep_orphans(cfg.checkpoint_dir)
+        if swept:
+            print(f"[checkpoint] swept {len(swept)} orphaned temp file(s) from "
+                  f"{cfg.checkpoint_dir or '.'}", flush=True)
+        self.checkpoints = ckpt.CheckpointManager(
+            ckpt.checkpoint_path(cfg), fingerprint=config_fingerprint(cfg),
+            keep=cfg.checkpoint_keep, fresh=not (cfg.resume or cfg.load_parameters))
+        # reload_parameters_per_round: ((st_mtime_ns, st_size), params) of
+        # the last read, so an unchanged file costs a stat
+        self._reload_cache: tuple[tuple[int, int], dict] | None = None
 
     # ------------------------------------------------------------------
     # state
@@ -118,13 +138,90 @@ class Simulator:
             "broadcasts": 0,
         }
 
+    def host_state(self, state: dict[str, Any]) -> dict[str, Any]:
+        """``state`` as a checkpoint holds it: the generator as its
+        ``get_state()`` (a CPU uint8 tensor)."""
+        return {**state, "rng": state["rng"].get_state()}
+
+    def restore_state(self, host: dict[str, Any]) -> dict[str, Any]:
+        """The inverse of :meth:`host_state`, on the run's device."""
+        state = {k: (pt.tree_map(lambda x: x.to(self.device), v) if isinstance(v, dict) else v)
+                 for k, v in host.items()}
+        state["rng"] = torch.Generator(device=self.device)
+        state["rng"].set_state(host["rng"].cpu())
+        return state
+
+    def _load_resume_state(self) -> dict[str, Any] | None:
+        """``resume``: the newest valid manifest entry (a torn one falls
+        back to the entry before), or None when there is none."""
+        result = self.checkpoints.load_latest(self.host_state(self.init_state()))
+        for entry, reason in result.rejected:
+            print(f"[resume] rejected checkpoint {entry.get('file')}: {reason[:200]}",
+                  flush=True)
+        if result.state is None:
+            print("[resume] no valid checkpoint entry found under "
+                  f"{self.checkpoints.directory!r}; starting fresh", flush=True)
+            return None
+        manifest = result.manifest or {}
+        if manifest.get("fingerprint") and manifest["fingerprint"] != self.checkpoints.fingerprint:
+            log.warning("[resume] config fingerprint mismatch: this checkpoint was written "
+                        "under another experiment config; resuming because the state "
+                        "structure matched, but verify the config")
+        state = self.restore_state(result.state)
+        print(f"[resume] continuing from round {state['completed_rounds']} "
+              f"({(result.entry or {}).get('file')})", flush=True)
+        return state
+
+    def load_or_init_state(self) -> dict[str, Any]:
+        """The starting state (reference server.py:144-163,578-586):
+        ``resume`` restores through the manifest and the round numbering
+        continues; ``load_parameters`` reads the ``{model}.pth`` alias; a
+        missing checkpoint starts fresh."""
+        if self.cfg.resume:
+            state = self._load_resume_state()
+            return state if state is not None else self.init_state()
+        state = self.init_state()
+        if self.cfg.load_parameters:
+            path = ckpt.checkpoint_path(self.cfg)
+            try:
+                state = self.restore_state(ckpt.load_state(path, self.host_state(state)))
+                print(f"Load state from checkpoint: {path}", flush=True)
+            except FileNotFoundError:
+                pass
+        return state
+
+    def save_checkpoint(self, state: dict[str, Any]) -> bool:
+        """Persist ``state`` as a round-stamped entry, the alias and the
+        manifest record; False when the write failed open."""
+        meta = {"round": state["completed_rounds"], "broadcast": state["broadcasts"]}
+        return self.checkpoints.write(self.host_state(state), meta)
+
+    def _reload_params(self, state: dict[str, Any]) -> dict[str, Any]:
+        """``reload_parameters_per_round`` (reference server.py:578-586):
+        each broadcast re-reads the global params from ``{model}.pth``; an
+        unchanged file (same mtime and size) costs one stat, a missing
+        one nothing."""
+        path = ckpt.checkpoint_path(self.cfg)
+        try:
+            st = os.stat(path)
+        except FileNotFoundError:
+            return state
+        key = (st.st_mtime_ns, st.st_size)
+        if self._reload_cache is None or self._reload_cache[0] != key:
+            host = ckpt.load_state(path, self.host_state(state), self.device)
+            self._reload_cache = (key, host["global_params"])
+        return dict(state, global_params=self._reload_cache[1])
+
     def draw_round(self, gen: torch.Generator):
         lo, hi = self.cfg.num_data_range
+        firing = attacking_groups(self.attack_groups)
         return draw_round(
             gen, num_clients=self.cfg.total_clients, pool_size=self.pool_size,
             lo=lo, hi=hi, epochs=self.cfg.epochs, num_genuine=len(self.genuine_idx),
-            leak_groups=[len(g.indices) for g in attacking_groups(self.attack_groups)],
-            leak_k=self.leak_k)
+            leak_groups=[len(g.indices) for g in firing], leak_k=self.leak_k,
+            client_pools=self.client_pools, dropout_rate=self.cfg.client_dropout_rate,
+            noise_groups=[len(g.indices) for g in firing if g.mode == "Random"],
+            num_params=self.num_params)
 
     # ------------------------------------------------------------------
     # one round
@@ -142,6 +239,8 @@ class Simulator:
         the generator, the broadcast clock and the genuine-leak pool
         (reference retry path, server.py:546-567)."""
         t0 = time.perf_counter()
+        if self.cfg.reload_parameters_per_round:
+            state = self._reload_params(state)
         broadcast_number = state["broadcasts"] + 1
         metrics: dict[str, Any] = {"round": state["completed_rounds"] + 1,
                                    "broadcast": broadcast_number}
@@ -185,11 +284,14 @@ class Simulator:
     # ------------------------------------------------------------------
 
     def run(self, num_rounds: int | None = None, state: dict[str, Any] | None = None,
-            verbose: bool = True) -> tuple[dict[str, Any], list[dict[str, Any]]]:
+            save_checkpoints: bool = True, verbose: bool = True,
+            ) -> tuple[dict[str, Any], list[dict[str, Any]]]:
         """Run until ``num_rounds`` rounds complete (reference main loop,
-        server.py:559-567)."""
+        server.py:559-567), from ``state`` or else from
+        :meth:`load_or_init_state`, saving a checkpoint after every ok
+        round unless ``save_checkpoints`` is False."""
         num_rounds = num_rounds if num_rounds is not None else self.cfg.num_round
-        state = state if state is not None else self.init_state()
+        state = state if state is not None else self.load_or_init_state()
         history: list[dict[str, Any]] = []
         retries = 0
         while state["completed_rounds"] < num_rounds:
@@ -198,6 +300,8 @@ class Simulator:
             history.append(metrics)
             if metrics["ok"]:
                 retries = 0
+                if save_checkpoints:
+                    self.save_checkpoint(state)
                 if verbose:
                     keys = [k for k in ("roc_auc", "train_loss") if k in metrics]
                     msg = " ".join(f"{k}={metrics[k]:.4f}" for k in keys)

@@ -35,7 +35,7 @@ from torch.func import grad_and_value, vmap
 from attackfl_tpu_torch.models.icu import TransformerModel
 from attackfl_tpu_torch.ops import fused_step
 from attackfl_tpu_torch.ops.pytree import (
-    tree_broadcast, tree_items, tree_map, tree_ravel_stacked,
+    tree_broadcast, tree_map, tree_ravel_stacked, unraveler,
 )
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -124,28 +124,6 @@ def mask_widths(model: TransformerModel) -> dict[str, int]:
                 width=model.fc1.kernel.shape[1])
 
 
-def _unravel(template: dict) -> Callable:
-    """``unravel(flat [..., P]) -> tree`` of views with leaves [..., *shape],
-    the inverse of ``tree_ravel_stacked`` for trees shaped like ``template``.
-    One ``split``, so the backward writes the flat gradient with one
-    concatenation (a slice per leaf would zero-fill and add a whole
-    [C, P] buffer for every leaf)."""
-    items = list(tree_items(template))
-    sizes = [leaf.numel() for _, leaf in items]
-
-    def unravel(flat: torch.Tensor) -> dict:
-        tree: dict = {}
-        for (path, leaf), part in zip(items, torch.split(flat, sizes, dim=-1)):
-            *keys, name = path.split("/")
-            node = tree
-            for key in keys:
-                node = node.setdefault(key, {})
-            node[name] = part.reshape(flat.shape[:-1] + tuple(leaf.shape))
-        return tree
-
-    return unravel
-
-
 def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], *,
                        epochs: int, batch_size: int, lr: float, clip_grad_norm: float,
                        dropout=(0.1, 0.1, 0.3)) -> Callable:
@@ -178,7 +156,7 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
         stacked = params
         if params["fc1"]["kernel"].ndim == 2:
             stacked = tree_broadcast(params, C)
-        unravel = _unravel(tree_map(lambda x: x[0], stacked))
+        unravel = unraveler(tree_map(lambda x: x[0], stacked))
 
         def loss_of_row(flat, vit, lab, y, msk, masks=None):
             return loss_fn(unravel(flat), vit, lab, y, msk, masks)

@@ -13,7 +13,12 @@ RpcClient.py behaviour):
   1)`` genuine models drawn without replacement;
 * the attack fires when ``broadcast >= attack_round`` and a genuine set
   exists; an attacking row's ok flag is reset (it did not train);
-* the genuine-leak pool absorbs only rounds whose training was clean.
+* the genuine-leak pool absorbs only rounds whose training was clean;
+* stragglers (``RoundDraws.kept``): a dropped client gets size 0 and every
+  sample masked, so its row is the broadcast params; a dropped attacker's
+  row is not replaced; a dropped genuine client's leak-pool row stays
+  stale (once the pool exists); a round where every client drops fails,
+  and the loss is the mean over the kept clients.
 
 Randomness enters only through a :class:`~attackfl_tpu_torch.data.partition.RoundDraws`
 record, drawn by the engine.
@@ -27,7 +32,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from attackfl_tpu_torch.config import NONE_ATTACK, Config
-from attackfl_tpu_torch.data.partition import RoundDraws
+from attackfl_tpu_torch.data.partition import RoundDraws, apply_client_dropout
 from attackfl_tpu_torch.ops import aggregators, attacks, fused_step
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.training import local
@@ -39,17 +44,16 @@ from attackfl_tpu_torch.training import local
 ATTACK_GATHER_BUDGET = int(2e8)
 
 
-def map_attackers(attack_rows: Callable[[torch.Tensor], dict], leaks: torch.Tensor,
+def map_attackers(attack_rows: Callable[[slice], dict], n_attackers: int, leak_k: int,
                   params_template: dict) -> dict:
-    """``attack_rows(leak_rows (n, k)) -> stacked (n, ...)`` over all
-    attackers' leak rows, in chunks whose gather stays inside
+    """``attack_rows(rows: slice) -> stacked (rows, ...)`` over all
+    attackers, in chunks whose leak gather stays inside
     ``ATTACK_GATHER_BUDGET``; identical results to one call."""
-    n_attackers, leak_k = leaks.shape
     p_total = sum(x.numel() for x in pt.tree_leaves(params_template))
     chunk = max(1, ATTACK_GATHER_BUDGET // max(leak_k * p_total, 1))
     if chunk >= n_attackers:
-        return attack_rows(leaks)
-    parts = [attack_rows(leaks[i:i + chunk]) for i in range(0, n_attackers, chunk)]
+        return attack_rows(slice(0, n_attackers))
+    parts = [attack_rows(slice(i, i + chunk)) for i in range(0, n_attackers, chunk)]
     return pt.tree_map(lambda *xs: torch.cat(xs, dim=0), *parts)
 
 
@@ -89,6 +93,11 @@ def leak_size(cfg: Config, num_genuine: int) -> int:
     return min(max(int(cfg.genuine_rate * num_genuine), 1), num_genuine)
 
 
+def _rows(sel: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-row flag (n,) shaped to broadcast against ``like`` (n, ...)."""
+    return sel.reshape((-1,) + (1,) * (like.ndim - 1))
+
+
 def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
                      attack_groups: Sequence[AttackGroup],
                      genuine_idx: Sequence[int]) -> Callable:
@@ -120,34 +129,59 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
 
     def round_step(global_params: dict, prev_genuine: dict, have_genuine: bool,
                    draws: RoundDraws, broadcast_number: int):
+        sizes, mask, kept = draws.sizes, draws.mask, draws.kept
+        if kept is not None:
+            sizes, mask = apply_client_dropout(kept, sizes, mask)
         stacked, ok, losses = batched_update(
-            global_params, draws.idx, draws.mask, draws.perms, draws.dropout_seed)
+            global_params, draws.idx, mask, draws.perms, draws.dropout_seed)
 
+        noise = iter(draws.noise)
         for grp, leaks in zip(firing, draws.leaks):
+            grp_noise = next(noise) if grp.mode == "Random" else None
             if not (broadcast_number >= grp.attack_round and have_genuine):
                 continue
             grp_arr = torch.as_tensor(grp.indices, dtype=torch.int64, device=device)
 
-            def attack_rows(rows, grp=grp):
-                leaked = pt.tree_take(prev_genuine, rows)      # (n, k, ...)
-                return attacks.apply_attack(grp.mode, global_params, leaked,
-                                            grp.args, dim=1)
+            def attack_rows(rows, grp=grp, leaks=leaks, grp_noise=grp_noise):
+                n = leaks[rows].shape[0]
+                own = pt.tree_broadcast(global_params, n)
+                if grp_noise is not None:      # Random reads no leaked model
+                    z = pt.unraveler(global_params)(grp_noise[rows])
+                    return attacks.apply_attack(grp.mode, own, None, grp.args, noise=z)
+                leaked = pt.tree_take(prev_genuine, leaks[rows])   # (n, k, ...)
+                return attacks.apply_attack(grp.mode, own, leaked, grp.args, dim=1)
 
-            attacked = map_attackers(attack_rows, leaks, global_params)
+            attacked = map_attackers(attack_rows, len(grp.indices), leaks.shape[1],
+                                     global_params)
+            # a dropped attacker never reports: its row stays the no-op
+            active = (torch.ones(len(grp.indices), dtype=torch.bool, device=device)
+                      if kept is None else kept[grp_arr])
 
-            def scatter(s, a, grp_arr=grp_arr):
-                s[grp_arr] = a
+            def scatter(s, a, grp_arr=grp_arr, active=active):
+                s[grp_arr] = torch.where(_rows(active, a), a, s[grp_arr])
                 return s
 
             stacked = pt.tree_map(scatter, stacked, attacked)
             # attackers that attacked did not train: their NaN flag resets
-            ok[grp_arr] = True
+            ok[grp_arr] = ok[grp_arr] | active
 
         train_ok = torch.all(ok)
+        if kept is None:
+            sel = train_ok.expand(len(genuine_idx))
+            mean_loss = torch.mean(losses)
+        else:
+            # a round where every client drops has no update at all: it fails
+            train_ok = train_ok & torch.any(kept)
+            # a dropped genuine client never reports, so its last reported
+            # row stays in the leak pool (stale); before any report the pool
+            # rows are placeholders and its fresh no-op row is used instead
+            sel = train_ok & (kept[genuine_arr] | (not have_genuine))
+            keptf = kept.to(losses.dtype)
+            mean_loss = torch.sum(losses * keptf) / torch.clamp(torch.sum(keptf), min=1.0)
         fresh = pt.tree_take(stacked, genuine_arr)
-        new_genuine = pt.tree_map(lambda n, p: torch.where(train_ok, n, p),
+        new_genuine = pt.tree_map(lambda n, p: torch.where(_rows(sel, n), n, p),
                                   fresh, prev_genuine)
-        return stacked, draws.sizes, new_genuine, train_ok, torch.mean(losses)
+        return stacked, sizes, new_genuine, train_ok, mean_loss
 
     return round_step
 

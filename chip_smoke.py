@@ -19,7 +19,22 @@ no result line):
                  autograd, dropout masks from kernel K3); then the repo's
                  config.yaml as it stands, one round, through the CLI.
                  Each run's kernel launch counts are reset just before it
-                 and read just after.
+                 and read just after;
+  5. checkpoints -- per backend, config 4 (cut) saving every round into a
+                 temporary directory; then 2 rounds, a new Simulator with
+                 resume=True and round 3: the same params as the run without
+                 a stop, within the gap between two runs without one;
+  6. stragglers -- config 4 with client_dropout_rate 0.1 under both
+                 backends, and one round step whose dropped rows must equal
+                 the broadcast params bit for bit; BASELINE config 3
+                 (Dirichlet split, no attackers) under both backends;
+  7. attacks  -- config 4 with 25 attackers of each of Random (sigma 1e6),
+                 Min-Max, Min-Sum and Opt-Fang under pallas, each attack
+                 step timed by CUDA events; each gamma-search attack on a
+                 fixed leaked stack on the card against the same call on
+                 the CPU (equal gamma sequence, rows within 1e-5).
+Each of phases 4-7 resets the kernel launch counts before each run and
+requires the run's kernel to have been launched.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
 toolkit, imports nothing of JAX, and fails when run outside the repository.
@@ -31,8 +46,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,15 +60,19 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from attackfl_tpu_torch import cli, validate_kernels  # noqa: E402
-from attackfl_tpu_torch.config import Config, load_config  # noqa: E402
+from attackfl_tpu_torch.config import AttackSpec, Config, load_config  # noqa: E402
+from attackfl_tpu_torch.data.partition import random_permutations  # noqa: E402
 from attackfl_tpu_torch.data.synthetic import get_dataset  # noqa: E402
 from attackfl_tpu_torch.device import resolve_device  # noqa: E402
 from attackfl_tpu_torch.models.icu import TransformerModel  # noqa: E402
-from attackfl_tpu_torch.ops import build  # noqa: E402
+from attackfl_tpu_torch.ops import attacks, build  # noqa: E402
 from attackfl_tpu_torch.ops import fused_step as tfs  # noqa: E402
-from attackfl_tpu_torch.ops.pytree import tree_leaves, tree_map  # noqa: E402
+from attackfl_tpu_torch.ops.pytree import (  # noqa: E402
+    tree_broadcast, tree_items, tree_leaves, tree_map, tree_take,
+)
 from attackfl_tpu_torch.profile_round import CONFIG4, DEPTH, self_device_us  # noqa: E402
 from attackfl_tpu_torch.training import local  # noqa: E402
+from attackfl_tpu_torch.training import round as tround  # noqa: E402
 from attackfl_tpu_torch.training.engine import Simulator  # noqa: E402
 
 # BASELINE config 4 is cut in depth only (width, clients, attackers and
@@ -78,6 +99,17 @@ K1_CHUNK_ROWS = 128
 # w_h1 [128, 64] and a chunk of cc [128, 128], rows padded by 4 floats
 K1_SMEM_BYTES = (2 * 64 * (64 + 4) + K1_CHUNK_ROWS * (2 * 64 + 4)) * 4
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+# the straggler runs' client_dropout_rate; BASELINE config 3's Dirichlet alpha
+DROPOUT_RATE, CONFIG3_ALPHA = 0.1, 0.5
+# the attacks of phase 7 with their args (Random's sigma is the reference's),
+# each with config 4's 25 attackers
+ATTACKS = (("Random", (1e6,)), ("Min-Max", ()), ("Min-Sum", ()), ("Opt-Fang", ()))
+ATTACKERS = CONFIG4["attacks"][0].num_clients
+# a gamma-search attack on the card against the same call on the CPU
+ATTACK_ROW_TOL = 1e-5
+# the kernel each backend's run must launch
+BACKEND_KERNEL = {"pallas": "fused_step", "xla": "dropout_mask"}
 
 # kernel vs plain version: p absolute, loss absolute per step, m and v
 # each relative to the largest magnitude of the plain version's tensor
@@ -506,40 +538,56 @@ def xla_epoch_ms() -> float:
     return ms
 
 
-def run_config(cfg: Config, label: str) -> tuple[dict, list, dict]:
-    """The Simulator on the card; kernel launch counts over the run."""
-    sim = Simulator(cfg, device="cuda")
+def cut_config(**kw) -> Config:
+    """BASELINE config 4 cut in depth (``DEPTH["cut"]``, ``ROUNDS[1]``
+    rounds), with ``kw`` on top."""
+    return Config(**{**CONFIG4, **DEPTH["cut"], "num_round": ROUNDS[1], **kw})
+
+
+def max_param_gap(a: dict, b: dict) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def run_config(cfg: Config, label: str, auc_gate: bool = True, all_ok: bool = True,
+               sim: Simulator | None = None, save_checkpoints: bool = False,
+               ) -> tuple[Simulator, dict, list, dict]:
+    """The Simulator on the card from a fresh state; kernel launch counts
+    over the run.  Gates: finite params, and unless turned off every round
+    ok and the last ROC-AUC above 0.5."""
+    sim = sim or Simulator(cfg, device="cuda")
     state = sim.init_state()
     torch.cuda.synchronize()
     tfs.run_epoch.launches = tfs.fill_masks.launches = 0
-    state, history = sim.run(state=state, verbose=False)
+    state, history = sim.run(state=state, save_checkpoints=save_checkpoints, verbose=False)
     launches = {"fused_step": tfs.run_epoch.launches, "dropout_mask": tfs.fill_masks.launches}
     for h in history:
         log(f"[main] {label} round {h['round']} broadcast {h['broadcast']} ok={h['ok']} "
             f"roc_auc={h.get('roc_auc', float('nan')):.4f} "
             f"train_loss={h['train_loss']:.4f} seconds={h['seconds']:.4f}")
-    if not all(h["ok"] for h in history):
+    if all_ok and not all(h["ok"] for h in history):
         raise AssertionError(f"a {label} round failed")
-    auc = history[-1]["roc_auc"]
-    if not (math.isfinite(auc) and auc > 0.5):
+    auc = history[-1].get("roc_auc", float("nan"))
+    if auc_gate and not (math.isfinite(auc) and auc > 0.5):
         raise AssertionError(f"{label}: ROC-AUC {auc} is not above 0.5 by round {len(history)}")
     if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(state["global_params"])):
         raise AssertionError(f"{label}: global params are not finite")
-    return state, history, launches
+    kernel = BACKEND_KERNEL[cfg.local_backend]
+    if launches[kernel] == 0:
+        raise AssertionError(f"{label}: kernel {kernel} was not launched")
+    return sim, state, history, launches
 
 
-def main_path() -> dict:
+def main_path() -> tuple[dict, dict]:
     """Config 4, depth cut, under both local backends, then the repo's
-    config.yaml.  Returns the kernels' launch counts: K1's from the
-    pallas run, K3's from the xla run."""
+    config.yaml.  Returns the kernels' launch counts (K1's from the
+    pallas run, K3's from the xla run) and each backend's final state."""
     for key in DEPTH["cut"]:
         log(f"[main] reduced {key}: {DEPTH['full'][key]} -> {DEPTH['cut'][key]}")
     log(f"[main] reduced num_round: {ROUNDS[0]} -> {ROUNDS[1]}")
-    counts = {}
+    counts, states = {}, {}
     for backend in ("pallas", "xla"):
-        cfg = Config(**{**CONFIG4, "local_backend": backend}, **DEPTH["cut"],
-                     num_round=ROUNDS[1])
-        _, history, launches = run_config(cfg, backend)
+        cfg = cut_config(local_backend=backend)
+        _, states[backend], history, launches = run_config(cfg, backend)
         nb = -(-cfg.num_data_range[1] // cfg.batch_size)
         expect = ({"fused_step": len(history) * cfg.epochs, "dropout_mask": 0}
                   if backend == "pallas" else
@@ -550,21 +598,191 @@ def main_path() -> dict:
             f"round {[round(h['seconds'], 4) for h in history]}")
         counts.update({k: v for k, v in launches.items() if v})
 
-    # config.yaml as it stands: 3 clients at full depth, local_backend xla
+    # config.yaml as it stands: 3 clients at full depth, local_backend xla;
+    # it checkpoints into its log_path, ".", so it runs in a temporary
+    # working directory
     path = os.path.join(REPO, "config.yaml")
     cfg = load_config(path)
     per_round = cfg.epochs * -(-cfg.num_data_range[1] // cfg.batch_size)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     tfs.run_epoch.launches = tfs.fill_masks.launches = 0
     t0 = time.perf_counter()
-    rc = cli.run_main(["--config", path, "--rounds", "1"])
-    torch.cuda.synchronize()
+    try:
+        os.chdir(workdir)
+        rc = cli.run_main(["--config", path, "--rounds", "1"])
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(REPO)
     seconds = time.perf_counter() - t0
+    written = sorted(os.listdir(workdir))
+    shutil.rmtree(workdir)
     k1, k3 = tfs.run_epoch.launches, tfs.fill_masks.launches
     if rc != 0 or k1 != 0 or k3 == 0 or k3 % per_round:
         raise AssertionError(f"config.yaml run: exit {rc}, K1 launches {k1}, K3 launches {k3}")
+    if "manifest.json" not in written:
+        raise AssertionError(f"config.yaml run wrote no checkpoint manifest: {written}")
     log(f"[main] config.yaml, 1 round: ok in {seconds:.3f} s (construction included); "
-        f"K1 launches {k1}, K3 launches {k3} ({k3 // per_round} round(s) trained)")
-    return counts
+        f"K1 launches {k1}, K3 launches {k3} ({k3 // per_round} round(s) trained); "
+        f"wrote {written}")
+    return counts, states
+
+
+def checkpoint_phase(main_states: dict) -> None:
+    """Per backend: a run that saves every round (each save timed), then 2
+    rounds, a new Simulator with resume=True and round 3.  The resumed
+    params are held to the gap between the main path's run and the
+    saving run, two runs without a stop (0 when the runs are
+    deterministic)."""
+    for backend in ("pallas", "xla"):
+        root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            whole_dir, cut_dir = os.path.join(root, "whole"), os.path.join(root, "cut")
+            sim = Simulator(cut_config(local_backend=backend, checkpoint_dir=whole_dir),
+                            device="cuda")
+            save_s = []
+            save = sim.save_checkpoint
+
+            def timed_save(state, save=save, save_s=save_s):
+                t0 = time.perf_counter()
+                if not save(state):
+                    raise AssertionError(f"{backend}: a checkpoint write failed")
+                save_s.append(time.perf_counter() - t0)
+                return True
+
+            sim.save_checkpoint = timed_save
+            _, whole, _, _ = run_config(sim.cfg, f"{backend} checkpointed", sim=sim,
+                                        save_checkpoints=True)
+            gap = max_param_gap(main_states[backend]["global_params"], whole["global_params"])
+            sizes = [e["bytes"] for e in sim.checkpoints.read_manifest()["entries"]]
+            log(f"[checkpoints] {backend}: two runs without a stop differ by max |d params| "
+                f"{gap:.3e}; saves of rounds 1-3: {sizes} bytes in "
+                f"{[round(t, 4) for t in save_s]} s")
+
+            first = Simulator(cut_config(local_backend=backend, checkpoint_dir=cut_dir),
+                              device="cuda")
+            first.run(num_rounds=2, verbose=False)
+            resumed_sim = Simulator(cut_config(local_backend=backend, checkpoint_dir=cut_dir,
+                                               resume=True), device="cuda")
+            t0 = time.perf_counter()
+            state = resumed_sim.load_or_init_state()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            tfs.run_epoch.launches = tfs.fill_masks.launches = 0
+            resumed, history = resumed_sim.run(state=state, verbose=False)
+            launches = {"fused_step": tfs.run_epoch.launches,
+                        "dropout_mask": tfs.fill_masks.launches}
+            rounds = [e["round"] for e in resumed_sim.checkpoints.read_manifest()["entries"]]
+            resume_gap = max_param_gap(resumed["global_params"], whole["global_params"])
+            log(f"[checkpoints] {backend}: resume load {load_s:.4f} s from round "
+                f"{state['completed_rounds']}; resumed rounds {[h['round'] for h in history]} "
+                f"ok={[h['ok'] for h in history]}; manifest rounds {rounds}; launches {launches}; "
+                f"resumed vs uninterrupted max |d params| {resume_gap:.3e}")
+            if (state["completed_rounds"] != 2 or [h["round"] for h in history] != [3]
+                    or not all(h["ok"] for h in history) or rounds != [1, 2, 3]
+                    or launches[BACKEND_KERNEL[backend]] == 0 or resume_gap > gap):
+                raise AssertionError(f"{backend}: resume does not continue the run")
+        finally:
+            shutil.rmtree(root)
+
+
+def dropped_rows_check(sim: Simulator, label: str) -> None:
+    """One round step with stragglers: every dropped client's row is the
+    broadcast params bit for bit."""
+    state = sim.init_state()
+    draws = sim.draw_round(torch.Generator(device=sim.device).manual_seed(11))
+    stacked = sim.round_step(state["global_params"], state["prev_genuine"], False, draws, 1)[0]
+    dropped = torch.nonzero(~draws.kept).flatten()
+    if dropped.numel() == 0:
+        raise AssertionError(f"{label}: the draw dropped no client")
+    for (path, rows), (_, p) in zip(tree_items(stacked), tree_items(state["global_params"])):
+        if not torch.equal(rows[dropped], p.expand((dropped.numel(),) + tuple(p.shape))):
+            raise AssertionError(f"{label}: a dropped client's {path} moved")
+    log(f"[stragglers] {label}: one round step dropped clients {dropped.tolist()}; their "
+        "rows equal the broadcast params bit for bit")
+
+
+def straggler_phase() -> None:
+    """Config 4 with stragglers, then BASELINE config 3 (Dirichlet split,
+    no attackers), each under both backends."""
+    for backend in ("pallas", "xla"):
+        cfg = cut_config(local_backend=backend, client_dropout_rate=DROPOUT_RATE)
+        sim, _, history, launches = run_config(cfg, f"{backend} stragglers")
+        log(f"[stragglers] {backend} client_dropout_rate {DROPOUT_RATE}: {len(history)} rounds "
+            f"ok; launches {launches}; seconds per round "
+            f"{[round(h['seconds'], 4) for h in history]}")
+        dropped_rows_check(sim, backend)
+    for backend in ("pallas", "xla"):
+        cfg = cut_config(local_backend=backend, attacks=(), partition="dirichlet",
+                         dirichlet_alpha=CONFIG3_ALPHA)
+        _, _, history, launches = run_config(cfg, f"{backend} config 3", auc_gate=False)
+        log(f"[stragglers] {backend} config 3 (dirichlet alpha {CONFIG3_ALPHA}, no attackers): "
+            f"{len(history)} rounds ok; launches {launches}; AUC "
+            f"{[round(h['roc_auc'], 4) for h in history]}; seconds per round "
+            f"{[round(h['seconds'], 4) for h in history]}")
+
+
+def attack_on_card_and_cpu(mode: str, state: dict, leak_k: int, device) -> None:
+    """One gamma-search attack call from a fixed leaked stack (the run's
+    final leak pool, a seeded leak sample per attacker) on the card and on
+    the CPU copy: the same gamma sequence, rows within ATTACK_ROW_TOL."""
+    pool = state["prev_genuine"]
+    n_genuine = tree_leaves(pool)[0].shape[0]
+    leaks = random_permutations(torch.Generator().manual_seed(5),
+                                (ATTACKERS, n_genuine))[:, :leak_k]
+    outs, traces = [], []
+    for dev in (device, "cpu"):
+        on = tree_map(lambda x: x.to(dev), pool)
+        own = tree_broadcast(tree_map(lambda x: x.to(dev), state["global_params"]), ATTACKERS)
+        trace: list = []
+        outs.append(attacks.apply_attack(mode, own, tree_take(on, leaks.to(dev)), (), dim=1,
+                                         trace=trace))
+        traces.append([g.cpu() for g, _, _ in trace])
+    same = len(traces[0]) == len(traces[1]) and all(
+        torch.equal(a, b) for a, b in zip(*traces))
+    err = max(float((x.cpu() - y).abs().max()) for x, y in zip(tree_leaves(outs[0]),
+                                                                tree_leaves(outs[1])))
+    log(f"[attacks] {mode}: one call on a fixed leaked stack [{ATTACKERS}, {leak_k}, P]: "
+        f"{len(traces[0])} gamma steps, gamma sequence card == CPU: {same} "
+        f"(card {[round(float(g[0]), 4) for g in traces[0]]}); max |card - CPU| {err:.3e}")
+    if not same or err > ATTACK_ROW_TOL:
+        raise AssertionError(f"{mode}: the card's attack disagrees with the CPU's")
+
+
+def attack_phase() -> None:
+    """Config 4 with its 25 attackers of each attack under pallas: the run ends
+    without raising with finite params (the AUC is printed, not gated: an
+    attack may drive it to 0.5); each attack step timed by CUDA events."""
+    for mode, args in ATTACKS:
+        cfg = cut_config(attacks=(AttackSpec(mode=mode, num_clients=ATTACKERS,
+                                             attack_round=2, args=args),))
+        events = []
+        map_attackers = tround.map_attackers
+
+        def timed(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            out = map_attackers(*a, **k)
+            end.record()
+            events.append((start, end))
+            return out
+
+        tround.map_attackers = timed
+        try:
+            sim, state, history, launches = run_config(cfg, f"attack {mode}", auc_gate=False,
+                                                       all_ok=False)
+        finally:
+            tround.map_attackers = map_attackers
+        torch.cuda.synchronize()
+        ms = [round(s.elapsed_time(e), 3) for s, e in events]
+        if len(ms) != sum(1 for h in history if h["broadcast"] >= 2):
+            raise AssertionError(f"{mode}: {len(ms)} attack steps in {len(history)} rounds")
+        log(f"[attacks] {mode} {args}: rounds ok {[h['ok'] for h in history]}; AUC "
+            f"{[round(h.get('roc_auc', float('nan')), 4) for h in history]}; launches "
+            f"{launches}; attack step (leak gather and attack, CUDA events) {ms} ms per "
+            f"attacking round; seconds per round {[round(h['seconds'], 4) for h in history]}")
+        if mode in attacks.GAMMA_SEARCHES:
+            attack_on_card_and_cpu(mode, state, sim.leak_k, sim.device)
 
 
 def main() -> int:
@@ -591,9 +809,14 @@ def main() -> int:
     check_validator()
     kernels = [check_fused_step(card, built["fused_step"][1]), check_dropout_mask()]
     xla_epoch_ms()
-    launches = main_path()
+    launches, states = main_path()
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    for name, phase in (("checkpoints", lambda: checkpoint_phase(states)),
+                        ("stragglers", straggler_phase), ("attacks", attack_phase)):
+        t0 = time.perf_counter()
+        phase()
+        log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
     log(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,7 +21,7 @@ SMALL = dict(num_round=3, total_clients=8, mode="fedavg", model="TransformerMode
 def test_simulator_runs_three_rounds_on_cpu():
     sim = Simulator(Config(**SMALL), device="cpu")
     launches = fused_step.run_epoch.launches
-    state, history = sim.run(verbose=False)
+    state, history = sim.run(save_checkpoints=False, verbose=False)
     assert [h["ok"] for h in history] == [True, True, True]
     assert state["completed_rounds"] == 3 and state["have_genuine"]
     assert all(math.isfinite(h["roc_auc"]) for h in history)
@@ -32,8 +32,8 @@ def test_simulator_runs_three_rounds_on_cpu():
 
 
 def test_same_seed_same_run():
-    runs = [Simulator(Config(**{**SMALL, "num_round": 1}), device="cpu").run(verbose=False)
-            for _ in range(2)]
+    runs = [Simulator(Config(**{**SMALL, "num_round": 1}), device="cpu").run(
+        save_checkpoints=False, verbose=False) for _ in range(2)]
     (s1, h1), (s2, h2) = runs
     assert h1[0]["roc_auc"] == h2[0]["roc_auc"]
     for a, b in zip(pt.tree_leaves(s1["global_params"]), pt.tree_leaves(s2["global_params"])):
@@ -50,8 +50,8 @@ def test_default_device_without_cuda_raises(monkeypatch):
     {"mode": "median"},
     {"local_backend": "xla", "mesh": MeshConfig(compute_dtype="bfloat16")},
     {"pipeline": True},
-    {"attacks": (AttackSpec(mode="Random", num_clients=1),)},
-    {"client_dropout_rate": 0.1}, {"resume": True},
+    {"mode": "krum"},
+    {"checkpoint_async": True}, {"model": "CNNModel", "local_backend": "xla"},
 ])
 def test_outside_the_slice_is_refused(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -88,7 +88,7 @@ def test_retry_cap(monkeypatch):
     sim = Simulator(Config(**SMALL), device="cpu")
     monkeypatch.setattr(sim.validation, "test", lambda params: (False, {"roc_auc": 0.5}))
     with pytest.raises(RuntimeError, match="failed"):
-        sim.run(num_rounds=1, verbose=False)
+        sim.run(num_rounds=1, save_checkpoints=False, verbose=False)
     assert MAX_ROUND_RETRIES == 20
 
 
@@ -106,7 +106,8 @@ def test_draw_round_semantics():
     assert all(len(set(row.tolist())) == 3 for row in leaks)   # without replacement
 
 
-def test_cli_run_on_cpu(tmp_path, capsys):
+def test_cli_run_on_cpu(tmp_path, capsys, monkeypatch):
+    monkeypatch.chdir(tmp_path)      # the run checkpoints into log_path, "."
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text(
         "server: {num-round: 2, clients: 6, data-name: ICU, model: TransformerModel,\n"

@@ -352,7 +352,7 @@ def test_simulator_runs_xla_rounds_on_cpu():
                  attacks=(AttackSpec(mode="LIE", num_clients=2, attack_round=2),))
     assert cfg.local_backend == "xla"
     k1, k3 = fused_step.run_epoch.launches, fused_step.fill_masks.launches
-    state, history = Simulator(cfg, device="cpu").run(verbose=False)
+    state, history = Simulator(cfg, device="cpu").run(save_checkpoints=False, verbose=False)
     assert [h["ok"] for h in history] == [True, True]
     assert history[-1]["roc_auc"] > 0.5
     assert all(bool(torch.isfinite(x).all()) for x in pt.tree_leaves(state["global_params"]))
