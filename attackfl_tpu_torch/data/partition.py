@@ -36,6 +36,9 @@ class RoundDraws:
     leaks: tuple[torch.Tensor, ...]   # per attack group: (attackers, leak_k) int64
     kept: torch.Tensor | None = None  # (C,) bool; None without stragglers
     noise: tuple[torch.Tensor, ...] = ()  # per Random group: (attackers, P) N(0, 1)
+    uniform: torch.Tensor | None = None   # (C, P) U[0, 1): ScionFL's quantization bits
+    root_perms: torch.Tensor | None = None  # (epochs, 1, n_root) int64: FLTrust's root shuffles
+    root_seed: int = 0                    # FLTrust's root dropout seed of epoch 0 (+e per epoch)
 
 
 def sample_round_indices(gen: torch.Generator, num_clients: int, pool_size: int,
@@ -107,15 +110,19 @@ def draw_round(gen: torch.Generator, *, num_clients: int, pool_size: int,
                lo: int, hi: int, epochs: int, num_genuine: int,
                leak_groups: Sequence[int], leak_k: int,
                client_pools: torch.Tensor | None = None, dropout_rate: float = 0.0,
-               noise_groups: Sequence[int] = (), num_params: int = 0) -> RoundDraws:
+               noise_groups: Sequence[int] = (), num_params: int = 0,
+               quantize: bool = False, root_size: int = 0) -> RoundDraws:
     """Draw one round: client samples (from ``client_pools`` where given),
     per-epoch shuffles, the kernel's dropout seed and, for each attack
     group of ``leak_groups[g]`` attackers, a leak sample of ``leak_k``
     genuine indices per attacker drawn without replacement.  Then, only
     where asked: the kept clients (each kept with probability ``1 -
-    dropout_rate``), and for each Random group of ``noise_groups[g]``
-    attackers an (attackers, ``num_params``) standard normal draw.  A run
-    without stragglers or Random attackers draws nothing more."""
+    dropout_rate``); for each Random group of ``noise_groups[g]``
+    attackers an (attackers, ``num_params``) standard normal draw; with
+    ``quantize`` (ScionFL) a (C, ``num_params``) uniform draw; with
+    ``root_size`` (FLTrust) the root set's per-epoch shuffles and its
+    dropout seed.  A run without stragglers, Random attackers, ScionFL or
+    FLTrust draws nothing more."""
     idx, mask, sizes = sample_round_indices(gen, num_clients, pool_size, lo, hi,
                                             client_pools)
     perms = random_permutations(gen, (epochs, num_clients, hi))
@@ -127,5 +134,13 @@ def draw_round(gen: torch.Generator, *, num_clients: int, pool_size: int,
         kept = torch.rand((num_clients,), generator=gen, device=gen.device) < 1.0 - dropout_rate
     noise = tuple(torch.randn((n, num_params), generator=gen, device=gen.device)
                   for n in noise_groups)
+    uniform = root_perms = None
+    root_seed = 0
+    if quantize:
+        uniform = torch.rand((num_clients, num_params), generator=gen, device=gen.device)
+    if root_size:
+        root_perms = random_permutations(gen, (epochs, 1, root_size))
+        root_seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen, device=gen.device))
     return RoundDraws(idx=idx, mask=mask, sizes=sizes, perms=perms,
-                      dropout_seed=seed, leaks=leaks, kept=kept, noise=noise)
+                      dropout_seed=seed, leaks=leaks, kept=kept, noise=noise,
+                      uniform=uniform, root_perms=root_perms, root_seed=root_seed)

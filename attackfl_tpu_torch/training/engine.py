@@ -2,11 +2,12 @@
 ``attackfl_tpu/training/engine.py``, synchronous executor).
 
 One Python loop around the round program: sample -> train -> attack ->
-aggregate -> validate -> accept or retry.  A failed round (client NaN or
-failed validation) is retried without decrementing the remaining-round
-counter (reference server.py:546-563), at most ``MAX_ROUND_RETRIES``
-times in a row; the attack clock advances per broadcast (the client-side
-counter, RpcClient.py:72).
+defend and aggregate -> validate -> accept or retry.  A failed round
+(client NaN, no client left after the defense, or failed validation) is
+retried without decrementing the remaining-round counter (reference
+server.py:546-563), at most ``MAX_ROUND_RETRIES`` times in a row; the
+attack clock advances per broadcast (the client-side counter,
+RpcClient.py:72).
 
 The port runs on one device and draws its randomness from
 ``torch.Generator``s: model init from a CPU generator seeded with
@@ -18,6 +19,11 @@ server.py:549-553) through ``utils/checkpoint.CheckpointManager``:
 ``{model}.pth``, round-stamped entries and ``manifest.json`` under
 ``checkpoint_dir``.  ``resume`` continues from the newest valid entry,
 ``load_parameters`` from the ``{model}.pth`` alias.
+
+The gmm and fltracer defenses filter on the host, as in the JAX engine
+(``_run_plain_round``, ``attackfl_tpu/training/engine.py:1551-1612``): one
+device-to-host copy of the flat client matrix a round, then numpy
+(``ops/defenses.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import os
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from attackfl_tpu_torch.config import Config
@@ -34,10 +41,11 @@ from attackfl_tpu_torch.data.partition import dirichlet_label_partition, draw_ro
 from attackfl_tpu_torch.data.synthetic import get_dataset
 from attackfl_tpu_torch.device import resolve_device
 from attackfl_tpu_torch.eval.validation import Validation
+from attackfl_tpu_torch.ops import defenses
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.registry import get_model
 from attackfl_tpu_torch.training.round import (
-    attacking_groups, build_aggregator, build_attack_groups, build_round_step,
+    ROOT_SIZE, attacking_groups, build_aggregator, build_attack_groups, build_round_step,
     leak_size,
 )
 from attackfl_tpu_torch.utils import checkpoint as ckpt
@@ -54,15 +62,14 @@ def _refuse(what: str, item: str) -> None:
 
 def check_slice(cfg: Config) -> None:
     """Refuse what the port cannot run yet, naming the ROADMAP item that
-    will port it.  The slice: ICU TransformerModel, fedavg, every attack,
-    stragglers and the Dirichlet split, checkpoints, the synchronous
-    executor, local_backend xla (float32) or pallas."""
+    will port it.  The slice: ICU TransformerModel, every aggregation mode
+    but hyper, every attack, stragglers and the Dirichlet split,
+    checkpoints, the synchronous executor, local_backend xla (float32) or
+    pallas."""
     if cfg.model != "TransformerModel" or cfg.data_name != "ICU":
         _refuse(f"model {cfg.model!r} on {cfg.data_name!r}", "item 11")
     if cfg.mode == "hyper":
         _refuse("hyper mode", "item 12")
-    if cfg.mode != "fedavg":
-        _refuse(f"aggregation mode {cfg.mode!r}", "item 10")
     # the pallas path ignores compute-dtype (K1 is float32), as in JAX
     if cfg.local_backend == "xla" and cfg.mesh.compute_dtype != "float32":
         _refuse(f"compute-dtype {cfg.mesh.compute_dtype!r} (mixed-precision local "
@@ -78,6 +85,22 @@ def check_slice(cfg: Config) -> None:
         _refuse("telemetry (monitor, numerics, profiling windows)", "item 16")
 
 
+def host_filter(mode: str, stacked: dict, attacker_mask: np.ndarray,
+                seed: int) -> tuple[np.ndarray, dict[str, Any]]:
+    """The gmm or fltracer keep mask (C,) bool of a round's client rows,
+    and its metrics: one device-to-host copy of the flat (C, P) matrix,
+    then the numpy filter (JAX engine.py:1576-1604).  ``attacker_mask``
+    marks every configured attacker; gmm calibrates on the others."""
+    flat = pt.tree_ravel_stacked(stacked).cpu().numpy()
+    if mode == "gmm":
+        keep = defenses.gmm_filter(flat, attacker_mask, seed=seed)
+        return keep, {"gmm_kept": int(keep.sum())}
+    anomalies = defenses.fltracer_anomalies(flat)
+    keep = np.ones(flat.shape[0], dtype=bool)
+    keep[anomalies] = False
+    return keep, {"fltracer_anomalies": anomalies.tolist()}
+
+
 class Simulator:
     """End-to-end federated simulation of one Config on one device."""
 
@@ -91,6 +114,8 @@ class Simulator:
         test_np = get_dataset(cfg.data_name, "test", cfg.test_size, data_seed)
         self.train_data = {k: torch.as_tensor(v, device=self.device)
                            for k, v in train_np.items()}
+        self.test_data = {k: torch.as_tensor(v, device=self.device)
+                          for k, v in test_np.items()}
         self.pool_size = next(iter(train_np.values())).shape[0]
         self.client_pools = None
         if cfg.partition == "dirichlet":
@@ -99,11 +124,15 @@ class Simulator:
             self.client_pools = torch.as_tensor(pools, dtype=torch.int64, device=self.device)
         self.attack_groups, self.genuine_idx = build_attack_groups(cfg)
         self.leak_k = leak_size(cfg, len(self.genuine_idx))
+        # every configured attacker, `none` cohorts included (JAX round.py:119-131)
+        self.attacker_mask = np.zeros(cfg.total_clients, dtype=bool)
+        for grp in self.attack_groups:
+            self.attacker_mask[list(grp.indices)] = True
         self.validation = (Validation(self.model, cfg.data_name, test_np, self.device, log)
                            if cfg.validation else None)
         self.round_step = build_round_step(self.model, cfg, self.train_data,
                                            self.attack_groups, self.genuine_idx)
-        self.aggregate = build_aggregator(cfg)
+        self.aggregate = build_aggregator(self.model, cfg, self.test_data)
         self.num_params = sum(x.numel() for x in self.model.parameters())
         # temp files of killed writes go before any new checkpoint activity
         swept = ckpt.sweep_orphans(cfg.checkpoint_dir)
@@ -221,7 +250,9 @@ class Simulator:
             leak_groups=[len(g.indices) for g in firing], leak_k=self.leak_k,
             client_pools=self.client_pools, dropout_rate=self.cfg.client_dropout_rate,
             noise_groups=[len(g.indices) for g in firing if g.mode == "Random"],
-            num_params=self.num_params)
+            num_params=self.num_params, quantize=self.cfg.mode == "scionfl",
+            root_size=(min(ROOT_SIZE, self.test_data["label"].shape[0])
+                       if self.cfg.mode == "FLTrust" else 0))
 
     # ------------------------------------------------------------------
     # one round
@@ -232,7 +263,7 @@ class Simulator:
                 and broadcast_number % self.cfg.validation_every == 0)
 
     def run_round(self, state: dict[str, Any]) -> tuple[dict[str, Any], dict[str, Any]]:
-        """Broadcast -> train -> attack -> aggregate -> validate.
+        """Broadcast -> train -> attack -> defend and aggregate -> validate.
 
         Returns (new_state, metrics).  On failure (``metrics["ok"]``
         False) the new state keeps the previous global params but advances
@@ -251,13 +282,23 @@ class Simulator:
         ok = train_ok = bool(ok)
         metrics["train_loss"] = float(loss)
 
-        weights_mask = (sizes > 0).to(torch.float32)
+        weights_mask = torch.ones(self.cfg.total_clients, device=self.device)
+        if ok and self.cfg.mode in ("gmm", "fltracer"):
+            keep, filter_metrics = host_filter(self.cfg.mode, stacked, self.attacker_mask,
+                                               self.cfg.random_seed)
+            metrics.update(filter_metrics)
+            # the round fails when no client survives (server.py:369-372)
+            ok = bool(keep.any())
+            weights_mask = torch.as_tensor(keep, dtype=torch.float32, device=self.device)
+        # the defense's survivors that reported: with stragglers a filter can
+        # keep only dropped (size-0) clients, and a weighted mean would be 0/0
+        weights_mask = weights_mask * (sizes > 0)
         if ok and not bool(torch.any(weights_mask > 0)):
             ok = False
         new_global = state["global_params"]
         if ok:
             new_global = self.aggregate(state["global_params"], stacked, sizes,
-                                        weights_mask)
+                                        weights_mask, draws)
             if self._validation_due(broadcast_number):
                 val_ok, val_metrics = self.validation.test(new_global)
                 metrics.update(val_metrics)

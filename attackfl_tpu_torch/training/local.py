@@ -189,3 +189,30 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
         return tree_map(lambda x: x.contiguous(), unravel(p)), ok, loss_sum / nb
 
     return batched
+
+
+def build_root_update(model, data_name: str, root_data: dict[str, torch.Tensor], *,
+                      epochs: int, batch_size: int, lr: float, clip_grad_norm: float,
+                      dropout=(0.1, 0.1, 0.3)) -> Callable:
+    """FLTrust's server-side root training (reference server.py:290-293,711;
+    JAX ``training/local.py:172-198``): :func:`build_local_update` over one
+    "client" holding the whole root set, every slot valid.
+
+    Returns ``root_update(params, perms [E, 1, n], seed) -> params``.  As
+    in the JAX package, whose ``build_local_update`` draws a permutation
+    every epoch whatever its docstring says, the root set is shuffled each
+    epoch by ``perms``; dropout is on, with masks from K3 keyed on
+    ``seed + e``, whatever ``local_backend`` the clients train under."""
+    n = next(iter(root_data.values())).shape[0]
+    device = next(iter(root_data.values())).device
+    idx = torch.arange(n, dtype=torch.int64, device=device)[None]
+    mask = torch.ones((1, n), dtype=torch.bool, device=device)
+    inner = build_local_update(model, data_name, root_data, epochs=epochs,
+                               batch_size=batch_size, lr=lr,
+                               clip_grad_norm=clip_grad_norm, dropout=dropout)
+
+    def root_update(params, perms, seed):
+        stacked, _ok, _loss = inner(params, idx, mask, perms, seed)
+        return tree_map(lambda x: x[0], stacked)
+
+    return root_update

@@ -98,6 +98,13 @@ def _rows(sel: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return sel.reshape((-1,) + (1,) * (like.ndim - 1))
 
 
+def model_dropout(model) -> tuple[float, float, float]:
+    """The dropout rates (attention, block, head) of ``model``'s training,
+    as TransformerModel's: attention and block 0.1, head
+    ``model.dropout_rate``."""
+    return (0.1, 0.1, float(getattr(model, "dropout_rate", 0.3)))
+
+
 def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
                      attack_groups: Sequence[AttackGroup],
                      genuine_idx: Sequence[int]) -> Callable:
@@ -108,9 +115,7 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
     ``xla`` trains with torch autograd (``training/local.py``), ``pallas``
     with the fused kernel (``ops/fused_step.py``)."""
     device = next(iter(train_data.values())).device
-    # dropout rates mirror TransformerModel: block/attention 0.1, head =
-    # model.dropout_rate
-    dropout = (0.1, 0.1, float(getattr(model, "dropout_rate", 0.3)))
+    dropout = model_dropout(model)
     kw = dict(epochs=cfg.epochs, batch_size=cfg.batch_size, lr=cfg.lr,
               clip_grad_norm=cfg.clip_grad_norm)
     if cfg.local_backend == "xla":
@@ -186,15 +191,78 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
     return round_step
 
 
-def build_aggregator(cfg: Config) -> Callable:
-    """``aggregate(global_params, stacked, sizes, weights_mask) ->
-    new_global`` for the configured mode."""
-    if cfg.mode != "fedavg":
+# FLTrust's root set: the first ROOT_SIZE test samples, trained at batch
+# ROOT_BATCH (reference server.py:290-293)
+ROOT_SIZE, ROOT_BATCH = 200, 100
+
+
+def build_aggregator(model, cfg: Config,
+                     test_data: dict[str, torch.Tensor] | None = None) -> Callable:
+    """``aggregate(global_params, stacked, sizes, weights_mask, draws) ->
+    new_global`` for the configured mode (JAX ``round.py:459-513``).
+
+    ``weights_mask`` (C,) soft-excludes clients: the host-side filters'
+    rejects (gmm, fltracer) and the clients that did not report.  fedavg,
+    fltracer and scionfl weight by ``sizes * weights_mask``; gmm takes the
+    unweighted mean over ``weights_mask``.  Under stragglers
+    (``client_dropout_rate > 0``) median, trimmed-mean, Krum, ShieldFL and
+    byzantine operate over the reporting clients only (``geo_mask``): a
+    dropped client's row is the broadcast params and would otherwise vote
+    "no change".  ScionFL reads ``draws.uniform``, FLTrust
+    ``draws.root_perms`` and ``draws.root_seed``; FLTrust trains its root
+    set, the first ``ROOT_SIZE`` rows of ``test_data``, with the autograd
+    update (``local.build_root_update``) whatever ``local_backend`` is."""
+    mode = cfg.mode
+    geo = cfg.client_dropout_rate > 0.0
+
+    def geo_mask(weights_mask):
+        return weights_mask if geo else None
+
+    def weighted(sizes, weights_mask):
+        return sizes.to(torch.float32) * weights_mask
+
+    if mode in ("fedavg", "fltracer"):
+        def aggregate(global_params, stacked, sizes, weights_mask, draws):
+            return aggregators.fedavg(stacked, weighted(sizes, weights_mask))
+    elif mode == "gmm":
+        def aggregate(global_params, stacked, sizes, weights_mask, draws):
+            return aggregators.mean_aggregation(stacked, weights_mask)
+    elif mode == "median":
+        def aggregate(global_params, stacked, sizes, weights_mask, draws):
+            return aggregators.median_aggregation(stacked, geo_mask(weights_mask))
+    elif mode == "trimmed_mean":
+        def aggregate(global_params, stacked, sizes, weights_mask, draws):
+            return aggregators.trimmed_mean(stacked, cfg.trim_ratio, geo_mask(weights_mask))
+    elif mode == "krum":
+        def aggregate(global_params, stacked, sizes, weights_mask, draws):
+            return aggregators.krum(stacked, cfg.krum_f, geo_mask(weights_mask))
+    elif mode == "shieldfl":
+        def aggregate(global_params, stacked, sizes, weights_mask, draws):
+            return aggregators.shieldfl(stacked, mask=geo_mask(weights_mask))
+    elif mode == "scionfl":
+        def aggregate(global_params, stacked, sizes, weights_mask, draws):
+            return aggregators.scionfl(stacked, weighted(sizes, weights_mask), draws.uniform)
+    elif mode == "byzantine":
+        def aggregate(global_params, stacked, sizes, weights_mask, draws):
+            return aggregators.byzantine_tolerance(stacked, cfg.byzantine_threshold,
+                                                   geo_mask(weights_mask))
+    elif mode == "FLTrust":
+        if test_data is None:
+            raise ValueError("FLTrust requires test data for root training")
+        root = {k: v[:ROOT_SIZE] for k, v in test_data.items()}
+        root_update = local.build_root_update(
+            model, cfg.data_name, root, epochs=cfg.epochs, batch_size=ROOT_BATCH, lr=cfg.lr,
+            clip_grad_norm=cfg.clip_grad_norm,
+            dropout=model_dropout(model))
+
+        def aggregate(global_params, stacked, sizes, weights_mask, draws):
+            root_params = root_update(global_params, draws.root_perms, draws.root_seed)
+            root_delta = pt.tree_map(torch.sub, root_params, global_params)
+            deltas = pt.tree_map(lambda s, g: s - g.unsqueeze(0), stacked, global_params)
+            return aggregators.fltrust_combine(global_params, deltas, root_delta)
+    elif mode == "hyper":
         raise NotImplementedError(
-            f"aggregation mode {cfg.mode!r} is not ported yet (ROADMAP.md "
-            "queue 1, items 10 and 12)")
-
-    def aggregate(global_params, stacked, sizes, weights_mask):
-        return aggregators.fedavg(stacked, sizes.to(torch.float32) * weights_mask)
-
+            "aggregation mode 'hyper' is not ported yet (ROADMAP.md queue 1, item 12)")
+    else:
+        raise ValueError(f"Server mode '{mode}' is not valid.")
     return aggregate

@@ -32,8 +32,19 @@ no result line):
                  Min-Max, Min-Sum and Opt-Fang under pallas, each attack
                  step timed by CUDA events; each gamma-search attack on a
                  fixed leaked stack on the card against the same call on
-                 the CPU (equal gamma sequence, rows within 1e-5).
-Each of phases 4-7 resets the kernel launch counts before each run and
+                 the CPU (equal gamma sequence, rows within 1e-5);
+  8. defenses -- config 4 (cut, 25 LIE attackers) under each of the nine
+                 defenses with pallas, FLTrust, median and Krum with xla
+                 too, median and Krum with stragglers (client_dropout_rate
+                 0.1, their masked forms); the defense step timed by CUDA
+                 events, the host filters of gmm and fltracer by the host
+                 clock with the bytes they copy; FLTrust's root training
+                 must launch K3 (2 steps an epoch) under both backends; then
+                 each aggregator on one run's last client rows on the card
+                 against the same call on the CPU (Krum's index, the host
+                 filters' masks and ScionFL's weights equal, the rest within
+                 1e-5).
+Each of phases 4-8 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
@@ -42,6 +53,7 @@ toolkit, imports nothing of JAX, and fails when run outside the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -65,13 +77,14 @@ from attackfl_tpu_torch.data.partition import random_permutations  # noqa: E402
 from attackfl_tpu_torch.data.synthetic import get_dataset  # noqa: E402
 from attackfl_tpu_torch.device import resolve_device  # noqa: E402
 from attackfl_tpu_torch.models.icu import TransformerModel  # noqa: E402
-from attackfl_tpu_torch.ops import attacks, build  # noqa: E402
+from attackfl_tpu_torch.ops import aggregators, attacks, build  # noqa: E402
 from attackfl_tpu_torch.ops import fused_step as tfs  # noqa: E402
 from attackfl_tpu_torch.ops.pytree import (  # noqa: E402
     tree_broadcast, tree_items, tree_leaves, tree_map, tree_take,
 )
 from attackfl_tpu_torch.profile_round import CONFIG4, DEPTH, self_device_us  # noqa: E402
 from attackfl_tpu_torch.training import local  # noqa: E402
+from attackfl_tpu_torch.training import engine  # noqa: E402
 from attackfl_tpu_torch.training import round as tround  # noqa: E402
 from attackfl_tpu_torch.training.engine import Simulator  # noqa: E402
 
@@ -110,6 +123,21 @@ ATTACKERS = CONFIG4["attacks"][0].num_clients
 ATTACK_ROW_TOL = 1e-5
 # the kernel each backend's run must launch
 BACKEND_KERNEL = {"pallas": "fused_step", "xla": "dropout_mask"}
+
+# PR 6's config-4 FedAvg rounds (AUC, train loss) as the script prints
+# them: the defenses' draws are made only when a mode asks, so these stay
+BASELINE_ROUNDS = {"pallas": [(0.9301, 0.3762), (0.9350, 0.3190), (0.9371, 0.3048)],
+                   "xla": [(0.9299, 0.3771), (0.9352, 0.3200), (0.9372, 0.3075)]}
+# phase 8: each defense under pallas; FLTrust (whose root training is the
+# autograd update whatever the backend), median and Krum under xla too;
+# median and Krum in their masked forms, with stragglers
+DEFENSES = ("median", "trimmed_mean", "krum", "shieldfl", "byzantine", "scionfl",
+            "FLTrust", "gmm", "fltracer")
+DEFENSE_RUNS = ([(mode, "pallas", 0.0) for mode in DEFENSES]
+                + [(mode, "xla", 0.0) for mode in ("FLTrust", "median", "krum")]
+                + [(mode, "pallas", DROPOUT_RATE) for mode in ("median", "krum")])
+# an aggregate on the card against the same call on the CPU
+DEFENSE_TOL = 1e-5
 
 # kernel vs plain version: p absolute, loss absolute per step, m and v
 # each relative to the largest magnitude of the plain version's tensor
@@ -594,6 +622,10 @@ def main_path() -> tuple[dict, dict]:
                   {"fused_step": 0, "dropout_mask": len(history) * cfg.epochs * nb})
         if launches != expect:
             raise AssertionError(f"{backend}: kernel launches {launches}, expected {expect}")
+        got = [(round(h["roc_auc"], 4), round(h["train_loss"], 4)) for h in history]
+        if got != BASELINE_ROUNDS[backend]:
+            raise AssertionError(f"{backend}: rounds {got} differ from the earlier slices' "
+                                 f"{BASELINE_ROUNDS[backend]}")
         log(f"[main] {backend}: {len(history)} rounds ok; launches {launches}; seconds per "
             f"round {[round(h['seconds'], 4) for h in history]}")
         counts.update({k: v for k, v in launches.items() if v})
@@ -721,6 +753,30 @@ def straggler_phase() -> None:
             f"{[round(h['seconds'], 4) for h in history]}")
 
 
+def timed_calls(obj, name: str, events: list, host: bool = False):
+    """Replace ``obj.name`` by a wrapper that records each call's CUDA
+    events (or, with ``host``, host seconds after a device sync) in
+    ``events``; returns a function that restores it."""
+    inner = getattr(obj, name)
+
+    def wrapper(*a, **k):
+        if host:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*a, **k)
+            events.append((time.perf_counter() - t0, a))
+            return out
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*a, **k)
+        end.record()
+        events.append((start, end, a))
+        return out
+
+    setattr(obj, name, wrapper)
+    return lambda: setattr(obj, name, inner)
+
+
 def attack_on_card_and_cpu(mode: str, state: dict, leak_k: int, device) -> None:
     """One gamma-search attack call from a fixed leaked stack (the run's
     final leak pool, a seeded leak sample per attacker) on the card and on
@@ -756,25 +812,14 @@ def attack_phase() -> None:
         cfg = cut_config(attacks=(AttackSpec(mode=mode, num_clients=ATTACKERS,
                                              attack_round=2, args=args),))
         events = []
-        map_attackers = tround.map_attackers
-
-        def timed(*a, **k):
-            start, end = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-            start.record()
-            out = map_attackers(*a, **k)
-            end.record()
-            events.append((start, end))
-            return out
-
-        tround.map_attackers = timed
+        restore = timed_calls(tround, "map_attackers", events)
         try:
             sim, state, history, launches = run_config(cfg, f"attack {mode}", auc_gate=False,
                                                        all_ok=False)
         finally:
-            tround.map_attackers = map_attackers
+            restore()
         torch.cuda.synchronize()
-        ms = [round(s.elapsed_time(e), 3) for s, e in events]
+        ms = [round(s.elapsed_time(e), 3) for s, e, _ in events]
         if len(ms) != sum(1 for h in history if h["broadcast"] >= 2):
             raise AssertionError(f"{mode}: {len(ms)} attack steps in {len(history)} rounds")
         log(f"[attacks] {mode} {args}: rounds ok {[h['ok'] for h in history]}; AUC "
@@ -783,6 +828,147 @@ def attack_phase() -> None:
             f"attacking round; seconds per round {[round(h['seconds'], 4) for h in history]}")
         if mode in attacks.GAMMA_SEARCHES:
             attack_on_card_and_cpu(mode, state, sim.leak_k, sim.device)
+
+
+def defense_run(mode: str, backend: str, rate: float) -> tuple[Simulator, tuple]:
+    """One cut config-4 run under ``mode``: its gates and times.  Returns
+    the Simulator and the last aggregate call's args."""
+    label = f"{mode} {backend}" + (f" stragglers {rate}" if rate else "")
+    cfg = cut_config(mode=mode, local_backend=backend, client_dropout_rate=rate)
+    sim = Simulator(cfg, device="cuda")
+    agg_events, filter_host, filter_only = [], [], []
+    restore = [timed_calls(sim, "aggregate", agg_events)]
+    if mode in ("gmm", "fltracer"):
+        fn = "gmm_filter" if mode == "gmm" else "fltracer_anomalies"
+        restore += [timed_calls(engine, "host_filter", filter_host, host=True),
+                    timed_calls(engine.defenses, fn, filter_only, host=True)]
+    try:
+        sim, _, history, launches = run_config(cfg, label, sim=sim)
+    finally:
+        for r in restore:
+            r()
+    torch.cuda.synchronize()
+    aggregated = len(agg_events)
+    ms = [round(s.elapsed_time(e), 3) for s, e, _ in agg_events]
+    nb = -(-cfg.num_data_range[1] // cfg.batch_size)
+    root_steps = aggregated * cfg.epochs * -(-tround.ROOT_SIZE // tround.ROOT_BATCH)
+    clients = ({"fused_step": len(history) * cfg.epochs, "dropout_mask": 0}
+               if backend == "pallas" else
+               {"fused_step": 0, "dropout_mask": len(history) * cfg.epochs * nb})
+    expect = dict(clients)
+    if mode == "FLTrust":
+        expect["dropout_mask"] += root_steps
+    if launches != expect or aggregated != len(history):
+        raise AssertionError(f"{label}: launches {launches} over {aggregated} aggregated "
+                             f"rounds, expected {expect}")
+    extra = ""
+    if mode == "FLTrust":
+        extra = f"; K3 launches of the root training {root_steps} (2 steps an epoch)"
+    if filter_host:
+        nbytes = [a[0].nbytes for _, a in filter_only]
+        extra = (f"; host filter (copy to the host and {fn}) "
+                 f"{[round(t * 1e3, 3) for t, _ in filter_host]} ms, of which {fn} "
+                 f"{[round(t * 1e3, 3) for t, _ in filter_only]} ms, {nbytes} bytes copied; "
+                 + ("kept " + str([h.get("gmm_kept") for h in history]) if mode == "gmm" else
+                    "anomalies " + str([h.get("fltracer_anomalies") for h in history])))
+    log(f"[defenses] {label}: rounds ok {[h['ok'] for h in history]}; AUC "
+        f"{[round(h['roc_auc'], 4) for h in history]}; launches {launches}; defense step "
+        f"(sim.aggregate, CUDA events) {ms} ms per round{extra}; seconds per round "
+        f"{[round(h['seconds'], 4) for h in history]}")
+    return sim, agg_events[-1][2]
+
+
+def defenses_on_card_and_cpu(sim: Simulator, args: tuple) -> None:
+    """Each aggregator on one run's last round (its broadcast params and
+    client rows, sizes and mask) on the card and on the CPU: Krum's index,
+    the host filters' keep masks and ScionFL's weights from the same
+    uniforms equal; the aggregates within DEFENSE_TOL.  FLTrust's combine
+    is compared from the card's root params; its root training on the
+    two devices is reported (Adam's first step from m = v = 0 turns float32
+    noise in near-zero gradients into up to lr)."""
+    global_params, stacked, sizes, weights_mask, draws = args
+    cpu = {k: v.cpu() for k, v in sim.test_data.items()}
+    to_cpu = lambda t: tree_map(lambda x: x.cpu(), t)  # noqa: E731
+    host = (to_cpu(global_params), to_cpu(stacked), sizes.cpu(), weights_mask.cpu())
+    n_clients = tree_leaves(stacked)[0].shape[0]
+    dev, model = sim.device, TransformerModel()
+    uniform = torch.rand((n_clients, sim.num_params),
+                         generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    root_perms = random_permutations(torch.Generator(device=dev).manual_seed(8),
+                                     (sim.cfg.epochs, 1, tround.ROOT_SIZE))
+    card_draws = dataclasses.replace(draws, uniform=uniform, root_perms=root_perms, root_seed=3)
+    cpu_draws = dataclasses.replace(card_draws, uniform=uniform.cpu(),
+                                    root_perms=root_perms.cpu())
+    for mode in DEFENSES:
+        cfg = cut_config(mode=mode)
+        card_wm, cpu_wm = weights_mask, host[3]
+        note = ""
+        if mode in ("gmm", "fltracer"):
+            keep_card, _ = engine.host_filter(mode, stacked, sim.attacker_mask, cfg.random_seed)
+            keep_cpu, _ = engine.host_filter(mode, host[1], sim.attacker_mask, cfg.random_seed)
+            if not np.array_equal(keep_card, keep_cpu):
+                raise AssertionError(f"{mode}: the keep mask differs between card and CPU")
+            note = f"keep mask equal ({int(keep_card.sum())} kept)"
+            card_wm = weights_mask * torch.as_tensor(keep_card, device=dev)
+            cpu_wm = host[3] * torch.as_tensor(keep_cpu)
+        if mode == "krum":
+            i_card = int(aggregators.krum_select(stacked, cfg.krum_f))
+            i_cpu = int(aggregators.krum_select(host[1], cfg.krum_f))
+            if i_card != i_cpu:
+                raise AssertionError(f"krum: index {i_card} on the card, {i_cpu} on the CPU")
+            note = f"index {i_card} on both"
+        if mode == "scionfl":
+            dist = aggregators.scionfl_distances(stacked, uniform)
+            w_card = aggregators.scionfl_weights(stacked, sizes * weights_mask, uniform)
+            w_cpu = aggregators.scionfl_weights(host[1], host[2] * host[3], uniform.cpu())
+            if not torch.equal(w_card.cpu(), w_cpu):
+                raise AssertionError("scionfl: the weights differ between card and CPU")
+            thresh = aggregators.scionfl_threshold(dist)
+            gaps = (dist - thresh).abs()
+            margin = float(torch.sort(gaps).values[1] / thresh.abs())
+            note = (f"weights equal ({int((w_card > 0).sum())} kept); closest client to the "
+                    f"threshold {margin:.3e} of it apart")
+        if mode == "FLTrust":
+            kw = dict(epochs=cfg.epochs, batch_size=tround.ROOT_BATCH, lr=cfg.lr,
+                      clip_grad_norm=cfg.clip_grad_norm, dropout=tround.model_dropout(model))
+            root_card = local.build_root_update(
+                model, "ICU", {k: v[:tround.ROOT_SIZE] for k, v in sim.test_data.items()}, **kw)
+            root_cpu = local.build_root_update(
+                model, "ICU", {k: v[:tround.ROOT_SIZE] for k, v in cpu.items()}, **kw)
+            r_card = root_card(global_params, card_draws.root_perms, card_draws.root_seed)
+            r_cpu = root_cpu(host[0], cpu_draws.root_perms, cpu_draws.root_seed)
+            root_gap = max(float((a.cpu() - b).abs().max())
+                           for a, b in zip(tree_leaves(r_card), tree_leaves(r_cpu)))
+            delta = lambda r, g: tree_map(torch.sub, r, g)  # noqa: E731
+            deltas = lambda s, g: tree_map(lambda x, y: x - y.unsqueeze(0), s, g)  # noqa: E731
+            out_card = aggregators.fltrust_combine(global_params, deltas(stacked, global_params),
+                                                   delta(r_card, global_params))
+            r_host = to_cpu(r_card)
+            out_cpu = aggregators.fltrust_combine(host[0], deltas(host[1], host[0]),
+                                                  delta(r_host, host[0]))
+            note = (f"combine from the card's root params; root training card vs CPU max "
+                    f"|d params| {root_gap:.3e}")
+        else:
+            card_fn = tround.build_aggregator(model, cfg, sim.test_data)
+            cpu_fn = tround.build_aggregator(model, cfg, cpu)
+            out_card = card_fn(global_params, stacked, sizes, card_wm, card_draws)
+            out_cpu = cpu_fn(host[0], host[1], host[2], cpu_wm, cpu_draws)
+        err = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(tree_leaves(out_card), tree_leaves(out_cpu)))
+        log(f"[defenses] {mode} on one run's last round, card vs CPU: max |d aggregate| "
+            f"{err:.3e} (tol {DEFENSE_TOL}){'; ' + note if note else ''}")
+        if not err <= DEFENSE_TOL:
+            raise AssertionError(f"{mode}: the card's aggregate differs from the CPU's")
+
+
+def defense_phase() -> None:
+    """The defense runs of DEFENSE_RUNS, then the card against the CPU on
+    the last round of the first run."""
+    first = None
+    for mode, backend, rate in DEFENSE_RUNS:
+        sim, args = defense_run(mode, backend, rate)
+        first = first or (sim, args)
+    defenses_on_card_and_cpu(*first)
 
 
 def main() -> int:
@@ -813,7 +999,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
     for name, phase in (("checkpoints", lambda: checkpoint_phase(states)),
-                        ("stragglers", straggler_phase), ("attacks", attack_phase)):
+                        ("stragglers", straggler_phase), ("attacks", attack_phase),
+                        ("defenses", defense_phase)):
         t0 = time.perf_counter()
         phase()
         log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")

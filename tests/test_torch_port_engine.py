@@ -6,7 +6,9 @@ import pytest
 import torch
 
 from attackfl_tpu_torch import cli
-from attackfl_tpu_torch.config import AttackSpec, Config, MeshConfig
+from attackfl_tpu_torch.config import (
+    AGGREGATION_MODES, AttackSpec, Config, MeshConfig, TelemetryConfig,
+)
 from attackfl_tpu_torch.data.partition import draw_round
 from attackfl_tpu_torch.ops import fused_step
 from attackfl_tpu_torch.ops import pytree as pt
@@ -47,15 +49,25 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    {"mode": "median"},
+    {"mesh": MeshConfig(num_devices=2)},
     {"local_backend": "xla", "mesh": MeshConfig(compute_dtype="bfloat16")},
     {"pipeline": True},
-    {"mode": "krum"},
+    {"telemetry": TelemetryConfig(monitor=True)},
     {"checkpoint_async": True}, {"model": "CNNModel", "local_backend": "xla"},
 ])
 def test_outside_the_slice_is_refused(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulator(Config(**{**SMALL, **override}), device="cpu")
+
+
+@pytest.mark.parametrize("mode", AGGREGATION_MODES)
+def test_every_mode_but_hyper_is_in_the_slice(mode):
+    cfg = Config(**{**SMALL, "mode": mode, "local_backend": "xla"})
+    if mode == "hyper":
+        with pytest.raises(NotImplementedError, match="item 12"):
+            check_slice(cfg)
+    else:
+        check_slice(cfg)
 
 
 def test_compute_dtype_is_refused_where_it_applies():
