@@ -304,7 +304,7 @@ class Config:
         if self.faults:
             raise NotImplementedError(
                 "fault injection is not ported yet (ROADMAP.md queue 1, "
-                "item 11: device-side faults)")
+                "item 11, rest: device-side faults)")
         if self.reload_parameters_per_round and not self.load_parameters:
             raise ValueError(
                 "reload_parameters_per_round is gated on parameters.load "

@@ -1,9 +1,13 @@
 """Server-side validation, the round-acceptance gate (the port's
-``attackfl_tpu/eval/validation.py:24-76,143-192``).
+``attackfl_tpu/eval/validation.py:24-99,143-192``).
 
 ICU rounds are scored by ROC-AUC and fail on NaN outputs (reference
-src/Validation.py:92-122).  The forward is plain PyTorch: the JAX package
-leaves it to XLA, and it is no kernel.
+src/Validation.py:92-122); HAR rounds by accuracy, always ok (:124-136);
+CIFAR10 rounds by NLL and accuracy, failing on a NaN or |NLL| > 1e6
+(:69-90).  The forward runs in chunks of the model's ``eval_chunk`` rows,
+which bounds the activations' memory and leaves the result unchanged
+(rows are independent).  It is plain PyTorch: the JAX package leaves it
+to XLA, and it is no kernel.
 """
 
 from __future__ import annotations
@@ -32,18 +36,47 @@ def roc_auc(labels: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
     return torch.where(denom > 0, auc, torch.nan)
 
 
-def evaluate_icu(model, params: dict, test_data: dict[str, torch.Tensor],
-                 chunk: int = 4096) -> dict[str, torch.Tensor]:
-    """ROC-AUC over the ICU test set in chunks of ``chunk`` rows (bounded
-    activation memory); ok is False on NaN outputs."""
+def forward_in_chunks(model, params: dict, data: dict[str, torch.Tensor],
+                      inputs: tuple[str, ...]) -> torch.Tensor:
+    """The eval-mode forward over every row of ``data``, in chunks of
+    ``model.eval_chunk`` rows."""
+    chunk = model.eval_chunk
+    n = data["label"].shape[0]
     with torch.no_grad():
-        probs = torch.cat([
-            model.apply(params, test_data["vitals"][i:i + chunk],
-                        test_data["labs"][i:i + chunk])[:, 0]
-            for i in range(0, test_data["label"].shape[0], chunk)])
+        return torch.cat([model.apply(params, *(data[k][i:i + chunk] for k in inputs))
+                          for i in range(0, n, chunk)])
+
+
+def evaluate_icu(model, params: dict, test_data: dict[str, torch.Tensor]
+                 ) -> dict[str, torch.Tensor]:
+    """ROC-AUC over the ICU test set; ok is False on NaN outputs."""
+    probs = forward_in_chunks(model, params, test_data, ("vitals", "labs"))[:, 0]
     auc_val = roc_auc(test_data["label"], probs)
     ok = ~torch.any(torch.isnan(probs)) & torch.isfinite(auc_val)
     return {"roc_auc": auc_val, "ok": ok, "metric": auc_val}
+
+
+def evaluate_har(model, params: dict, test_data: dict[str, torch.Tensor]
+                 ) -> dict[str, torch.Tensor]:
+    """Accuracy over the HAR test set; always ok."""
+    logits = forward_in_chunks(model, params, test_data, ("x",))
+    acc = torch.mean((torch.argmax(logits, dim=-1) == test_data["label"]).to(torch.float32))
+    return {"accuracy": acc, "ok": torch.ones((), dtype=torch.bool, device=acc.device),
+            "metric": acc}
+
+
+def evaluate_cifar(model, params: dict, test_data: dict[str, torch.Tensor]
+                   ) -> dict[str, torch.Tensor]:
+    """Mean NLL and accuracy; ok is False on a NaN NLL or |NLL| > 1e6."""
+    logp = forward_in_chunks(model, params, test_data, ("x",))
+    label = test_data["label"].to(torch.int64)
+    loss = torch.mean(-torch.gather(logp, 1, label[:, None])[:, 0])
+    acc = torch.mean((torch.argmax(logp, dim=-1) == label).to(torch.float32))
+    ok = torch.isfinite(loss) & (torch.abs(loss) <= 1e6)
+    return {"nll": loss, "accuracy": acc, "ok": ok, "metric": acc}
+
+
+EVALUATORS = {"ICU": evaluate_icu, "HAR": evaluate_har, "CIFAR10": evaluate_cifar}
 
 
 class Validation:
@@ -51,17 +84,16 @@ class Validation:
 
     def __init__(self, model, data_name: str, test_data: dict[str, np.ndarray],
                  device: torch.device, logger=None):
-        if data_name != "ICU":
-            raise NotImplementedError(
-                f"validation for {data_name!r} is not ported yet (ROADMAP.md "
-                "queue 1, item 11)")
+        if data_name not in EVALUATORS:
+            raise ValueError(f"Data name '{data_name}' is not valid.")
+        self.evaluate = EVALUATORS[data_name]
         self.model = model
         self.logger = logger
         self.test_data = {k: torch.as_tensor(v, device=device)
                           for k, v in test_data.items()}
 
     def test(self, params: Any) -> tuple[bool, dict[str, float]]:
-        out = evaluate_icu(self.model, params, self.test_data)
+        out = self.evaluate(self.model, params, self.test_data)
         ok = bool(out.pop("ok"))
         metrics = {k: float(v) for k, v in out.items()}
         if self.logger:

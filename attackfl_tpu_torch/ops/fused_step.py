@@ -216,46 +216,47 @@ def dropout_mask(keys: torch.Tensor, tensor_id: int, rows: int, width: int,
 MAX_MASKS = 16   # mask tensors of one K3 launch (MAX_TENSORS in csrc/dropout_mask.cu)
 
 
-def mask_layout(C: int, rows: int, widths) -> tuple[list[int], int]:
-    """Where each ``[C, rows, width]`` mask tensor lies in one float32
-    arena: its offset in floats, each rounded up to a multiple of 4 so
-    that every tensor starts 16-byte aligned and no quad of K3 straddles
-    two tensors; and the arena's length in floats."""
+def mask_layout(C: int, shapes) -> tuple[list[int], int]:
+    """Where each ``[C, rows, width]`` mask tensor of ``shapes`` (its
+    ``(rows, width)``) lies in one float32 arena: its offset in floats,
+    each rounded up to a multiple of 4 so that every tensor starts 16-byte
+    aligned and no quad of K3 straddles two tensors; and the arena's length
+    in floats."""
     offsets, end = [], 0
-    for width in widths:
+    for rows, width in shapes:
         offsets.append(-(-end // 4) * 4)
         end = offsets[-1] + C * rows * width
     return offsets, end
 
 
-def _mask_arena(keys: torch.Tensor, specs, rows: int):
+def _mask_arena(keys: torch.Tensor, specs):
     """An empty arena for ``specs`` on the keys' device, laid out by
     :func:`mask_layout`: ``(arena, offsets, views)``, one contiguous
     ``[C, rows, width]`` view per tensor."""
-    C, widths = keys.numel(), [w for _, w, _ in specs]
-    offsets, total = mask_layout(C, rows, widths)
+    C, shapes = keys.numel(), [(r, w) for _, r, w, _ in specs]
+    offsets, total = mask_layout(C, shapes)
     arena = torch.empty(total, dtype=torch.float32, device=keys.device)
-    views = [arena[o:o + C * rows * w].view(C, rows, w) for o, w in zip(offsets, widths)]
+    views = [arena[o:o + C * r * w].view(C, r, w) for o, (r, w) in zip(offsets, shapes)]
     return arena, offsets, views
 
 
-def dropout_masks(keys: torch.Tensor, specs, rows: int) -> list[torch.Tensor]:
-    """:func:`dropout_mask` of every ``(tensor_id, width, rate)`` in
+def dropout_masks(keys: torch.Tensor, specs) -> list[torch.Tensor]:
+    """:func:`dropout_mask` of every ``(tensor_id, rows, width, rate)`` in
     ``specs``, as contiguous ``[C, rows, width]`` views into one arena laid
     out by :func:`mask_layout`: the plain version of K3."""
-    _, _, views = _mask_arena(keys, specs, rows)
-    for view, (tensor_id, width, rate) in zip(views, specs):
+    _, _, views = _mask_arena(keys, specs)
+    for view, (tensor_id, rows, width, rate) in zip(views, specs):
         view.copy_(dropout_mask(keys, tensor_id, rows, width, rate))
     return views
 
 
-def _check_mask_inputs(keys, specs, rows: int) -> None:
+def _check_mask_inputs(keys, specs) -> None:
     if not isinstance(keys, torch.Tensor) or keys.ndim != 1 or keys.dtype != torch.int64:
         raise ValueError("keys must be a 1-D int64 tensor")
     if not 1 <= len(specs) <= MAX_MASKS:
         raise ValueError(f"one launch draws 1 to {MAX_MASKS} masks, not {len(specs)}")
     C = keys.numel()
-    for tensor_id, width, rate in specs:
+    for tensor_id, rows, width, rate in specs:
         if C < 1 or rows < 1 or width < 1:
             raise ValueError(f"empty mask: {C} keys, rows {rows}, width {width}")
         if C * rows * width >= 2 ** 31:
@@ -264,30 +265,31 @@ def _check_mask_inputs(keys, specs, rows: int) -> None:
             raise ValueError(f"dropout rate must be in (0, 1), got {rate} (tensor {tensor_id})")
 
 
-def fill_masks(keys: torch.Tensor, specs, rows: int) -> list[torch.Tensor]:
+def fill_masks(keys: torch.Tensor, specs) -> list[torch.Tensor]:
     """:func:`dropout_masks` from one launch of CUDA kernel K3
     (``csrc/dropout_mask.cu``), the port of the mask kernel of
     ``scripts/tpu_validate_pallas.py:125`` (``_mask``).  ``keys``: int64
     [C] from :func:`client_keys`; ``specs``: at most ``MAX_MASKS``
-    ``(tensor_id, width, rate)``, rate in (0, 1).
+    ``(tensor_id, rows, width, rate)``, each tensor with its own shape,
+    rate in (0, 1).
 
     CUDA keys go to the kernel, one launch for every tensor (counted in
     ``fill_masks.launches``); CPU keys to :func:`dropout_masks`; anything
     else raises."""
-    specs = [(int(t), int(w), float(r)) for t, w, r in specs]
-    _check_mask_inputs(keys, specs, rows)
+    specs = [(int(t), int(r), int(w), float(p)) for t, r, w, p in specs]
+    _check_mask_inputs(keys, specs)
     if keys.device.type == "cpu":
-        return dropout_masks(keys, specs, rows)
+        return dropout_masks(keys, specs)
     if keys.device.type != "cuda":
         raise ValueError(f"fill_masks runs on cuda or cpu, not {keys.device}")
     from attackfl_tpu_torch.ops.build import MaskSpec, load_library
 
     lib = load_library("dropout_mask")
     keys = keys.contiguous()
-    arena, offsets, views = _mask_arena(keys, specs, rows)
+    arena, offsets, views = _mask_arena(keys, specs)
     descs = (MaskSpec * len(specs))(*[
-        MaskSpec(o // 4, rows * w, t & _M32, *drop_params(r))
-        for o, (t, w, r) in zip(offsets, specs)])
+        MaskSpec(o // 4, r * w, t & _M32, *drop_params(p))
+        for o, (t, r, w, p) in zip(offsets, specs)])
     with torch.cuda.device(keys.device):
         rc = lib.dropout_masks_fill(keys.data_ptr(), arena.data_ptr(), keys.numel(), descs,
                                     len(specs), torch.cuda.current_stream(keys.device).cuda_stream)
@@ -304,7 +306,7 @@ def fill_mask(keys: torch.Tensor, tensor_id: int, rows: int, width: int,
               rate: float) -> torch.Tensor:
     """One mask tensor from :func:`fill_masks`: :func:`dropout_mask` on the
     CPU, one K3 launch on the card."""
-    return fill_masks(keys, [(tensor_id, width, rate)], rows)[0]
+    return fill_masks(keys, [(tensor_id, rows, width, rate)])[0]
 
 
 # ---------------------------------------------------------------------------

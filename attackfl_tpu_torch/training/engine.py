@@ -60,14 +60,22 @@ def _refuse(what: str, item: str) -> None:
         f"{what} is not ported yet (ROADMAP.md queue 1, {item})")
 
 
+# the models of the slice, each on its dataset
+MODEL_DATA = {"CNNModel": "ICU", "RNNModel": "ICU", "TransformerModel": "ICU",
+              "TransformerClassifier": "HAR", "ResNet18": "CIFAR10"}
+
+
 def check_slice(cfg: Config) -> None:
     """Refuse what the port cannot run yet, naming the ROADMAP item that
-    will port it.  The slice: ICU TransformerModel, every aggregation mode
-    but hyper, every attack, stragglers and the Dirichlet split,
-    checkpoints, the synchronous executor, local_backend xla (float32) or
-    pallas."""
-    if cfg.model != "TransformerModel" or cfg.data_name != "ICU":
-        _refuse(f"model {cfg.model!r} on {cfg.data_name!r}", "item 11")
+    will port it.  The slice: CNNModel, RNNModel and TransformerModel on
+    ICU, TransformerClassifier on HAR, ResNet18 on CIFAR10; every
+    aggregation mode but hyper, every attack, stragglers and the Dirichlet
+    split, checkpoints, the synchronous executor, local_backend xla
+    (float32) or, for TransformerModel, pallas (the config refuses it for
+    the others)."""
+    if MODEL_DATA.get(cfg.model) != cfg.data_name:
+        raise ValueError(f"model {cfg.model!r} does not run on {cfg.data_name!r}; the "
+                         f"models and their datasets: {MODEL_DATA}")
     if cfg.mode == "hyper":
         _refuse("hyper mode", "item 12")
     # the pallas path ignores compute-dtype (K1 is float32), as in JAX
@@ -344,7 +352,8 @@ class Simulator:
                 if save_checkpoints:
                     self.save_checkpoint(state)
                 if verbose:
-                    keys = [k for k in ("roc_auc", "train_loss") if k in metrics]
+                    keys = [k for k in ("roc_auc", "accuracy", "nll", "train_loss")
+                            if k in metrics]
                     msg = " ".join(f"{k}={metrics[k]:.4f}" for k in keys)
                     print(f"Round {round_no} done in {metrics['seconds']:.2f}s {msg}",
                           flush=True)

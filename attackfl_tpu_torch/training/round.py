@@ -98,13 +98,6 @@ def _rows(sel: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return sel.reshape((-1,) + (1,) * (like.ndim - 1))
 
 
-def model_dropout(model) -> tuple[float, float, float]:
-    """The dropout rates (attention, block, head) of ``model``'s training,
-    as TransformerModel's: attention and block 0.1, head
-    ``model.dropout_rate``."""
-    return (0.1, 0.1, float(getattr(model, "dropout_rate", 0.3)))
-
-
 def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
                      attack_groups: Sequence[AttackGroup],
                      genuine_idx: Sequence[int]) -> Callable:
@@ -113,20 +106,18 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
 
     ``train_data`` lies on the device the round runs on.  ``local_backend``
     ``xla`` trains with torch autograd (``training/local.py``), ``pallas``
-    with the fused kernel (``ops/fused_step.py``)."""
+    with the fused kernel (``ops/fused_step.py``), TransformerModel only.
+    Dropout is at the model's own rates (``model.dropout_rates``)."""
     device = next(iter(train_data.values())).device
-    dropout = model_dropout(model)
     kw = dict(epochs=cfg.epochs, batch_size=cfg.batch_size, lr=cfg.lr,
               clip_grad_norm=cfg.clip_grad_norm)
     if cfg.local_backend == "xla":
         # dropout on wherever it runs, as the JAX package's xla path
-        batched_update = local.build_local_update(
-            model, cfg.data_name, train_data, dropout=dropout, **kw)
+        batched_update = local.build_local_update(model, cfg.data_name, train_data, **kw)
     else:
         # on the CPU the fused path trains with dropout off, as the JAX
         # package's interpret path does: there it is a correctness path
-        if device.type == "cpu":
-            dropout = (0.0, 0.0, 0.0)
+        dropout = (0.0, 0.0, 0.0) if device.type == "cpu" else model.dropout_rates
         batched_update = fused_step.build_fused_local_update(
             train_data, dropout=dropout, **kw)
     genuine_arr = torch.as_tensor(list(genuine_idx), dtype=torch.int64, device=device)
@@ -252,8 +243,7 @@ def build_aggregator(model, cfg: Config,
         root = {k: v[:ROOT_SIZE] for k, v in test_data.items()}
         root_update = local.build_root_update(
             model, cfg.data_name, root, epochs=cfg.epochs, batch_size=ROOT_BATCH, lr=cfg.lr,
-            clip_grad_norm=cfg.clip_grad_norm,
-            dropout=model_dropout(model))
+            clip_grad_norm=cfg.clip_grad_norm)
 
         def aggregate(global_params, stacked, sizes, weights_mask, draws):
             root_params = root_update(global_params, draws.root_perms, draws.root_seed)

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from attackfl_tpu_torch.device import resolve_device
-from attackfl_tpu_torch.models.icu import TransformerModel
+from attackfl_tpu_torch.models.icu import T_HEAD, TransformerModel
 from attackfl_tpu_torch.ops import fused_step
 from attackfl_tpu_torch.ops.pytree import tree_items, tree_leaves, tree_map
 from attackfl_tpu_torch.training import local
@@ -84,17 +84,16 @@ def first_step_grads(device, dropout) -> dict:
     data, params, idx, mask, perms = inputs(device)
     rows = torch.gather(idx, 1, perms[0])[:, :B]
     keys = fused_step.client_keys(SEED, 0, torch.arange(C, device=device))
-    masks = local.step_masks(keys, B, dropout, **local.mask_widths(TransformerModel()))
-    loss_fn = local.make_loss_fn(TransformerModel(), "ICU")
+    model = TransformerModel()
+    masks = local.step_masks(keys, model.mask_specs([(B,)], dropout))
+    loss_fn = local.make_loss_fn(model, "ICU")
     p64 = tree_map(lambda x: x.double(), params)
     grads = []
     for c in range(C):
-        batch = [data[k][rows[c]].double() for k in ("vitals", "labs", "label")]
-        mc = None if masks is None else {
-            k: tuple(m[c].double() for m in v) if isinstance(v, tuple) else v[c].double()
-            for k, v in masks.items()}
+        vitals, labs, label = (data[k][rows[c]].double() for k in ("vitals", "labs", "label"))
+        mc = None if masks is None else [m[c].double() for m in masks]
         grads.append(torch.func.grad(loss_fn)(
-            p64, *batch, mask[c, :B].double(), mc))
+            p64, (vitals, labs), label, mask[c, :B].double(), mc))
     g = tree_map(lambda *xs: torch.stack(xs), *grads)
     norm = torch.sqrt(sum(torch.sum(x.reshape(C, -1) ** 2, dim=1) for x in tree_leaves(g)))
     scale = torch.clamp(CLIP / norm, max=1.0)
@@ -135,8 +134,8 @@ def check_mask_statistics(device="cuda") -> dict:
     results: dict = {}
     all_ok = True
     for rate in (0.1, 0.3, 0.5):
-        m = fused_step.fill_mask(keys, local.T_HEAD, *MASK_SHAPE, rate)
-        bit_equal = torch.equal(m, fused_step.dropout_mask(keys, local.T_HEAD, *MASK_SHAPE, rate))
+        m = fused_step.fill_mask(keys, T_HEAD, *MASK_SHAPE, rate)
+        bit_equal = torch.equal(m, fused_step.dropout_mask(keys, T_HEAD, *MASK_SHAPE, rate))
         scale = float(np.float32(1.0 / (1.0 - rate)))
         values_ok = bool(((m == 0.0) | (m == scale)).all())
         keep = float((m > 0).float().mean())

@@ -43,8 +43,18 @@ no result line):
                  each aggregator on one run's last client rows on the card
                  against the same call on the CPU (Krum's index, the host
                  filters' masks and ScionFL's weights equal, the rest within
-                 1e-5).
-Each of phases 4-8 resets the kernel launch counts before each run and
+                 1e-5);
+  9. models   -- CNNModel (config 1), RNNModel (config 2's shape under
+                 fedavg), the HAR TransformerClassifier and ResNet18 on
+                 CIFAR10 with 3 Opt-Fang attackers (config 5), each at full
+                 width under xla and cut in depth; one round of each under
+                 torch.profiler; every round ok, the benign runs above
+                 chance, K3 once per minibatch step (never under ResNet18);
+                 one minibatch step of each on the card against the CPU
+                 (the same masks, gradients within 1e-4 of the largest);
+                 config 1's round at full depth; ResNet18's per-client
+                 gradients by vmap against a loop over clients.
+Each of phases 4-9 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
@@ -76,11 +86,12 @@ from attackfl_tpu_torch.config import AttackSpec, Config, load_config  # noqa: E
 from attackfl_tpu_torch.data.partition import random_permutations  # noqa: E402
 from attackfl_tpu_torch.data.synthetic import get_dataset  # noqa: E402
 from attackfl_tpu_torch.device import resolve_device  # noqa: E402
-from attackfl_tpu_torch.models.icu import TransformerModel  # noqa: E402
+from attackfl_tpu_torch.models.har import TransformerClassifier  # noqa: E402
+from attackfl_tpu_torch.models.icu import T_HEAD, TransformerModel  # noqa: E402
 from attackfl_tpu_torch.ops import aggregators, attacks, build  # noqa: E402
 from attackfl_tpu_torch.ops import fused_step as tfs  # noqa: E402
 from attackfl_tpu_torch.ops.pytree import (  # noqa: E402
-    tree_broadcast, tree_items, tree_leaves, tree_map, tree_take,
+    tree_broadcast, tree_items, tree_leaves, tree_map, tree_ravel_stacked, tree_take, unraveler,
 )
 from attackfl_tpu_torch.profile_round import CONFIG4, DEPTH, self_device_us  # noqa: E402
 from attackfl_tpu_torch.training import local  # noqa: E402
@@ -138,6 +149,39 @@ DEFENSE_RUNS = ([(mode, "pallas", 0.0) for mode in DEFENSES]
                 + [(mode, "pallas", DROPOUT_RATE) for mode in ("median", "krum")])
 # an aggregate on the card against the same call on the CPU
 DEFENSE_TOL = 1e-5
+
+# phase 9, the other four models under xla, each at its full width
+# (bench.py:82-110; _base_kwargs :56-75 for what they share), cut in depth
+# only: config 1 (CNNModel), config 2's shape with fedavg (RNNModel; hyper
+# is ROADMAP item 12), the HAR classifier, and config 5 (ResNet18 on
+# CIFAR10 with 3 Opt-Fang attackers from round 2).  (name, config, cut)
+BENCH_BASE = dict(num_round=30, num_data_range=(12000, 15000), epochs=5, batch_size=128,
+                  lr=0.004, clip_grad_norm=1.0, genuine_rate=0.5, train_size=20000,
+                  test_size=4000, random_seed=1, local_backend="xla", mode="fedavg")
+ICU_CUT = dict(num_data_range=(1200, 1500), epochs=2, num_round=3)
+HAR_RUN = dict(BENCH_BASE, total_clients=3, model="TransformerClassifier", data_name="HAR")
+HAR_L = 561
+MODEL_RUNS = (
+    ("config 1", dict(BENCH_BASE, total_clients=3, model="CNNModel", data_name="ICU"),
+     ICU_CUT),
+    ("RNNModel", dict(BENCH_BASE, total_clients=3, model="RNNModel", data_name="ICU"), ICU_CUT),
+    ("HAR", HAR_RUN, dict(num_data_range=(1200, 1500), epochs=1, num_round=2)),
+    ("config 5", dict(BENCH_BASE, num_round=10, num_data_range=(256, 512), train_size=4096,
+                      test_size=1024, epochs=1, batch_size=64, total_clients=16, model="ResNet18",
+                      data_name="CIFAR10", attacks=(AttackSpec(
+                          mode="Opt-Fang", num_clients=3, attack_round=2, args=(50.0, 1.0)),)),
+     dict(num_round=3)),
+)
+# chance level of each run's round metric (AUC, accuracy); config 5 is
+# gated on a finite NLL and ok rounds only
+CHANCE = {"config 1": 0.5, "RNNModel": 0.5, "HAR": 1.0 / 6.0, "config 5": None}
+# one minibatch step on the card against the CPU, from the run's last
+# params: gradients within this share of the largest |g|, losses within
+# STEP_LOSS_TOL * max(1, |loss|) (config 5's NLL is ~20 after Opt-Fang,
+# where float32's spacing is 1.9e-6); (clients, batch) of the step where
+# it is not the run's (the CPU's HAR step at B=128 takes minutes)
+STEP_GRAD_RTOL, STEP_LOSS_TOL = 1e-4, 1e-5
+STEP_SHAPE = {"HAR": (3, 16), "config 5": (2, 8)}
 
 # kernel vs plain version: p absolute, loss absolute per step, m and v
 # each relative to the largest magnitude of the plain version's tensor
@@ -460,25 +504,47 @@ def k3_bound_ms(C: int, elements: int) -> tuple[float, float]:
             K3_OPS_PER_ELEMENT * elements / INT32_OPS * 1e3)
 
 
+def check_step_set(label: str, C: int, specs) -> float:
+    """One K3 launch of a step's mask set against the plain version, bit
+    for bit; returns the max |kernel - plain|."""
+    keys = tfs.client_keys(2024, 5, torch.arange(C, device="cuda"))
+    launches = tfs.fill_masks.launches
+    got = tfs.fill_masks(keys, specs)
+    torch.cuda.synchronize()
+    if tfs.fill_masks.launches != launches + 1:
+        raise AssertionError("K3 took more than one launch for a step's masks")
+    err = 0.0
+    for g, w, (tensor_id, rows, width, rate) in zip(got, tfs.dropout_masks(keys, specs), specs):
+        err = max(err, float((g - w).abs().max()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"K3 differs from dropout_masks ({label}), tensor {tensor_id} "
+                                 f"[{C}, {rows}, {width}] rate {rate}")
+    log(f"[kernels] K3 {label}: one launch of {len(specs)} tensors "
+        f"{[(r, w) for _, r, w, _ in specs]}, bit-equal to its plain version")
+    return err
+
+
 def check_dropout_mask() -> dict:
     """K3 against its plain version, bit for bit: one tensor per launch at
     the validator's shape and at every shape the xla path's step asks of
-    it at the config-4 width, and a whole step's nine tensors in one
-    launch (``fill_masks``, as ``step_masks`` calls it) at C=100 and at
-    C=150.  Then its time per step-launch at C=100, B=128 beside its bound
-    and beside the same nine tensors drawn one launch each, and the
-    one-tensor ``[100, 128, 64]`` time."""
+    it at the config-4 width; a whole step's nine tensors in one launch
+    (``fill_masks``, as ``step_masks`` calls it) at C=100 and at C=150,
+    and the HAR classifier's nine at C=3, B=128, L=561, whose row counts
+    differ within the launch.  Then its time per step-launch at C=100,
+    B=128 beside its bound and beside the same nine tensors drawn one
+    launch each, the one-tensor ``[100, 128, 64]`` time, and its time at
+    the HAR set beside that set's bound."""
     C, B = CONFIG4["total_clients"], CONFIG4["batch_size"]
-    widths = local.mask_widths(TransformerModel())
-    step = local.mask_specs(STEP_RATES, **widths)
-    big = (C, B, max(widths.values()))
-    path_shapes = sorted({(C, B, w) for w in widths.values()})
+    model = TransformerModel()
+    step = model.mask_specs([(B,)], STEP_RATES)
+    big = (C, B, 64)
+    path_shapes = sorted({(C, B, w) for _, _, w, _ in step})
     max_err = 0.0
     for shape in [(1,) + validate_kernels.MASK_SHAPE] + path_shapes:
         keys = tfs.client_keys(2024, 5, torch.arange(shape[0], device="cuda"))
         for rate in (0.1, 0.3):
-            got = tfs.fill_mask(keys, local.T_HEAD, shape[1], shape[2], rate)
-            want = tfs.dropout_mask(keys, local.T_HEAD, shape[1], shape[2], rate)
+            got = tfs.fill_mask(keys, T_HEAD, shape[1], shape[2], rate)
+            want = tfs.dropout_mask(keys, T_HEAD, shape[1], shape[2], rate)
             torch.cuda.synchronize()
             max_err = max(max_err, float((got - want).abs().max()))
             if not torch.equal(got, want):
@@ -486,32 +552,25 @@ def check_dropout_mask() -> dict:
         log(f"[kernels] K3 dropout_mask {list(shape)}: bit-equal to its plain version "
             f"at rates 0.1 and 0.3")
     for clients in (C, 150):
-        keys = tfs.client_keys(2024, 5, torch.arange(clients, device="cuda"))
-        launches = tfs.fill_masks.launches
-        got = tfs.fill_masks(keys, step, B)
-        torch.cuda.synchronize()
-        if tfs.fill_masks.launches != launches + 1:
-            raise AssertionError("K3 took more than one launch for a step's masks")
-        for g, w, (tensor_id, width, rate) in zip(got, tfs.dropout_masks(keys, step, B), step):
-            max_err = max(max_err, float((g - w).abs().max()))
-            if not torch.equal(g, w):
-                raise AssertionError(f"K3 differs from dropout_masks at C={clients}, "
-                                     f"tensor {tensor_id} [{clients}, {B}, {width}] rate {rate}")
-        log(f"[kernels] K3 step set C={clients} B={B} (widths "
-            f"{[w for _, w, _ in step]}, rates {STEP_RATES}): one launch, bit-equal to its "
-            f"plain version")
+        max_err = max(max_err, check_step_set(f"config-4 step set C={clients} B={B} rates "
+                                              f"{STEP_RATES}", clients, step))
+    har_C, har_B = HAR_RUN["total_clients"], HAR_RUN["batch_size"]
+    har = TransformerClassifier().mask_specs([(har_B, HAR_L)], TransformerClassifier().dropout_rates)
+    max_err = max(max_err, check_step_set(f"HAR step set C={har_C} B={har_B} L={HAR_L}",
+                                          har_C, har))
 
     keys = tfs.client_keys(2024, 5, torch.arange(C, device="cuda"))
-    n_step = C * B * sum(w for _, w, _ in step)
+    n_step = C * sum(r * w for _, r, w, _ in step)
     t_bytes, t_ops = k3_bound_ms(C, n_step)
     bound = max(t_bytes, t_ops)
-    ms = device_ms(lambda: tfs.fill_masks(keys, step, B))
-    nine_ms = device_ms(lambda: [tfs.fill_mask(keys, t, B, w, r) for t, w, r in step], reps=100)
-    plain_ms = device_ms(lambda: tfs.dropout_masks(keys, step, B), reps=3)
+    ms = device_ms(lambda: tfs.fill_masks(keys, step))
+    nine_ms = device_ms(lambda: [tfs.fill_mask(keys, t, r, w, p) for t, r, w, p in step],
+                        reps=100)
+    plain_ms = device_ms(lambda: tfs.dropout_masks(keys, step), reps=3)
     # the same launch after a 64 MB write, so that the arena's lines are
     # not in L2 and dirty lines of another buffer must leave for HBM first
     flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device="cuda")
-    cold_ms = (device_ms(lambda: (flush.zero_(), tfs.fill_masks(keys, step, B)))
+    cold_ms = (device_ms(lambda: (flush.zero_(), tfs.fill_masks(keys, step)))
                - device_ms(flush.zero_))
     log(f"[kernels] K3 step C={C} B={B}: kernel {ms * 1e3:.3f} us/launch, the same nine tensors "
         f"one launch each {nine_ms * 1e3:.3f} us, after a 64 MB write {cold_ms * 1e3:.3f} us, "
@@ -519,14 +578,25 @@ def check_dropout_mask() -> dict:
         f"written at 3.35 TB/s; {K3_OPS_PER_ELEMENT * n_step / 1e6:.1f} M int32 ops take "
         f"{t_ops * 1e3:.3f} us); {bound / ms:.1%} of the bound")
 
-    one_ms = device_ms(lambda: tfs.fill_mask(keys, local.T_HEAD, B, big[2], 0.1))
-    one_plain = device_ms(lambda: tfs.dropout_mask(keys, local.T_HEAD, B, big[2], 0.1), reps=20)
+    one_ms = device_ms(lambda: tfs.fill_mask(keys, T_HEAD, B, big[2], 0.1))
+    one_plain = device_ms(lambda: tfs.dropout_mask(keys, T_HEAD, B, big[2], 0.1), reps=20)
     one_bytes, one_ops = k3_bound_ms(C, math.prod(big))
     log(f"[kernels] K3 {list(big)}: kernel {one_ms * 1e3:.3f} us/launch, plain "
         f"{one_plain * 1e3:.3f} us, bound {max(one_bytes, one_ops) * 1e3:.3f} us "
         f"({4 * math.prod(big) / 1e6:.2f} MB written at 3.35 TB/s; "
         f"{K3_OPS_PER_ELEMENT * math.prod(big) / 1e6:.1f} M int32 ops take "
         f"{one_ops * 1e3:.3f} us)")
+
+    har_keys = tfs.client_keys(2024, 5, torch.arange(har_C, device="cuda"))
+    n_har = har_C * sum(r * w for _, r, w, _ in har)
+    har_bytes, har_ops = k3_bound_ms(har_C, n_har)
+    har_ms = device_ms(lambda: tfs.fill_masks(har_keys, har), reps=20)
+    har_plain = device_ms(lambda: tfs.dropout_masks(har_keys, har), reps=2)
+    log(f"[kernels] K3 HAR step set C={har_C} B={har_B} L={HAR_L}: kernel "
+        f"{har_ms * 1e3:.3f} us/launch, plain {har_plain * 1e3:.3f} us; bound "
+        f"{max(har_bytes, har_ops) * 1e3:.3f} us ({4 * n_har / 1e6:.1f} MB written at 3.35 "
+        f"TB/s; {K3_OPS_PER_ELEMENT * n_har / 1e6:.1f} M int32 ops take {har_ops * 1e3:.3f} "
+        f"us); {max(har_bytes, har_ops) / har_ms:.1%} of the bound")
     return {"name": "dropout_mask", "route": "cuda",
             "source": "attackfl_tpu_torch/csrc/dropout_mask.cu",
             "replaces": "scripts/tpu_validate_pallas.py:125",
@@ -930,7 +1000,7 @@ def defenses_on_card_and_cpu(sim: Simulator, args: tuple) -> None:
                     f"threshold {margin:.3e} of it apart")
         if mode == "FLTrust":
             kw = dict(epochs=cfg.epochs, batch_size=tround.ROOT_BATCH, lr=cfg.lr,
-                      clip_grad_norm=cfg.clip_grad_norm, dropout=tround.model_dropout(model))
+                      clip_grad_norm=cfg.clip_grad_norm)
             root_card = local.build_root_update(
                 model, "ICU", {k: v[:tround.ROOT_SIZE] for k, v in sim.test_data.items()}, **kw)
             root_cpu = local.build_root_update(
@@ -971,6 +1041,201 @@ def defense_phase() -> None:
     defenses_on_card_and_cpu(*first)
 
 
+def busy_us(events) -> float:
+    """Microseconds in which at least one of the device ``events`` (kernels
+    and copies) ran: the union of their intervals, so kernels that overlap
+    on several streams count once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, end = 0.0, -math.inf
+    for lo, hi in spans:
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total
+
+
+def round_profile(sim: Simulator, state: dict) -> tuple[dict, dict, dict]:
+    """One round under torch.profiler: (new state, metrics, profile) with
+    the wall seconds under the profiler, the device-busy seconds (the
+    union of kernel and copy intervals), and K3's device microseconds."""
+    torch.cuda.synchronize()
+    # device activity only: the host-side events of a round number in the
+    # hundreds of thousands and take longer to collect than the round
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = sim.run_round(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    if not device:
+        raise AssertionError("torch.profiler recorded no device activity in the round")
+    k3 = sum(e.time_range.elapsed_us() for e in device if "fill_masks" in e.name)
+    return state, metrics, {"wall_s": wall, "busy_s": busy_us(device) / 1e6, "k3_us": k3}
+
+
+def step_on_card_and_cpu(label: str, sim: Simulator, params: dict, C: int, B: int) -> None:
+    """One minibatch step of C clients from the same params (``params``,
+    nudged per client by a seeded 1e-3), batch and K3 masks on the card
+    and on the CPU: the masks equal, per-client gradients within
+    STEP_GRAD_RTOL of the largest |g|, losses within STEP_LOSS_TOL of
+    max(1, |loss|)."""
+    model, data_name = sim.model, sim.cfg.data_name
+    names = local.INPUTS[data_name]
+    gen = torch.Generator().manual_seed(13)
+    n = sim.train_data["label"].shape[0]
+    idx = torch.randint(0, n, (C, B), generator=gen)
+    template = tree_map(lambda x: x.cpu(), params)
+    flat = tree_ravel_stacked(tree_broadcast(template, C))
+    flat = flat + 1e-3 * torch.randn(flat.shape, generator=gen)
+    keys = tfs.client_keys(17, 3, torch.arange(C))
+    specs = model.mask_specs([(B,) + tuple(sim.train_data[k].shape[1:]) for k in names],
+                             model.dropout_rates)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        data = {k: v.to(dev) for k, v in sim.train_data.items()}
+        labels = local.labels_of(data, data_name)
+        rows = idx.to(dev)
+        masks = local.step_masks(keys.to(dev), specs)
+        step = local.build_step_grad(model, data_name, template)
+        grads, loss = step(flat.to(dev), tuple(data[k][rows] for k in names), labels[rows],
+                           torch.ones((C, B), device=dev),
+                           *(() if masks is None else (masks,)))
+        out[dev] = (grads.cpu(), loss.cpu(), None if masks is None else [m.cpu() for m in masks])
+    (g_card, l_card, m_card), (g_cpu, l_cpu, m_cpu) = out["cuda"], out["cpu"]
+    same_masks = m_card is None or all(torch.equal(a, b) for a, b in zip(m_card, m_cpu))
+    scale = float(g_cpu.abs().max())
+    g_err, l_err = float((g_card - g_cpu).abs().max()), float((l_card - l_cpu).abs().max())
+    l_tol = STEP_LOSS_TOL * max(1.0, float(l_cpu.abs().max()))
+    log(f"[models] {label}: one step C={C} B={B} card vs CPU: K3 masks equal to the CPU's "
+        f"{same_masks} ({len(specs)} tensors), max |d grad| {g_err:.3e} = {g_err / scale:.3e} of "
+        f"max |g| {scale:.3e} (tol {STEP_GRAD_RTOL}), max |d loss| {l_err:.3e} of losses up to "
+        f"{float(l_cpu.abs().max()):.4f} (tol {l_tol:.3e})")
+    if not (same_masks and g_err <= STEP_GRAD_RTOL * scale and l_err <= l_tol):
+        raise AssertionError(f"{label}: the card's step differs from the CPU's")
+
+
+def resnet_vmap_vs_loop(sim: Simulator, params: dict) -> None:
+    """A ResNet18 step's per-client gradients at config 5's C and B: one
+    ``vmap(grad)`` over clients (per-client weights as a grouped conv),
+    against a Python loop of ``grad`` over the clients, CUDA events."""
+    cfg, model = sim.cfg, sim.model
+    C, B = cfg.total_clients, cfg.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    idx = torch.randint(0, sim.train_data["label"].shape[0], (C, B), generator=gen,
+                        device="cuda")
+    x, y = sim.train_data["x"][idx], local.labels_of(sim.train_data, "CIFAR10")[idx]
+    mask = torch.ones((C, B), device="cuda")
+    flat = tree_ravel_stacked(tree_broadcast(params, C)).contiguous()
+    step = local.build_step_grad(model, "CIFAR10", params)
+    loss_fn, unravel = local.make_loss_fn(model, "CIFAR10"), unraveler(params)
+    one = torch.func.grad_and_value(
+        lambda row, xc, yc, mc: loss_fn(unravel(row), (xc,), yc, mc))
+    vmap_ms = time_ms(lambda: step(flat, (x,), y, mask), warmup=1, reps=3)
+    loop_ms = time_ms(lambda: [one(flat[c], x[c], y[c], mask[c]) for c in range(C)],
+                      warmup=1, reps=3)
+    log(f"[models] config 5 step gradients C={C} B={B} (CUDA events, host time included): "
+        f"vmap(grad) {vmap_ms:.3f} ms, a loop of grad over the clients {loop_ms:.3f} ms")
+
+
+def model_run(label: str, config: dict, cut: dict, card: str) -> tuple[Simulator, dict]:
+    """One model's run on the card: every round but the last through
+    ``Simulator.run``, the last under torch.profiler; K3 launches counted
+    over the whole run.  Gates: every round ok with a finite metric, the
+    last above chance (CHANCE), the params finite, one K3 launch per
+    minibatch step (none for ResNet18)."""
+    cfg = Config(**{**config, **cut})
+    for key in cut:
+        log(f"[models] {label} reduced {key}: {config[key]} -> {cut[key]}")
+    sim = Simulator(cfg, device="cuda")
+    state = sim.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfs.run_epoch.launches = tfs.fill_masks.launches = 0
+    state, history = sim.run(num_rounds=cfg.num_round - 1, state=state,
+                             save_checkpoints=False, verbose=False)
+    k3_before = tfs.fill_masks.launches
+    state, metrics, prof = round_profile(sim, state)
+    history.append(metrics)
+    k3, k1 = tfs.fill_masks.launches, tfs.run_epoch.launches
+    peak = torch.cuda.max_memory_allocated()
+    nb = -(-cfg.num_data_range[1] // cfg.batch_size)
+    per_round = cfg.epochs * nb if sim.model.dropout_rates else 0
+    metric = "roc_auc" if cfg.data_name == "ICU" else "accuracy"
+    for h in history:
+        extra = f" nll={h['nll']:.4f}" if "nll" in h else ""
+        log(f"[models] {label} round {h['round']} ok={h['ok']} "
+            f"{metric}={h.get(metric, float('nan')):.4f}"
+            f"{extra} train_loss={h['train_loss']:.4f} seconds={h['seconds']:.4f}")
+    k3_round = k3 - k3_before
+    log(f"[models] {label} ({card}): s/round {[round(h['seconds'], 4) for h in history]} (the "
+        f"last under torch.profiler); device busy {prof['busy_s']:.4f} s of that round's "
+        f"{prof['wall_s']:.4f} s, idle share {1 - prof['busy_s'] / prof['wall_s']:.3f}; peak "
+        f"memory {peak / 2 ** 30:.3f} GiB; K3 {k3_round} launches in the round, "
+        f"{prof['k3_us'] / max(k3_round, 1):.3f} us per step-launch, {k3} over "
+        f"{len(history)} rounds")
+    values = [h.get(metric, float("nan")) for h in history]
+    if not all(h["ok"] for h in history) or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{label}: a round failed or its {metric} is not finite")
+    if CHANCE[label] is not None and not values[-1] > CHANCE[label]:
+        raise AssertionError(f"{label}: {metric} {values[-1]} is not above chance "
+                             f"{CHANCE[label]:.4f} by round {len(history)}")
+    if "nll" in metrics and not math.isfinite(metrics["nll"]):
+        raise AssertionError(f"{label}: NLL {metrics['nll']} is not finite")
+    if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(state["global_params"])):
+        raise AssertionError(f"{label}: global params are not finite")
+    if k1 != 0 or k3 != per_round * len(history) or k3_round != per_round:
+        raise AssertionError(f"{label}: K1 {k1}, K3 {k3} launches ({k3_round} in the last "
+                             f"round), expected {per_round} a round")
+    return sim, state
+
+
+def full_depth_round(config: dict, card: str) -> None:
+    """One round of config 1 at full depth (12000-15000 samples a client,
+    5 epochs: the config.yaml shape), timed by the host clock; K3 launches
+    one per step."""
+    cfg = Config(**{**config, "num_round": 1})
+    log(f"[models] config 1 at full depth: num_data_range {cfg.num_data_range}, epochs "
+        f"{cfg.epochs}, 1 of {config['num_round']} rounds")
+    sim = Simulator(cfg, device="cuda")
+    state = sim.init_state()
+    torch.cuda.synchronize()
+    tfs.fill_masks.launches = 0
+    state, metrics = sim.run_round(state)
+    steps = cfg.epochs * -(-cfg.num_data_range[1] // cfg.batch_size)
+    log(f"[models] config 1 at full depth ({card}): one round ok={metrics['ok']} in "
+        f"{metrics['seconds']:.3f} s, roc_auc {metrics.get('roc_auc', float('nan')):.4f}; K3 "
+        f"{tfs.fill_masks.launches} launches ({steps} steps)")
+    if not metrics["ok"] or tfs.fill_masks.launches != steps:
+        raise AssertionError("config 1 at full depth: the round failed or K3 was not "
+                             "launched once a step")
+
+
+def models_phase(card: str) -> None:
+    """Phase 9: each run of MODEL_RUNS, its step on the card against the
+    CPU from the run's last params (at its init ResNet18's gradients are
+    ill-conditioned in float32: on the CPU alone float32 and float64 part
+    by 5.9e-4 of the largest |g|, in the convs' kernels), config 1's round
+    at full depth, and config 5's vmap-vs-loop step; each part's
+    seconds."""
+    for label, config, cut in MODEL_RUNS:
+        t0 = time.perf_counter()
+        sim, state = model_run(label, config, cut, card)
+        t1 = time.perf_counter()
+        C, B = STEP_SHAPE.get(label, (config["total_clients"], config["batch_size"]))
+        step_on_card_and_cpu(label, sim, state["global_params"], C, B)
+        t2 = time.perf_counter()
+        if config["model"] == "ResNet18":
+            resnet_vmap_vs_loop(sim, state["global_params"])
+        log(f"[models] {label}: run {t1 - t0:.1f} s (construction included), step on the "
+            f"card and the CPU {t2 - t1:.1f} s, the rest {time.perf_counter() - t2:.1f} s")
+        del sim, state
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    full_depth_round(MODEL_RUNS[0][1], card)
+    log(f"[models] config 1 at full depth: {time.perf_counter() - t0:.1f} s (construction "
+        f"included)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1000,7 +1265,7 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     for name, phase in (("checkpoints", lambda: checkpoint_phase(states)),
                         ("stragglers", straggler_phase), ("attacks", attack_phase),
-                        ("defenses", defense_phase)):
+                        ("defenses", defense_phase), ("models", lambda: models_phase(card))):
         t0 = time.perf_counter()
         phase()
         log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")

@@ -44,8 +44,12 @@ def test_icu_arrays_byte_equal(split, size, seed):
 
 
 def test_other_datasets_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_dataset("HAR", "train", 8, 0)
+    """An unknown dataset is refused; HAR (refused until ROADMAP item 11)
+    now loads, byte-equal to the JAX package's."""
+    with pytest.raises(ValueError, match="not valid"):
+        get_dataset("MNIST", "train", 8, 0)
+    ours, ref = get_dataset("HAR", "train", 8, 0), jax_get_dataset("HAR", "train", 8, 0)
+    assert all(ours[k].tobytes() == ref[k].tobytes() for k in ref)
 
 
 def test_config_yaml_loads_identically():

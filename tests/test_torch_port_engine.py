@@ -53,11 +53,28 @@ def test_default_device_without_cuda_raises(monkeypatch):
     {"local_backend": "xla", "mesh": MeshConfig(compute_dtype="bfloat16")},
     {"pipeline": True},
     {"telemetry": TelemetryConfig(monitor=True)},
-    {"checkpoint_async": True}, {"model": "CNNModel", "local_backend": "xla"},
+    {"checkpoint_async": True},
 ])
 def test_outside_the_slice_is_refused(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulator(Config(**{**SMALL, **override}), device="cpu")
+
+
+@pytest.mark.parametrize("model,data", [("CNNModel", "ICU"), ("RNNModel", "ICU"),
+                                        ("TransformerClassifier", "HAR"),
+                                        ("ResNet18", "CIFAR10")])
+def test_every_model_on_its_dataset_is_in_the_slice(model, data):
+    """The models refused until ROADMAP item 11 run under xla on their
+    datasets; pallas stays refused for them, and a model on another
+    model's dataset is refused."""
+    cfg = Config(**{**SMALL, "model": model, "data_name": data, "local_backend": "xla"})
+    check_slice(cfg)
+    with pytest.raises(ValueError, match="pallas"):
+        Config(**{**SMALL, "model": model, "data_name": data})
+    other = "HAR" if data != "HAR" else "ICU"
+    with pytest.raises(ValueError, match="does not run on"):
+        check_slice(Config(**{**SMALL, "model": model, "data_name": other,
+                              "local_backend": "xla"}))
 
 
 @pytest.mark.parametrize("mode", AGGREGATION_MODES)

@@ -15,7 +15,8 @@ not multiples of its register tiles or that take several row chunks, at
 more clients than the card has SMs, from a mid-training Adam state, where
 every entry is gated.
 K3 must be bit-equal to its plain version, one tensor or a whole step's
-set per launch; the torch-autograd local update with dropout on agrees
+set per launch (the Transformer's nine tensors, and the HAR classifier's
+nine, whose row counts differ within the launch); the torch-autograd local update with dropout on agrees
 between the card and the CPU at 2e-4 (both draw the same masks from the
 hash), gated as the kernel validator gates its check (a).
 """
@@ -25,10 +26,10 @@ import pytest
 import torch
 
 from attackfl_tpu_torch import validate_kernels as vk
-from attackfl_tpu_torch.models.icu import TransformerModel
+from attackfl_tpu_torch.models.har import TransformerClassifier
+from attackfl_tpu_torch.models.icu import T_HEAD, TransformerModel
 from attackfl_tpu_torch.ops import fused_step as tfs
 from attackfl_tpu_torch.ops.pytree import tree_map
-from attackfl_tpu_torch.training import local
 
 C, B, NB = 8, 16, 2
 
@@ -144,34 +145,39 @@ def test_k3_is_bit_equal_to_plain_version(card, shape):
     keys = tfs.client_keys(1234, 7, torch.arange(C_, device=card))
     for rate in (0.1, 0.3, 0.5):
         launches = tfs.fill_masks.launches
-        got = tfs.fill_mask(keys, local.T_HEAD, rows, width, rate)
+        got = tfs.fill_mask(keys, T_HEAD, rows, width, rate)
         torch.cuda.synchronize()
         assert tfs.fill_masks.launches == launches + 1
-        assert torch.equal(got, tfs.dropout_mask(keys, local.T_HEAD, rows, width, rate))
+        assert torch.equal(got, tfs.dropout_mask(keys, T_HEAD, rows, width, rate))
 
 
-# (clients, rows, specs): the config-4 step's nine tensors, at C=100 and
-# at more clients, then the odd shapes of tests/test_torch_port_masks.py
-STEP_SPECS = local.mask_specs((0.1, 0.1, 0.3), **local.mask_widths(TransformerModel()))
+# (clients, specs): the config-4 step's nine tensors, at C=100 and at more
+# clients; the HAR step's nine (attention weights (561, 561), tokens
+# (128 * 561, w), head (128, 64)); then the odd shapes of
+# tests/test_torch_port_masks.py
+STEP_SPECS = TransformerModel().mask_specs([(128, 7), (128, 16)], (0.1, 0.1, 0.3))
+HAR_SPECS = TransformerClassifier().mask_specs([(128, 561)], (0.1, 0.1, 0.3))
 MASK_SETS = {
-    "config-4 step C=100 B=128": (100, 128, STEP_SPECS),
-    "config-4 step C=150 B=128": (150, 128, STEP_SPECS),
-    "C=3 rows 7 widths 5, 1, 6": (3, 7, [(16, 5, 0.1), (17, 1, 0.3), (18, 6, 0.5)]),
-    "one row and one column": (1, 1, [(24, 1, 0.1)]),
-    "C=5 one row": (5, 1, [(16, 1, 0.1), (17, 5, 0.3), (24, 3, 0.7)]),
+    "config-4 step C=100 B=128": (100, STEP_SPECS),
+    "config-4 step C=150 B=128": (150, STEP_SPECS),
+    "HAR step C=3 B=128 L=561": (3, HAR_SPECS),
+    "C=3 rows 7 widths 5, 1, 6": (3, [(16, 7, 5, 0.1), (17, 7, 1, 0.3), (18, 7, 6, 0.5)]),
+    "one row and one column": (1, [(24, 1, 1, 0.1)]),
+    "C=5 one row": (5, [(16, 1, 1, 0.1), (17, 1, 5, 0.3), (24, 1, 3, 0.7)]),
+    "C=3 mixed rows": (3, [(16, 9, 9, 0.1), (17, 45, 5, 0.1), (24, 5, 4, 0.3)]),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", MASK_SETS)
 def test_k3_step_launch_is_bit_equal_to_plain_version(card, case):
-    C_, rows, specs = MASK_SETS[case]
+    C_, specs = MASK_SETS[case]
     keys = tfs.client_keys(1234, 7, torch.arange(C_, device=card))
     launches = tfs.fill_masks.launches
-    got = tfs.fill_masks(keys, specs, rows)
+    got = tfs.fill_masks(keys, specs)
     torch.cuda.synchronize()
     assert tfs.fill_masks.launches == launches + 1
-    want = tfs.dropout_masks(keys, specs, rows)
+    want = tfs.dropout_masks(keys, specs)
     assert len(got) == len(want) == len(specs)
     for g, w in zip(got, want):
         assert g.storage_offset() == w.storage_offset()

@@ -33,7 +33,7 @@ from attackfl_tpu.training import round as jround
 from attackfl_tpu_torch.config import AttackSpec, Config
 from attackfl_tpu_torch.data.partition import RoundDraws
 from attackfl_tpu_torch.eval.validation import evaluate_icu
-from attackfl_tpu_torch.models.icu import TransformerModel
+from attackfl_tpu_torch.models.icu import T_BRANCH, T_HEAD, CNNModel, TransformerModel
 from attackfl_tpu_torch.models.layers import Seq1Attention
 from attackfl_tpu_torch.ops import aggregators, fused_step
 from attackfl_tpu_torch.ops import pytree as pt
@@ -44,7 +44,11 @@ from attackfl_tpu_torch.weights import params_from_jax
 
 C, B, EPOCHS, LO, HI, POOL = 8, 16, 2, 24, 48, 256
 LR, CLIP = 0.004, 1.0
-WIDTHS = dict(heads=4, ff=6, width=64)
+
+
+def _specs(rows, rates):
+    """TransformerModel's nine mask tensors of a ``rows``-row minibatch."""
+    return TransformerModel().mask_specs([(rows, 7), (rows, 16)], rates)
 
 
 class JaxDropoutOff:
@@ -226,8 +230,8 @@ def test_attention_mask_is_one_scalar_per_head():
     """The attention dropout scales each head's 16 value lanes by one
     Bernoulli scalar (JAX package layers.py:97-104), not elementwise."""
     keys = fused_step.client_keys(3, 0, torch.arange(4))
-    masks = local.step_masks(keys, 32, (0.5, 0.1, 0.3), **WIDTHS)
-    head_mask = masks["vitals"][0]                           # [C, B, 4]
+    masks = local.step_masks(keys, _specs(32, (0.5, 0.1, 0.3)))
+    head_mask = masks[0]                                     # vitals' [C, B, 4]
     assert head_mask.shape == (4, 32, 4)
     assert bool((head_mask == 0).any()) and bool((head_mask == 2.0).any())
     att = Seq1Attention(64, 4)
@@ -244,17 +248,18 @@ def test_attention_mask_is_one_scalar_per_head():
 
 def test_masks_differ_by_client_and_tensor():
     keys = fused_step.client_keys(3, 0, torch.arange(4))
-    masks = local.step_masks(keys, 32, (0.1, 0.1, 0.3), **WIDTHS)
-    assert [tuple(m.shape) for m in masks["labs"]] == [(4, 32, 4), (4, 32, 64), (4, 32, 6),
-                                                     (4, 32, 64)]
-    attn_out, ffn_out, head = masks["vitals"][1], masks["vitals"][3], masks["head"]
+    specs = _specs(32, (0.1, 0.1, 0.3))
+    masks = local.step_masks(keys, specs)
+    assert [tuple(m.shape) for m in masks[4:8]] == [(4, 32, 4), (4, 32, 64), (4, 32, 6),
+                                                   (4, 32, 64)]
+    attn_out, ffn_out, head = masks[1], masks[3], masks[8]
     assert not torch.equal(attn_out[0], attn_out[1])
     assert not torch.equal(attn_out, ffn_out)
-    assert not torch.equal(attn_out, masks["labs"][1])
+    assert not torch.equal(attn_out, masks[5])
     assert not torch.equal(ffn_out, head)
-    # the tensor ids are apart from the fused kernel's 0-8
-    assert min(local.T_BRANCH, local.T_HEAD) > fused_step.T_M4
-    assert local.MASKS_PER_STEP == 9
+    # the tensor ids are apart from the fused kernel's 0-8, and distinct
+    assert min(T_BRANCH, T_HEAD) > fused_step.T_M4
+    assert len(specs) == 9 and len({t for t, *_ in specs}) == 9
 
 
 def test_dropout_changes_training_and_is_deterministic(train_np):
@@ -275,10 +280,10 @@ def test_dropout_changes_training_and_is_deterministic(train_np):
 
 def test_rate_zero_draws_no_mask():
     keys = fused_step.client_keys(3, 0, torch.arange(2))
-    assert local.step_masks(keys, 8, (0.0, 0.0, 0.0), **WIDTHS) is None
-    masks = local.step_masks(keys, 8, (0.0, 0.1, 0.0), **WIDTHS)
-    assert torch.equal(masks["head"], torch.ones(2, 8, 64))
-    assert torch.equal(masks["labs"][0], torch.ones(2, 8, 4))
+    assert local.step_masks(keys, _specs(8, (0.0, 0.0, 0.0))) is None
+    masks = local.step_masks(keys, _specs(8, (0.0, 0.1, 0.0)))
+    assert torch.equal(masks[8], torch.ones(2, 8, 64))
+    assert torch.equal(masks[4], torch.ones(2, 8, 4))
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +299,7 @@ def test_local_update_reduces_loss(train_np):
     update = _port_update(train_np, (0.1, 0.1, 0.3), epochs=3, batch_size=32, lr=3e-3)
     loss_fn = local.make_loss_fn(TransformerModel(), "ICU")
     data = {k: torch.from_numpy(v)[:128] for k, v in train_np.items()}
-    args = (data["vitals"], data["labs"], data["label"].float(), torch.ones(128), None)
+    args = ((data["vitals"], data["labs"]), data["label"].float(), torch.ones(128), None)
     before = float(loss_fn(params, *args))
     new, ok, _ = update(params, idx, mask, perms, 2)
     after = float(loss_fn(pt.tree_take(new, 0), *args))
@@ -334,13 +339,20 @@ def test_nan_tripwire(train_np):
 
 
 def test_other_models_and_data_are_refused(train_np):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        local.make_loss_fn(TransformerModel(), "HAR")
+    """An unknown dataset is refused; the HAR loss and a local update of
+    another model than TransformerModel (both refused until ROADMAP item
+    11) now build and run."""
     with pytest.raises(ValueError, match="not valid"):
         local.make_loss_fn(TransformerModel(), "MNIST")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        local.build_local_update(object(), "ICU", {}, epochs=1, batch_size=8, lr=0.1,
-                                 clip_grad_norm=1.0)
+    assert callable(local.make_loss_fn(TransformerModel(), "HAR"))
+    update = local.build_local_update(
+        CNNModel(), "ICU", {k: torch.from_numpy(v) for k, v in train_np.items()},
+        epochs=1, batch_size=8, lr=0.1, clip_grad_norm=1.0)
+    params, idx, mask, perms = _port_inputs(n_clients=2, hi=16)
+    params = CNNModel().init(torch.Generator().manual_seed(0))
+    stacked, ok, loss = update(params, idx, mask, perms, 0)
+    assert bool(ok.all()) and bool(torch.isfinite(loss).all())
+    assert pt.tree_leaves(stacked)[0].shape[0] == 2
 
 
 def test_simulator_runs_xla_rounds_on_cpu():
