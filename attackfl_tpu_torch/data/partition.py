@@ -111,12 +111,18 @@ def draw_round(gen: torch.Generator, *, num_clients: int, pool_size: int,
                leak_groups: Sequence[int], leak_k: int,
                client_pools: torch.Tensor | None = None, dropout_rate: float = 0.0,
                noise_groups: Sequence[int] = (), num_params: int = 0,
-               quantize: bool = False, root_size: int = 0) -> RoundDraws:
+               quantize: bool = False, root_size: int = 0,
+               leak_pool: torch.Tensor | None = None) -> RoundDraws:
     """Draw one round: client samples (from ``client_pools`` where given),
     per-epoch shuffles, the kernel's dropout seed and, for each attack
     group of ``leak_groups[g]`` attackers, a leak sample of ``leak_k``
-    genuine indices per attacker drawn without replacement.  Then, only
-    where asked: the kept clients (each kept with probability ``1 -
+    genuine indices per attacker drawn without replacement.  Under hyper
+    mode's embedding detector, which can shrink the pool below ``leak_k``,
+    ``leak_pool`` holds the positions (in ``range(num_genuine)``) of the
+    active genuine clients, and each leak sample is drawn from it with
+    replacement; an empty pool draws nothing (JAX
+    ``training/hyper.py:138-164``).  Then, only where
+    asked: the kept clients (each kept with probability ``1 -
     dropout_rate``); for each Random group of ``noise_groups[g]``
     attackers an (attackers, ``num_params``) standard normal draw; with
     ``quantize`` (ScionFL) a (C, ``num_params``) uniform draw; with
@@ -127,8 +133,16 @@ def draw_round(gen: torch.Generator, *, num_clients: int, pool_size: int,
                                             client_pools)
     perms = random_permutations(gen, (epochs, num_clients, hi))
     seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen, device=gen.device))
-    leaks = tuple(random_permutations(gen, (n, num_genuine))[:, :leak_k]
-                  for n in leak_groups)
+    if leak_pool is None:
+        leaks = tuple(random_permutations(gen, (n, num_genuine))[:, :leak_k]
+                      for n in leak_groups)
+    elif leak_pool.numel() == 0:
+        leaks = tuple(torch.zeros((n, 0), dtype=torch.int64, device=gen.device)
+                      for n in leak_groups)
+    else:
+        leaks = tuple(leak_pool[torch.randint(0, leak_pool.numel(), (n, leak_k),
+                                              generator=gen, device=gen.device)]
+                      for n in leak_groups)
     kept = None
     if dropout_rate > 0.0:
         kept = torch.rand((num_clients,), generator=gen, device=gen.device) < 1.0 - dropout_rate

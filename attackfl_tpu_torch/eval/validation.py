@@ -1,13 +1,15 @@
 """Server-side validation, the round-acceptance gate (the port's
-``attackfl_tpu/eval/validation.py:24-99,143-192``).
+``attackfl_tpu/eval/validation.py:24-140,143-229``).
 
 ICU rounds are scored by ROC-AUC and fail on NaN outputs (reference
 src/Validation.py:92-122); HAR rounds by accuracy, always ok (:124-136);
 CIFAR10 rounds by NLL and accuracy, failing on a NaN or |NLL| > 1e6
-(:69-90).  The forward runs in chunks of the model's ``eval_chunk`` rows,
-which bounds the activations' memory and leaves the result unchanged
-(rows are independent).  It is plain PyTorch: the JAX package leaves it
-to XLA, and it is no kernel.
+(:69-90).  In hyper mode every active client's own model runs the test
+set and the outputs pool: one ROC-AUC for ICU (:178-214), the NLL and
+the accuracy for CIFAR10 (:147-176).  The forward runs in chunks of the
+model's ``eval_chunk`` rows, which bounds the activations' memory and
+leaves the result unchanged (rows are independent).  It is plain
+PyTorch: the JAX package leaves it to XLA, and it is no kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from attackfl_tpu_torch.ops import pytree as pt
 
 
 def roc_auc(labels: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
@@ -76,7 +80,43 @@ def evaluate_cifar(model, params: dict, test_data: dict[str, torch.Tensor]
     return {"nll": loss, "accuracy": acc, "ok": ok, "metric": acc}
 
 
+def _per_client(model, stacked: dict, test_data: dict[str, torch.Tensor],
+                inputs: tuple[str, ...]) -> torch.Tensor:
+    """Every client's forward over the whole test set, (C, N, ...): one
+    client at a time, each in chunks."""
+    n = pt.tree_leaves(stacked)[0].shape[0]
+    return torch.stack([forward_in_chunks(model, pt.tree_take(stacked, c), test_data, inputs)
+                        for c in range(n)])
+
+
+def evaluate_hyper_icu(model, stacked: dict, test_data: dict[str, torch.Tensor]
+                       ) -> dict[str, torch.Tensor]:
+    """Hyper-mode ICU validation: every given client's personalized model
+    runs the full test set and ALL outputs pool into one ROC-AUC, the
+    labels tiled (reference test_hyper_icu, src/Validation.py:178-214)."""
+    probs = _per_client(model, stacked, test_data, ("vitals", "labs"))[..., 0]   # (C, N)
+    auc_val = roc_auc(test_data["label"].repeat(probs.shape[0]), probs.reshape(-1))
+    ok = ~torch.any(torch.isnan(probs)) & torch.isfinite(auc_val)
+    return {"roc_auc": auc_val, "ok": ok, "metric": auc_val}
+
+
+def evaluate_hyper_cifar(model, stacked: dict, test_data: dict[str, torch.Tensor]
+                         ) -> dict[str, torch.Tensor]:
+    """Hyper-mode CIFAR-10 validation: per-client models over the full
+    test set, NLL and accuracy pooled (reference test_hyper_image,
+    src/Validation.py:147-176)."""
+    logp = _per_client(model, stacked, test_data, ("x",))                     # (C, N, 10)
+    label = test_data["label"].to(torch.int64)
+    nll = -torch.gather(logp, 2, label[None, :, None].expand(logp.shape[0], -1, 1))[..., 0]
+    loss = torch.mean(nll)
+    acc = torch.mean((torch.argmax(logp, dim=-1) == label[None, :]).to(torch.float32))
+    ok = torch.isfinite(loss) & (torch.abs(loss) <= 1e6)
+    return {"nll": loss, "accuracy": acc, "ok": ok, "metric": acc}
+
+
 EVALUATORS = {"ICU": evaluate_icu, "HAR": evaluate_har, "CIFAR10": evaluate_cifar}
+# HAR has no hyper evaluation (reference src/Validation.py:138-145)
+HYPER_EVALUATORS = {"ICU": evaluate_hyper_icu, "CIFAR10": evaluate_hyper_cifar}
 
 
 class Validation:
@@ -86,6 +126,7 @@ class Validation:
                  device: torch.device, logger=None):
         if data_name not in EVALUATORS:
             raise ValueError(f"Data name '{data_name}' is not valid.")
+        self.data_name = data_name
         self.evaluate = EVALUATORS[data_name]
         self.model = model
         self.logger = logger
@@ -93,7 +134,19 @@ class Validation:
                           for k, v in test_data.items()}
 
     def test(self, params: Any) -> tuple[bool, dict[str, float]]:
-        out = self.evaluate(self.model, params, self.test_data)
+        return self._result(self.evaluate(self.model, params, self.test_data))
+
+    def test_hyper(self, stacked: Any) -> tuple[bool, dict[str, float]]:
+        """Hyper mode: the pooled evaluation of the stacked per-client
+        params (the active clients' generated models).  ``config.py``
+        refuses hyper on HAR; this guards a direct caller, as JAX's
+        ``Validation.test_hyper`` does (validation.py:222-224)."""
+        if self.data_name not in HYPER_EVALUATORS:
+            raise ValueError(f"Not found hyper test function for data name {self.data_name}")
+        return self._result(HYPER_EVALUATORS[self.data_name](self.model, stacked,
+                                                             self.test_data))
+
+    def _result(self, out: dict[str, torch.Tensor]) -> tuple[bool, dict[str, float]]:
         ok = bool(out.pop("ok"))
         metrics = {k: float(v) for k, v in out.items()}
         if self.logger:

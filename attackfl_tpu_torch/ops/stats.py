@@ -5,8 +5,7 @@ full-covariance Gaussian mixture and the Mahalanobis distance, in numpy.
 The problems are tiny (clients x a few dims, once per round) and run on
 the host, as in the JAX engine; numpy keeps the port free of scikit-learn
 and scipy, which the card's machine does not promise.  ``dbscan_labels``
-belongs to the hyper detector and comes with it (ROADMAP.md queue 1,
-item 12).
+is the hyper detector's (``ops/defenses.HyperDetector``).
 """
 
 from __future__ import annotations
@@ -144,3 +143,35 @@ def mahalanobis(x: np.ndarray, mean: np.ndarray, cov: np.ndarray) -> float:
     except np.linalg.LinAlgError:
         solve = np.linalg.solve(cov + np.eye(d) * 1e-6, diff)
     return float(np.sqrt(max(diff @ solve, 0.0)))
+
+
+# ---------------------------------------------------------------------------
+# DBSCAN
+# ---------------------------------------------------------------------------
+
+def dbscan_labels(x: np.ndarray, eps: float, min_samples: int) -> np.ndarray:
+    """DBSCAN cluster labels; noise = -1.  Semantics match
+    sklearn.cluster.DBSCAN (euclidean, min_samples includes the point
+    itself).  O(N²) neighbor search — N is the client count."""
+    x = np.asarray(x, dtype=np.float64)
+    n = x.shape[0]
+    dist = np.linalg.norm(x[:, None, :] - x[None, :, :], axis=-1)
+    neighbors = [np.flatnonzero(dist[i] <= eps) for i in range(n)]
+    core = np.array([len(nb) >= min_samples for nb in neighbors])
+
+    labels = np.full(n, -1, dtype=np.int64)
+    cluster = 0
+    for i in range(n):
+        if labels[i] != -1 or not core[i]:
+            continue
+        # BFS over density-reachable points
+        labels[i] = cluster
+        frontier = list(neighbors[i])
+        while frontier:
+            j = frontier.pop()
+            if labels[j] == -1:
+                labels[j] = cluster
+                if core[j]:
+                    frontier.extend(k for k in neighbors[j] if labels[k] == -1)
+        cluster += 1
+    return labels

@@ -24,6 +24,13 @@ The gmm and fltracer defenses filter on the host, as in the JAX engine
 (``_run_plain_round``, ``attackfl_tpu/training/engine.py:1551-1612``): one
 device-to-host copy of the flat client matrix a round, then numpy
 (``ops/defenses.py``).
+
+Hyper mode (``_run_hyper_round``, JAX engine.py:1673-1800) trains a
+hypernetwork in place of aggregating: generate every client's params,
+train them, attack, then one hypernetwork update (``training/hyper.py``);
+with ``hyper_detection`` the embedding detector may remove clients and
+roll the round's update back; validation pools the active clients'
+generated models.
 """
 
 from __future__ import annotations
@@ -41,9 +48,11 @@ from attackfl_tpu_torch.data.partition import dirichlet_label_partition, draw_ro
 from attackfl_tpu_torch.data.synthetic import get_dataset
 from attackfl_tpu_torch.device import resolve_device
 from attackfl_tpu_torch.eval.validation import Validation
+from attackfl_tpu_torch.models.hyper import make_hypernetwork
 from attackfl_tpu_torch.ops import defenses
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.registry import get_model
+from attackfl_tpu_torch.training.hyper import build_hyper_round, build_hyper_update
 from attackfl_tpu_torch.training.round import (
     ROOT_SIZE, attacking_groups, build_aggregator, build_attack_groups, build_round_step,
     leak_size,
@@ -69,15 +78,14 @@ def check_slice(cfg: Config) -> None:
     """Refuse what the port cannot run yet, naming the ROADMAP item that
     will port it.  The slice: CNNModel, RNNModel and TransformerModel on
     ICU, TransformerClassifier on HAR, ResNet18 on CIFAR10; every
-    aggregation mode but hyper, every attack, stragglers and the Dirichlet
-    split, checkpoints, the synchronous executor, local_backend xla
-    (float32) or, for TransformerModel, pallas (the config refuses it for
-    the others)."""
+    aggregation mode, hyper included (either hypernetwork class and
+    update mode, the embedding detector), every attack, stragglers and the
+    Dirichlet split, checkpoints, the synchronous executor, local_backend
+    xla (float32) or, for TransformerModel, pallas (the config refuses it
+    for the others and for hyper)."""
     if MODEL_DATA.get(cfg.model) != cfg.data_name:
         raise ValueError(f"model {cfg.model!r} does not run on {cfg.data_name!r}; the "
                          f"models and their datasets: {MODEL_DATA}")
-    if cfg.mode == "hyper":
-        _refuse("hyper mode", "item 12")
     # the pallas path ignores compute-dtype (K1 is float32), as in JAX
     if cfg.local_backend == "xla" and cfg.mesh.compute_dtype != "float32":
         _refuse(f"compute-dtype {cfg.mesh.compute_dtype!r} (mixed-precision local "
@@ -138,10 +146,30 @@ class Simulator:
             self.attacker_mask[list(grp.indices)] = True
         self.validation = (Validation(self.model, cfg.data_name, test_np, self.device, log)
                            if cfg.validation else None)
-        self.round_step = build_round_step(self.model, cfg, self.train_data,
-                                           self.attack_groups, self.genuine_idx)
-        self.aggregate = build_aggregator(self.model, cfg, self.test_data)
         self.num_params = sum(x.numel() for x in self.model.parameters())
+        self.is_hyper = cfg.mode == "hyper"
+        self.detector = None
+        if self.is_hyper:
+            # the JAX engine sizes its hypernetwork from a template inited
+            # at random_seed (engine.py:402-411); only the shapes matter
+            self.target_template = self.model.init(
+                torch.Generator().manual_seed(cfg.random_seed))
+            self.hnet = make_hypernetwork(cfg.hyper_class, self.target_template,
+                                          cfg.total_clients, embedding_dim=8, hidden_dim=100,
+                                          spec_norm=cfg.hyper_spec_norm, n_hidden=2)
+            self.round_step = build_hyper_round(self.model, cfg, self.train_data,
+                                                self.attack_groups, self.genuine_idx, self.hnet)
+            self.hyper_update, self.hyper_opt = build_hyper_update(cfg, self.hnet)
+            if cfg.hyper_detection.enable:
+                hd = cfg.hyper_detection
+                self.detector = defenses.HyperDetector(
+                    cfg.total_clients, hd.cosine_search, hd.n_components, hd.eps,
+                    hd.min_samples, hd.start_round,
+                    save_path=os.path.join(cfg.log_path, "all_embeddings.npy"))
+        else:
+            self.round_step = build_round_step(self.model, cfg, self.train_data,
+                                               self.attack_groups, self.genuine_idx)
+            self.aggregate = build_aggregator(self.model, cfg, self.test_data)
         # temp files of killed writes go before any new checkpoint activity
         swept = ckpt.sweep_orphans(cfg.checkpoint_dir)
         if swept:
@@ -162,23 +190,41 @@ class Simulator:
         """Fresh simulation state (the reference's fresh-init path,
         server.py:160-162)."""
         seed = self.cfg.random_seed if seed is None else seed
-        params = self.model.init(torch.Generator().manual_seed(seed), self.device)
         num_genuine = len(self.genuine_idx)
+        rng = torch.Generator(device=self.device).manual_seed(seed)
+        if self.is_hyper:
+            # JAX engine.py:916-930: the hypernetwork and its Adam state,
+            # the leak pool shaped like the target model, the active mask
+            flat = self.hnet.init(torch.Generator().manual_seed(seed), self.device)
+            params = pt.tree_map(lambda x: x.to(self.device), self.target_template)
+            state = {"hnet_params": flat, "hyper_opt_state": self.hyper_opt.init(flat),
+                     "active_mask": torch.ones(self.cfg.total_clients)}
+        else:
+            params = self.model.init(torch.Generator().manual_seed(seed), self.device)
+            state = {"global_params": params}
         return {
-            "global_params": params,
+            **state,
             "prev_genuine": pt.tree_map(
                 lambda x: torch.zeros((num_genuine,) + tuple(x.shape),
                                       dtype=x.dtype, device=x.device), params),
             "have_genuine": False,
-            "rng": torch.Generator(device=self.device).manual_seed(seed),
+            "rng": rng,
             "completed_rounds": 0,
             "broadcasts": 0,
         }
 
     def host_state(self, state: dict[str, Any]) -> dict[str, Any]:
         """``state`` as a checkpoint holds it: the generator as its
-        ``get_state()`` (a CPU uint8 tensor)."""
-        return {**state, "rng": state["rng"].get_state()}
+        ``get_state()`` (a CPU uint8 tensor); in hyper mode the
+        hypernetwork and Adam's moments as flax-named trees, so a
+        checkpoint of the other class fails the structure check."""
+        host = {**state, "rng": state["rng"].get_state()}
+        if self.is_hyper:
+            opt = state["hyper_opt_state"]
+            host["hnet_params"] = self.hnet.tree(state["hnet_params"])
+            host["hyper_opt_state"] = {"count": opt["count"], "m": self.hnet.tree(opt["m"]),
+                                       "v": self.hnet.tree(opt["v"])}
+        return host
 
     def restore_state(self, host: dict[str, Any]) -> dict[str, Any]:
         """The inverse of :meth:`host_state`, on the run's device."""
@@ -186,6 +232,13 @@ class Simulator:
                  for k, v in host.items()}
         state["rng"] = torch.Generator(device=self.device)
         state["rng"].set_state(host["rng"].cpu())
+        if self.is_hyper:
+            opt = host["hyper_opt_state"]
+            state["hnet_params"] = self.hnet.from_tree(host["hnet_params"], self.device)
+            state["hyper_opt_state"] = {
+                "count": opt["count"].cpu(), "m": self.hnet.from_tree(opt["m"], self.device),
+                "v": self.hnet.from_tree(opt["v"], self.device)}
+            state["active_mask"] = host["active_mask"].cpu()
         return state
 
     def _load_resume_state(self) -> dict[str, Any] | None:
@@ -249,7 +302,10 @@ class Simulator:
             self._reload_cache = (key, host["global_params"])
         return dict(state, global_params=self._reload_cache[1])
 
-    def draw_round(self, gen: torch.Generator):
+    def draw_round(self, gen: torch.Generator, leak_pool: torch.Tensor | None = None):
+        """One round's draws; ``leak_pool``: under hyper mode's detector,
+        the active genuine positions, drawn with replacement (JAX
+        hyper.py:138-164)."""
         lo, hi = self.cfg.num_data_range
         firing = attacking_groups(self.attack_groups)
         return draw_round(
@@ -260,7 +316,8 @@ class Simulator:
             noise_groups=[len(g.indices) for g in firing if g.mode == "Random"],
             num_params=self.num_params, quantize=self.cfg.mode == "scionfl",
             root_size=(min(ROOT_SIZE, self.test_data["label"].shape[0])
-                       if self.cfg.mode == "FLTrust" else 0))
+                       if self.cfg.mode == "FLTrust" else 0),
+            leak_pool=leak_pool)
 
     # ------------------------------------------------------------------
     # one round
@@ -278,11 +335,23 @@ class Simulator:
         the generator, the broadcast clock and the genuine-leak pool
         (reference retry path, server.py:546-567)."""
         t0 = time.perf_counter()
-        if self.cfg.reload_parameters_per_round:
+        # hyper mode never reloads (reference gate server.py:580)
+        if self.cfg.reload_parameters_per_round and not self.is_hyper:
             state = self._reload_params(state)
         broadcast_number = state["broadcasts"] + 1
         metrics: dict[str, Any] = {"round": state["completed_rounds"] + 1,
                                    "broadcast": broadcast_number}
+        if self.is_hyper:
+            new_state, metrics = self._run_hyper_round(state, broadcast_number, metrics)
+        else:
+            new_state, metrics = self._run_plain_round(state, broadcast_number, metrics)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        metrics["seconds"] = time.perf_counter() - t0
+        return new_state, metrics
+
+    def _run_plain_round(self, state: dict[str, Any], broadcast_number: int,
+                         metrics: dict[str, Any]) -> tuple[dict[str, Any], dict[str, Any]]:
         draws = self.draw_round(state["rng"])
         stacked, sizes, new_genuine, ok, loss = self.round_step(
             state["global_params"], state["prev_genuine"], state["have_genuine"],
@@ -323,9 +392,64 @@ class Simulator:
         if ok:
             new_state["global_params"] = new_global
             new_state["completed_rounds"] = state["completed_rounds"] + 1
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        metrics["seconds"] = time.perf_counter() - t0
+        return new_state, metrics
+
+    def _run_hyper_round(self, state: dict[str, Any], broadcast_number: int,
+                         metrics: dict[str, Any]) -> tuple[dict[str, Any], dict[str, Any]]:
+        """Generate -> train -> attack -> hypernetwork update -> detect ->
+        validate (JAX engine.py:1673-1800).  The hypernetwork and its Adam
+        state change only when the round is ok; a detector removal rolls
+        the round's update back and leaves the removed clients inactive
+        for the rest of the run, and the round stays ok."""
+        leak_pool = None
+        if self.detector is not None:
+            # removed clients leave the leak pool; without the detector none is
+            genuine = torch.as_tensor(self.genuine_idx, dtype=torch.int64)
+            leak_pool = torch.nonzero(state["active_mask"][genuine] > 0)[:, 0].to(self.device)
+        draws = self.draw_round(state["rng"], leak_pool)
+        active_mask = state["active_mask"].to(self.device)
+        stacked, sizes, new_genuine, ok, loss = self.round_step(
+            state["hnet_params"], state["prev_genuine"], state["have_genuine"], active_mask,
+            draws, broadcast_number)
+        ok = train_ok = bool(ok)
+        metrics["train_loss"] = float(loss)
+
+        hnet, opt = state["hnet_params"], state["hyper_opt_state"]
+        new_active = state["active_mask"].clone()
+        if ok:
+            # dropped clients (size 0) skip their step
+            hnet, opt = self.hyper_update(hnet, opt, stacked, active_mask * (sizes > 0))
+            gen = None
+            if self.detector is not None:
+                gen, embeddings = self.hnet.generate_all(hnet)
+                selected = torch.nonzero(new_active > 0)[:, 0].tolist()
+                removals = self.detector.observe(broadcast_number, selected,
+                                                 embeddings[selected].cpu().numpy())
+                if removals:
+                    print(f"Removing anomalies {removals}, rolling back", flush=True)
+                    metrics["removed_clients"] = removals
+                    new_active[removals] = 0.0
+                    hnet, opt = state["hnet_params"], state["hyper_opt_state"]
+                    gen = None
+            if self._validation_due(broadcast_number):
+                if gen is None:
+                    gen, _ = self.hnet.generate_all(hnet)
+                ids = torch.nonzero(new_active > 0)[:, 0].to(self.device)
+                val_ok, val_metrics = self.validation.test_hyper(pt.tree_take(gen, ids))
+                metrics.update(val_metrics)
+                ok = ok and val_ok
+
+        metrics["ok"] = ok
+        new_state = dict(state)
+        new_state["broadcasts"] = broadcast_number
+        new_state["prev_genuine"] = new_genuine
+        if train_ok:
+            new_state["have_genuine"] = True
+        new_state["active_mask"] = new_active
+        if ok:
+            new_state["hnet_params"] = hnet
+            new_state["hyper_opt_state"] = opt
+            new_state["completed_rounds"] = state["completed_rounds"] + 1
         return new_state, metrics
 
     # ------------------------------------------------------------------

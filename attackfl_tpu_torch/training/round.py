@@ -98,6 +98,47 @@ def _rows(sel: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return sel.reshape((-1,) + (1,) * (like.ndim - 1))
 
 
+def scatter_attacks(stacked: dict, ok: torch.Tensor, groups: Sequence[AttackGroup],
+                    draws: RoundDraws, fires: Callable[[AttackGroup], bool],
+                    own: Callable[[torch.Tensor], dict], prev_genuine: dict,
+                    template: dict) -> tuple[dict, torch.Tensor]:
+    """Overwrite the rows of every attack group that ``fires`` with its
+    attack, in place: each attacker forges from ``own(rows)``, its own
+    params (n, ...) for the attacker ids ``rows``, and its leak sample of
+    ``prev_genuine`` (``draws.leaks``); Random from ``draws.noise``
+    shaped like ``template`` (one unstacked tree).  ``groups`` are the
+    attacking groups, in the order of ``draws.leaks``.  A dropped attacker
+    (``draws.kept``) never reports: its row stays.  An attacking row's ok
+    flag is set: it did not train.  Returns ``(stacked, ok)``."""
+    kept = draws.kept
+    noise = iter(draws.noise)
+    for grp, leaks in zip(groups, draws.leaks):
+        grp_noise = next(noise) if grp.mode == "Random" else None
+        if not fires(grp):
+            continue
+        grp_arr = torch.as_tensor(grp.indices, dtype=torch.int64, device=ok.device)
+
+        def attack_rows(rows, grp=grp, leaks=leaks, grp_noise=grp_noise, grp_arr=grp_arr):
+            mine = own(grp_arr[rows])
+            if grp_noise is not None:      # Random reads no leaked model
+                z = pt.unraveler(template)(grp_noise[rows])
+                return attacks.apply_attack(grp.mode, mine, None, grp.args, noise=z)
+            leaked = pt.tree_take(prev_genuine, leaks[rows])   # (n, k, ...)
+            return attacks.apply_attack(grp.mode, mine, leaked, grp.args, dim=1)
+
+        attacked = map_attackers(attack_rows, len(grp.indices), leaks.shape[1], template)
+        active = (torch.ones(len(grp.indices), dtype=torch.bool, device=ok.device)
+                  if kept is None else kept[grp_arr])
+
+        def scatter(s, a, grp_arr=grp_arr, active=active):
+            s[grp_arr] = torch.where(_rows(active, a), a, s[grp_arr])
+            return s
+
+        stacked = pt.tree_map(scatter, stacked, attacked)
+        ok[grp_arr] = ok[grp_arr] | active
+    return stacked, ok
+
+
 def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
                      attack_groups: Sequence[AttackGroup],
                      genuine_idx: Sequence[int]) -> Callable:
@@ -130,36 +171,11 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
             sizes, mask = apply_client_dropout(kept, sizes, mask)
         stacked, ok, losses = batched_update(
             global_params, draws.idx, mask, draws.perms, draws.dropout_seed)
-
-        noise = iter(draws.noise)
-        for grp, leaks in zip(firing, draws.leaks):
-            grp_noise = next(noise) if grp.mode == "Random" else None
-            if not (broadcast_number >= grp.attack_round and have_genuine):
-                continue
-            grp_arr = torch.as_tensor(grp.indices, dtype=torch.int64, device=device)
-
-            def attack_rows(rows, grp=grp, leaks=leaks, grp_noise=grp_noise):
-                n = leaks[rows].shape[0]
-                own = pt.tree_broadcast(global_params, n)
-                if grp_noise is not None:      # Random reads no leaked model
-                    z = pt.unraveler(global_params)(grp_noise[rows])
-                    return attacks.apply_attack(grp.mode, own, None, grp.args, noise=z)
-                leaked = pt.tree_take(prev_genuine, leaks[rows])   # (n, k, ...)
-                return attacks.apply_attack(grp.mode, own, leaked, grp.args, dim=1)
-
-            attacked = map_attackers(attack_rows, len(grp.indices), leaks.shape[1],
-                                     global_params)
-            # a dropped attacker never reports: its row stays the no-op
-            active = (torch.ones(len(grp.indices), dtype=torch.bool, device=device)
-                      if kept is None else kept[grp_arr])
-
-            def scatter(s, a, grp_arr=grp_arr, active=active):
-                s[grp_arr] = torch.where(_rows(active, a), a, s[grp_arr])
-                return s
-
-            stacked = pt.tree_map(scatter, stacked, attacked)
-            # attackers that attacked did not train: their NaN flag resets
-            ok[grp_arr] = ok[grp_arr] | active
+        stacked, ok = scatter_attacks(
+            stacked, ok, firing, draws,
+            fires=lambda grp: broadcast_number >= grp.attack_round and have_genuine,
+            own=lambda ids: pt.tree_broadcast(global_params, ids.numel()),
+            prev_genuine=prev_genuine, template=global_params)
 
         train_ok = torch.all(ok)
         if kept is None:
@@ -251,8 +267,8 @@ def build_aggregator(model, cfg: Config,
             deltas = pt.tree_map(lambda s, g: s - g.unsqueeze(0), stacked, global_params)
             return aggregators.fltrust_combine(global_params, deltas, root_delta)
     elif mode == "hyper":
-        raise NotImplementedError(
-            "aggregation mode 'hyper' is not ported yet (ROADMAP.md queue 1, item 12)")
+        raise ValueError("hyper mode aggregates by training its hypernetwork: "
+                         "training/hyper.build_hyper_update")
     else:
         raise ValueError(f"Server mode '{mode}' is not valid.")
     return aggregate

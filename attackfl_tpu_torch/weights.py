@@ -6,6 +6,9 @@ JAX package's parameter tree as numpy arrays (any nested mapping, stacked
 or not) and returns the port's tree of float32 tensors;
 ``params_to_jax`` is its inverse.  Both check names and shapes against the
 port's model so a layout drift fails loudly instead of training garbage.
+``hnet_params_from_jax`` and ``hnet_params_to_jax`` do the same for a
+hypernetwork's parameters, which the port keeps as one flat vector
+(``models/hyper.py``).
 """
 
 from __future__ import annotations
@@ -77,3 +80,23 @@ def params_to_jax(tree: dict[str, Any],
             node = node.setdefault(key, {})
         node[leaf] = value
     return out
+
+
+def hnet_params_from_jax(tree: Mapping, hnet, device: torch.device | str = "cpu",
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The JAX package's hypernetwork parameter tree (numpy leaves) -> the
+    port's flat vector for ``hnet`` (``models/hyper.py``), checked against
+    ``hnet``'s head names and shapes (HyperNetwork's or CNNHyper's)."""
+    tree = {path: torch.from_numpy(np.array(value)) for path, value in _walk(tree)}
+    nested: dict[str, Any] = {}
+    for path, value in tree.items():
+        module, name = path.split("/")
+        nested.setdefault(module, {})[name] = value.to(dtype)
+    return hnet.from_tree(nested, device)
+
+
+def hnet_params_to_jax(flat: torch.Tensor, hnet) -> dict[str, Any]:
+    """The port's flat hypernetwork vector -> the flax tree of numpy
+    arrays (head kernels ``(hidden, numel)``, as flax holds them)."""
+    return {module: {name: leaf.detach().cpu().numpy().copy() for name, leaf in leaves.items()}
+            for module, leaves in hnet.tree(flat).items()}

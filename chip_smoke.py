@@ -53,8 +53,21 @@ no result line):
                  one minibatch step of each on the card against the CPU
                  (the same masks, gradients within 1e-4 of the largest);
                  config 1's round at full depth; ResNet18's per-client
-                 gradients by vmap against a loop over clients.
-Each of phases 4-9 resets the kernel launch counts before each run and
+                 gradients by vmap against a loop over clients;
+ 10. hyper    -- hyper mode under xla, each model at its full width and
+                 cut in depth: BASELINE config 2 (ICU RNNModel, 3 clients,
+                 HyperNetwork, sequential), CNNModel under CNNHyper with
+                 spectral normalization and the batched update, config 4's
+                 shape (100 clients, 25 LIE attackers) with the embedding
+                 detector, and ResNet18 on CIFAR10 with its 4.51 GB
+                 hypernetwork (and one spectrally normalized generation
+                 and update of it); the last round of each under
+                 torch.profiler;
+                 every round ok, K3 once per minibatch step (never under
+                 ResNet18); generate_all, the update in each mode and the
+                 detector's removals on the card against the CPU from the
+                 same (warm) state.
+Each of phases 4-10 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
@@ -82,13 +95,16 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from attackfl_tpu_torch import cli, validate_kernels  # noqa: E402
-from attackfl_tpu_torch.config import AttackSpec, Config, load_config  # noqa: E402
+from attackfl_tpu_torch.config import (  # noqa: E402
+    AttackSpec, Config, HyperDetectionConfig, load_config,
+)
 from attackfl_tpu_torch.data.partition import random_permutations  # noqa: E402
 from attackfl_tpu_torch.data.synthetic import get_dataset  # noqa: E402
 from attackfl_tpu_torch.device import resolve_device  # noqa: E402
 from attackfl_tpu_torch.models.har import TransformerClassifier  # noqa: E402
+from attackfl_tpu_torch.models.hyper import make_hypernetwork  # noqa: E402
 from attackfl_tpu_torch.models.icu import T_HEAD, TransformerModel  # noqa: E402
-from attackfl_tpu_torch.ops import aggregators, attacks, build  # noqa: E402
+from attackfl_tpu_torch.ops import aggregators, attacks, build, defenses  # noqa: E402
 from attackfl_tpu_torch.ops import fused_step as tfs  # noqa: E402
 from attackfl_tpu_torch.ops.pytree import (  # noqa: E402
     tree_broadcast, tree_items, tree_leaves, tree_map, tree_ravel_stacked, tree_take, unraveler,
@@ -96,6 +112,7 @@ from attackfl_tpu_torch.ops.pytree import (  # noqa: E402
 from attackfl_tpu_torch.profile_round import CONFIG4, DEPTH, self_device_us  # noqa: E402
 from attackfl_tpu_torch.training import local  # noqa: E402
 from attackfl_tpu_torch.training import engine  # noqa: E402
+from attackfl_tpu_torch.training.hyper import build_hyper_update  # noqa: E402
 from attackfl_tpu_torch.training import round as tround  # noqa: E402
 from attackfl_tpu_torch.training.engine import Simulator  # noqa: E402
 
@@ -152,9 +169,10 @@ DEFENSE_TOL = 1e-5
 
 # phase 9, the other four models under xla, each at its full width
 # (bench.py:82-110; _base_kwargs :56-75 for what they share), cut in depth
-# only: config 1 (CNNModel), config 2's shape with fedavg (RNNModel; hyper
-# is ROADMAP item 12), the HAR classifier, and config 5 (ResNet18 on
-# CIFAR10 with 3 Opt-Fang attackers from round 2).  (name, config, cut)
+# only: config 1 (CNNModel), config 2's shape with fedavg (RNNModel; config
+# 2 itself, in hyper mode, is phase 10's), the HAR classifier, and config 5
+# (ResNet18 on CIFAR10 with 3 Opt-Fang attackers from round 2).  (name,
+# config, cut)
 BENCH_BASE = dict(num_round=30, num_data_range=(12000, 15000), epochs=5, batch_size=128,
                   lr=0.004, clip_grad_norm=1.0, genuine_rate=0.5, train_size=20000,
                   test_size=4000, random_seed=1, local_backend="xla", mode="fedavg")
@@ -182,6 +200,38 @@ CHANCE = {"config 1": 0.5, "RNNModel": 0.5, "HAR": 1.0 / 6.0, "config 5": None}
 # it is not the run's (the CPU's HAR step at B=128 takes minutes)
 STEP_GRAD_RTOL, STEP_LOSS_TOL = 1e-4, 1e-5
 STEP_SHAPE = {"HAR": (3, 16), "config 5": (2, 8)}
+
+# phase 10, hyper mode under xla (hyper_lr 0.001), each model at its full
+# width, cut in depth: BASELINE config 2 (bench.py:85-87) as phase 9 cuts
+# RNNModel; CNNModel under CNNHyper with spectral normalization and the
+# batched update; config 4's shape with its 25 LIE attackers and the
+# embedding detector from round 2; ResNet18 on CIFAR10 at 4 clients (its
+# hypernetwork is 101 x 11,173,962 + 21,100 floats).  (name, config, cut)
+HYPER_BASE = dict(BENCH_BASE, mode="hyper", hyper_lr=0.001)
+HYPER_RUNS = (
+    ("config 2", dict(HYPER_BASE, total_clients=3, model="RNNModel", data_name="ICU"),
+     ICU_CUT),
+    ("CNNHyper", dict(HYPER_BASE, total_clients=3, model="CNNModel", data_name="ICU",
+                      hyper_class="CNNHyper", hyper_spec_norm=True, hyper_update_mode="batched"),
+     dict(ICU_CUT, num_round=2)),
+    ("config 4 hyper", dict(HYPER_BASE, total_clients=100, model="TransformerModel",
+                            data_name="ICU", attacks=CONFIG4["attacks"],
+                            hyper_detection=HyperDetectionConfig(enable=True, start_round=2,
+                                                                 cosine_search=5)),
+     ICU_CUT),
+    ("ResNet18 hyper", dict(HYPER_BASE, num_round=10, num_data_range=(256, 512),
+                            train_size=4096, test_size=1024, epochs=1, batch_size=64,
+                            total_clients=4, model="ResNet18", data_name="CIFAR10"),
+     dict(num_round=1)),
+)
+# the hypernetwork on the card against the CPU from the same warm state:
+# within this share of its largest magnitude; Adam's moments within
+# MV_SPREAD times the CPU float32's distance from a float64 evaluation
+HYPER_RTOL, MV_SPREAD = 1e-5, 4.0
+# the detector check: TransformerModel's hypernetwork at this many clients,
+# over this many update rounds (the detector acts from the second), at
+# this hyper_lr
+DETECT_C, DETECT_ROUNDS, DETECT_LR = 8, 3, 0.003
 
 # kernel vs plain version: p absolute, loss absolute per step, m and v
 # each relative to the largest magnitude of the plain version's tensor
@@ -1236,6 +1286,284 @@ def models_phase(card: str) -> None:
         f"included)")
 
 
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over the largest |b| (b on the CPU)."""
+    return float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def hyper_updates_on_card_and_cpu(label: str, cfg: Config, hnet, flat: torch.Tensor,
+                                  opt_state: dict, modes=("sequential", "batched")) -> None:
+    """From the same warm state (``flat``, ``opt_state`` on the card): one
+    ``generate_all``, then one update in each of ``modes`` on the same
+    client rows (the generated rows plus a seeded 0.05, client 1
+    inactive), on the card, on the CPU and on the CPU in float64: the
+    hypernetwork within HYPER_RTOL of its largest magnitude, Adam's count
+    equal, and m and v as close to float64 as MV_SPREAD times the CPU's
+    float32 (their trunk entries are sums over P products, whose float32
+    rounding depends on the summation order: the CPU's is the coarser)."""
+    cpu_flat = flat.cpu()
+    cpu_state = {k: v.cpu() for k, v in opt_state.items()}
+    rows_card, emb_card = hnet.generate(flat)
+    rows_cpu, emb_cpu = hnet.generate(cpu_flat)
+    gen_err = rel_err(rows_card, rows_cpu)
+    # clients' rows a local update away (~0.05) from the generated ones
+    rows = rows_cpu + 0.05 * torch.randn(rows_cpu.shape,
+                                         generator=torch.Generator().manual_seed(9))
+    active = torch.ones(hnet.n_nodes)
+    active[1] = 0.0
+    wide = {k: (v.double() if v.is_floating_point() else v) for k, v in cpu_state.items()}
+    errs, bad = {}, gen_err > HYPER_RTOL or not torch.equal(emb_card.cpu(), emb_cpu)
+    for mode in modes:
+        update, _ = build_hyper_update(cfg.replace(hyper_update_mode=mode), hnet)
+        p_card, s_card = update(flat, opt_state, hnet.unravel_target(rows.cuda()), active.cuda())
+        p_cpu, s_cpu = update(cpu_flat, cpu_state, hnet.unravel_target(rows), active)
+        p64, s64 = update(cpu_flat.double(), wide, hnet.unravel_target(rows.double()), active)
+        mv = {k: (rel_err(s_card[k], s64[k]), rel_err(s_cpu[k], s64[k])) for k in ("m", "v")}
+        errs[mode] = (rel_err(p_card, p_cpu), mv, int(s_card["count"]), int(s_cpu["count"]),
+                      rel_err(p_card, p64), rel_err(p_cpu, p64))
+        bad = bad or errs[mode][0] > HYPER_RTOL or errs[mode][2] != errs[mode][3] or any(
+            card > MV_SPREAD * cpu for card, cpu in mv.values())
+    log(f"[hyper] {label}: card vs CPU from a warm state (Adam count {int(opt_state['count'])}):"
+        f" generate_all {gen_err:.3e} of the largest |param|, embeddings equal "
+        f"{torch.equal(emb_card.cpu(), emb_cpu)}; " + "; ".join(
+            f"{m} update: params {e[0]:.3e} (tol {HYPER_RTOL}; from float64 card {e[4]:.3e}, "
+            f"CPU float32 {e[5]:.3e}), count {e[2]}/{e[3]}, m and v "
+            f"from float64 card {e[1]['m'][0]:.3e} {e[1]['v'][0]:.3e}, CPU float32 "
+            f"{e[1]['m'][1]:.3e} {e[1]['v'][1]:.3e}" for m, e in errs.items()))
+    if bad:
+        raise AssertionError(f"{label}: the card's hypernetwork disagrees with the CPU's")
+
+
+def detector_on_card_and_cpu(cfg: Config) -> None:
+    """TransformerModel's hypernetwork at DETECT_C clients: per round one
+    sequential update on the card and on the CPU from the same state (the
+    CPU's), on seeded client rows (clients 0 and 1 far off), each
+    device's embeddings into its own numpy detector (``cfg``'s, which
+    acts from round 2): params within HYPER_RTOL, the removals and the
+    DBSCAN phase's outliers equal."""
+    tmpl = TransformerModel().init(torch.Generator().manual_seed(0))
+    hnet = make_hypernetwork("HyperNetwork", tmpl, DETECT_C)
+    # a larger step than the runs' hyper_lr, so the embeddings move apart
+    # and the detector has decisions to make
+    cfg = cfg.replace(hyper_update_mode="sequential", hyper_lr=DETECT_LR)
+    update, opt = build_hyper_update(cfg, hnet)
+    gen = torch.Generator().manual_seed(4)
+    flat = hnet.init(torch.Generator().manual_seed(1))
+    state = opt.init(flat)
+    active = torch.ones(DETECT_C)
+    hd = cfg.hyper_detection
+    detectors = [defenses.HyperDetector(DETECT_C, hd.cosine_search, hd.n_components, hd.eps,
+                                        hd.min_samples, hd.start_round, save_path=None)
+                 for _ in range(2)]
+    found, clients = [], list(range(DETECT_C))
+    for r in range(DETECT_ROUNDS + 1):
+        rows = hnet.generate(flat)[0]
+        rows = rows + 0.05 * torch.randn(rows.shape, generator=gen)
+        rows[:2] += 0.5 * torch.randn((2, rows.shape[1]), generator=gen)
+        stacked = hnet.unravel_target(rows)
+        if r == 0:                      # warm Adam up on the CPU first
+            flat, state = update(flat, state, stacked, active)
+            continue
+        p_card, s_card = update(flat.cuda(), {k: v.cuda() if v.ndim else v
+                                              for k, v in state.items()},
+                                hnet.unravel_target(rows.cuda()), active.cuda())
+        flat, state = update(flat, state, stacked, active)
+        err = rel_err(p_card, flat)
+        embs = [hnet.generate(p)[1].detach().cpu().numpy() for p in (p_card, flat)]
+        t0 = time.perf_counter()
+        removed = [det.observe(r, clients, e) for det, e in zip(detectors, embs)]
+        host_ms = (time.perf_counter() - t0) * 1e3 / 2
+        # the DBSCAN phase alone, on each device's embedding deltas
+        outliers = [defenses.dbscan_outlier_clients(
+            np.stack([det.history[c][-2] for c in clients]),
+            np.stack([det.history[c][-1] for c in clients]),
+            clients, hd.n_components, hd.eps, hd.min_samples) if r >= 2 else []
+            for det in detectors]
+        found.append((err, removed, outliers, int(s_card["count"]), int(state["count"]),
+                      host_ms))
+    log(f"[hyper] detector at C={DETECT_C} (TransformerModel's hypernetwork), per round: "
+        + "; ".join(f"round {i + 1}: params {e:.3e}, removals card {rc} CPU {rp}, DBSCAN "
+                    f"outliers card {oc} CPU {op}, counts {cc}/{cp}, detector {ms:.3f} ms "
+                    f"(host)" for i, (e, (rc, rp), (oc, op), cc, cp, ms) in enumerate(found)))
+    if any(e > HYPER_RTOL or rc != rp or oc != op or cc != cp
+           for e, (rc, rp), (oc, op), cc, cp, _ in found):
+        raise AssertionError("the detector's decisions or the update on the card disagree "
+                             "with the CPU's")
+
+
+def hyper_run(label: str, config: dict, cut: dict, card: str, workdir: str
+              ) -> tuple[Simulator, dict]:
+    """One hyper run on the card, as ``model_run``: every round but the
+    last through ``Simulator.run``, the last under torch.profiler; the
+    detector's calls timed on the host.  Gates: every round ok with a
+    finite metric, config 2's last AUC above 0.5, the hypernetwork finite,
+    one K3 launch per minibatch step (none for ResNet18).  Then the
+    device ms of generate_all, the update and the hyper validation."""
+    cfg = Config(**{**config, **cut, "log_path": workdir, "checkpoint_dir": workdir})
+    for key in cut:
+        log(f"[hyper] {label} reduced {key}: {config[key]} -> {cut[key]}")
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, device="cuda")
+    state = sim.init_state()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    detect = []
+    restore = (timed_calls(sim.detector, "observe", detect, host=True)
+               if sim.detector is not None else (lambda: None))
+    torch.cuda.reset_peak_memory_stats()
+    tfs.run_epoch.launches = tfs.fill_masks.launches = 0
+    try:
+        state, history = sim.run(num_rounds=cfg.num_round - 1, state=state,
+                                 save_checkpoints=False, verbose=False)
+        k3_before = tfs.fill_masks.launches
+        state, metrics, prof = round_profile(sim, state)
+    finally:
+        restore()
+    history.append(metrics)
+    k3, k1 = tfs.fill_masks.launches, tfs.run_epoch.launches
+    peak = torch.cuda.max_memory_allocated()
+    nb = -(-cfg.num_data_range[1] // cfg.batch_size)
+    per_round = cfg.epochs * nb if sim.model.dropout_rates else 0
+    metric = "roc_auc" if cfg.data_name == "ICU" else "accuracy"
+    for h in history:
+        extra = f" nll={h['nll']:.4f}" if "nll" in h else ""
+        log(f"[hyper] {label} round {h['round']} ok={h['ok']} "
+            f"{metric}={h.get(metric, float('nan')):.4f}{extra} "
+            f"train_loss={h['train_loss']:.4f} removed={h.get('removed_clients', [])} "
+            f"seconds={h['seconds']:.4f}")
+    k3_round = k3 - k3_before
+    log(f"[hyper] {label} ({card}): hypernetwork {sim.hnet.numel:,} floats; set-up "
+        f"{setup:.3f} s; s/round {[round(h['seconds'], 4) for h in history]} (the last under "
+        f"torch.profiler); device busy {prof['busy_s']:.4f} s of that round's "
+        f"{prof['wall_s']:.4f} s, idle share {1 - prof['busy_s'] / prof['wall_s']:.3f}; peak "
+        f"memory {peak / 2 ** 30:.3f} GiB; K3 {k3_round} launches in the round, "
+        f"{prof['k3_us'] / max(k3_round, 1):.3f} us per step-launch, {k3} over "
+        f"{len(history)} rounds")
+    if detect:
+        log(f"[hyper] {label}: detector host ms per round "
+            f"{[round(t * 1e3, 3) for t, _ in detect]}; removals "
+            f"{[h.get('removed_clients', []) for h in history]}; active clients at the end "
+            f"{int(state['active_mask'].sum())}")
+    values = [h.get(metric, float("nan")) for h in history]
+    if not all(h["ok"] for h in history) or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{label}: a round failed or its {metric} is not finite")
+    if label == "config 2" and not values[-1] > 0.5:
+        raise AssertionError(f"{label}: ROC-AUC {values[-1]} is not above 0.5")
+    if "nll" in metrics and not math.isfinite(metrics["nll"]):
+        raise AssertionError(f"{label}: NLL {metrics['nll']} is not finite")
+    if not bool(torch.isfinite(state["hnet_params"]).all()):
+        raise AssertionError(f"{label}: the hypernetwork is not finite")
+    if k1 != 0 or k3 != per_round * len(history) or k3_round != per_round:
+        raise AssertionError(f"{label}: K1 {k1}, K3 {k3} launches ({k3_round} in the last "
+                             f"round), expected {per_round} a round")
+
+    # the phases by CUDA events, from the run's last state
+    flat, opt = state["hnet_params"], state["hyper_opt_state"]
+    reps = 3 if cfg.model == "ResNet18" else 7
+    gen_ms = time_ms(lambda: sim.hnet.generate_all(flat), warmup=1, reps=reps)
+    gen, _ = sim.hnet.generate_all(flat)
+    rows = sim.hnet.unravel_target(sim.hnet.generate(flat)[0] + 1e-3)
+    mask = state["active_mask"].cuda()
+    upd_ms = time_ms(lambda: sim.hyper_update(flat, opt, rows, mask), warmup=1, reps=reps)
+    ids = torch.nonzero(mask > 0)[:, 0]
+    val_ms = time_ms(lambda: sim.validation.test_hyper(tree_take(gen, ids)), warmup=1, reps=3)
+    log(f"[hyper] {label} ({card}, CUDA events, host time included): generate_all "
+        f"{gen_ms:.3f} ms, hyper_update[{cfg.hyper_update_mode}] {upd_ms:.3f} ms, hyper "
+        f"validation ({int(mask.sum())} clients x {cfg.test_size} rows) {val_ms:.3f} ms")
+    return sim, state
+
+
+def batched_update_memory(sim: Simulator, state: dict) -> None:
+    """A batched update of the run's hypernetwork (ResNet18's): the memory
+    it adds at its peak stays under what C gradients and the three
+    clones would take, (3 + C) x its size."""
+    hnet = sim.hnet
+    update, _ = build_hyper_update(sim.cfg.replace(hyper_update_mode="batched"), hnet)
+    rows = hnet.unravel_target(hnet.generate(state["hnet_params"])[0] + 1e-3)
+    mask = torch.ones(hnet.n_nodes, device=state["hnet_params"].device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = update(state["hnet_params"], state["hyper_opt_state"], rows, mask)
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated() - base
+    size = hnet.numel * 4
+    del out
+    log(f"[hyper] ResNet18 batched update at C={hnet.n_nodes}: peak added "
+        f"{added / 2 ** 30:.3f} GiB = {added / size:.2f} x the hypernetwork "
+        f"({size / 2 ** 30:.3f} GiB); C gradients and the clones would be "
+        f"{3 + hnet.n_nodes} x")
+    if added >= (3 + hnet.n_nodes) * size:
+        raise AssertionError("the batched update holds a gradient per client")
+
+
+def spec_norm_memory(sim: Simulator, state: dict) -> None:
+    """ResNet18's hypernetwork with spectral normalization, from the run's
+    last state: one generate_all and one batched update on the card, twice
+    (the first call builds the heads' ``Segments``), each timed, their
+    peak memory, and the outputs finite with Adam's count one up."""
+    hnet = make_hypernetwork("HyperNetwork", sim.target_template, sim.cfg.total_clients,
+                             spec_norm=True)
+    update, _ = build_hyper_update(sim.cfg.replace(hyper_update_mode="batched"), hnet)
+    flat, opt = state["hnet_params"], state["hyper_opt_state"]
+    mask = torch.ones(hnet.n_nodes, device=flat.device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, finite = [], True
+    for _ in range(2):
+        start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        start.record()
+        rows, _ = hnet.generate(flat)
+        mid.record()
+        p, s = update(flat, opt, hnet.unravel_target(rows + 1e-3), mask)
+        end.record()
+        torch.cuda.synchronize()
+        times.append((start.elapsed_time(mid), mid.elapsed_time(end)))
+        finite = (finite and bool(torch.isfinite(p).all())
+                  and int(s["count"]) == int(opt["count"]) + 1)
+        del p, s, rows
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[hyper] ResNet18 with spectral norm at C={hnet.n_nodes} (CUDA events, host "
+        f"included): generation then batched update, first call "
+        f"{times[0][0]:.3f} + {times[0][1]:.3f} ms, second {times[1][0]:.3f} + "
+        f"{times[1][1]:.3f} ms; peak memory {peak / 2 ** 30:.3f} GiB ({base / 2 ** 30:.3f} "
+        f"GiB held before); finite with Adam's count one up {finite}")
+    if not finite:
+        raise AssertionError("ResNet18's spectrally normalized update is not finite")
+
+
+def hyper_phase(card: str) -> None:
+    """Phase 10: each run of HYPER_RUNS (in a temporary log directory: the
+    detector saves its embeddings there), the card against the CPU on
+    config 2's and CNNHyper's last states, the detector check and the
+    batched update's memory at ResNet18's size, with and without spectral
+    normalization."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_hyper_")
+    try:
+        for label, config, cut in HYPER_RUNS:
+            t0 = time.perf_counter()
+            sim, state = hyper_run(label, config, cut, card, workdir)
+            t1 = time.perf_counter()
+            if label == "config 2":
+                hyper_updates_on_card_and_cpu(label, sim.cfg, sim.hnet, state["hnet_params"],
+                                              state["hyper_opt_state"])
+            if label == "CNNHyper":
+                hyper_updates_on_card_and_cpu(label, sim.cfg, sim.hnet, state["hnet_params"],
+                                              state["hyper_opt_state"])
+            if label == "config 4 hyper":
+                detector_on_card_and_cpu(sim.cfg)
+            if config["model"] == "ResNet18":
+                batched_update_memory(sim, state)
+                spec_norm_memory(sim, state)
+            log(f"[hyper] {label}: run {t1 - t0:.1f} s (construction included), checks "
+                f"{time.perf_counter() - t1:.1f} s")
+            del sim, state
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1265,7 +1593,8 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     for name, phase in (("checkpoints", lambda: checkpoint_phase(states)),
                         ("stragglers", straggler_phase), ("attacks", attack_phase),
-                        ("defenses", defense_phase), ("models", lambda: models_phase(card))):
+                        ("defenses", defense_phase), ("models", lambda: models_phase(card)),
+                        ("hyper", lambda: hyper_phase(card))):
         t0 = time.perf_counter()
         phase()
         log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")

@@ -7,7 +7,7 @@ import torch
 
 from attackfl_tpu_torch import cli
 from attackfl_tpu_torch.config import (
-    AGGREGATION_MODES, AttackSpec, Config, MeshConfig, TelemetryConfig,
+    AGGREGATION_MODES, AttackSpec, Config, HyperDetectionConfig, MeshConfig, TelemetryConfig,
 )
 from attackfl_tpu_torch.data.partition import draw_round
 from attackfl_tpu_torch.ops import fused_step
@@ -79,12 +79,45 @@ def test_every_model_on_its_dataset_is_in_the_slice(model, data):
 
 @pytest.mark.parametrize("mode", AGGREGATION_MODES)
 def test_every_mode_but_hyper_is_in_the_slice(mode):
-    cfg = Config(**{**SMALL, "mode": mode, "local_backend": "xla"})
-    if mode == "hyper":
-        with pytest.raises(NotImplementedError, match="item 12"):
-            check_slice(cfg)
-    else:
-        check_slice(cfg)
+    """Every aggregation mode runs under xla; hyper joined the slice with
+    ROADMAP item 12 (the test keeps its name)."""
+    check_slice(Config(**{**SMALL, "mode": mode, "local_backend": "xla"}))
+
+
+@pytest.mark.parametrize("override", [
+    {"hyper_class": "CNNHyper", "model": "CNNModel", "hyper_spec_norm": True},
+    {"hyper_update_mode": "batched", "client_dropout_rate": 0.2},
+    {"hyper_detection": HyperDetectionConfig(enable=True, start_round=2)},
+    {"model": "ResNet18", "data_name": "CIFAR10"},
+    {"model": "TransformerClassifier", "data_name": "HAR", "validation": False},
+])
+def test_hyper_combinations_are_in_the_slice(override):
+    """What the JAX package accepts in hyper mode, the port does: both
+    classes and update modes, spectral normalization, the detector,
+    attackers and stragglers, every model on its dataset."""
+    check_slice(Config(**{**SMALL, "mode": "hyper", "local_backend": "xla", **override}))
+
+
+@pytest.mark.parametrize("override,match", [
+    ({"local_backend": "pallas"}, "xla backend only"),
+    ({"local_backend": "xla", "hyper_class": "CNNHyper", "model": "RNNModel"},
+     "hand-specialized to CNNModel"),
+    ({"local_backend": "xla", "model": "TransformerClassifier", "data_name": "HAR"},
+     "no HAR evaluator"),
+])
+def test_hyper_refusals_of_the_jax_package_stay(override, match):
+    with pytest.raises(ValueError, match=match):
+        Config(**{**SMALL, "mode": "hyper", **override})
+
+
+def test_hyper_keeps_the_other_items_refusals():
+    hyper = {**SMALL, "mode": "hyper", "local_backend": "xla"}
+    with pytest.raises(NotImplementedError, match="item 3, rest"):
+        check_slice(Config(**hyper, mesh=MeshConfig(compute_dtype="bfloat16")))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        check_slice(Config(**hyper, pipeline=True))
+    with pytest.raises(NotImplementedError, match="item 11, rest"):
+        Config(**hyper, faults=({"kind": "nan_storm"},))
 
 
 def test_compute_dtype_is_refused_where_it_applies():
