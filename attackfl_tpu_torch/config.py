@@ -7,8 +7,9 @@ both packages.  The port reads ``local_backend: pallas`` as its
 hand-written CUDA kernel (``ops/fused_step.py``) and ``xla`` as the
 torch-autograd local update (``training/local.py``).
 
-What the port does not run yet is refused where it is asked for:
-``faults`` here, every other knob in ``training/engine.check_slice``.
+``faults`` takes the JAX package's fault plans (``faults/plan.py``).
+What the port does not run yet is refused in
+``training/engine.check_slice``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from dataclasses import dataclass, field
 from typing import Any, Sequence
 
 import yaml
+
+from attackfl_tpu_torch.faults.plan import FaultSpec, faults_from_config
 
 AGGREGATION_MODES = (
     "fedavg", "hyper", "FLTrust", "trimmed_mean", "shieldfl", "gmm", "krum",
@@ -241,8 +244,10 @@ class Config:
     # --- attackers ---
     attacks: tuple[AttackSpec, ...] = ()
 
-    # --- fault injection: not ported (see __post_init__) ---
-    faults: tuple = ()
+    # --- deterministic scheduled failures (YAML `faults:` section / CLI
+    # `--inject-faults`): device-side kinds in the round step, host-side
+    # ones at the checkpoint seams (faults/) ---
+    faults: tuple[FaultSpec, ...] = ()
 
     # --- infra ---
     mesh: MeshConfig = field(default_factory=MeshConfig)
@@ -301,10 +306,12 @@ class Config:
                 "pipeline_demote_after and pipeline_repromote_after must be "
                 f">= 1, got {self.pipeline_demote_after} / "
                 f"{self.pipeline_repromote_after}")
-        if self.faults:
-            raise NotImplementedError(
-                "fault injection is not ported yet (ROADMAP.md queue 1, "
-                "item 11, rest: device-side faults)")
+        for spec in self.faults:
+            for cid in spec.clients:
+                if not 0 <= cid < self.total_clients:
+                    raise ValueError(
+                        f"fault {spec.kind}@{spec.round}: client {cid} out "
+                        f"of range [0, {self.total_clients})")
         if self.reload_parameters_per_round and not self.load_parameters:
             raise ValueError(
                 "reload_parameters_per_round is gated on parameters.load "
@@ -469,7 +476,7 @@ def config_from_dict(raw: dict) -> Config:
         clip_grad_norm=float(_get(learning, "clip-grad-norm",
                                   defaults.clip_grad_norm)),
         attacks=tuple(attacks),
-        faults=tuple(_get(raw, "faults", []) or []),
+        faults=faults_from_config(_get(raw, "faults", []) or []),
         mesh=MeshConfig(
             num_devices=int(_get(mesh, "num-devices", 0)),
             axis_name=str(_get(mesh, "axis-name", "clients")),

@@ -10,11 +10,13 @@ import torch
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """Validate ``device`` and pin float32 math.
+    """Validate ``device`` and pin the math to the JAX package's.
 
     TF32 is switched off for matmuls and cuDNN: it keeps about three
     decimal digits, and every parity tolerance of the port is a float32
-    tolerance."""
+    tolerance.  The reduced-precision reductions of bfloat16 and float16
+    GEMMs are switched off too: XLA accumulates those products in
+    float32, and so cuBLAS does with these flags off."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -25,4 +27,6 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     return dev

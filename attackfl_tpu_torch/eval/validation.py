@@ -146,6 +146,25 @@ class Validation:
         return self._result(HYPER_EVALUATORS[self.data_name](self.model, stacked,
                                                              self.test_data))
 
+    def test_async(self, params: Any) -> dict[str, torch.Tensor]:
+        """Start the evaluation and return its dict of device tensors
+        without a sync; :meth:`resolve_async` reads it later (JAX
+        validation.py:194-201).  The engine's ``validation_async``: the
+        card evaluates round N while the host prepares round N + 1, and
+        the verdict does not gate the round."""
+        return self.evaluate(self.model, params, self.test_data)
+
+    def test_hyper_async(self, stacked: Any) -> dict[str, torch.Tensor]:
+        """Hyper mode's :meth:`test_async` (JAX validation.py:203-208)."""
+        if self.data_name not in HYPER_EVALUATORS:
+            raise ValueError(f"Not found hyper test function for data name {self.data_name}")
+        return HYPER_EVALUATORS[self.data_name](self.model, stacked, self.test_data)
+
+    def resolve_async(self, out: dict[str, torch.Tensor]) -> tuple[bool, dict[str, float]]:
+        """The host values of a :meth:`test_async` result (it waits for the
+        evaluation to finish)."""
+        return self._result(dict(out))
+
     def _result(self, out: dict[str, torch.Tensor]) -> tuple[bool, dict[str, float]]:
         ok = bool(out.pop("ok"))
         metrics = {k: float(v) for k, v in out.items()}

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 
 from attackfl_tpu_torch.models.icu import T_BRANCH, T_HEAD
 from attackfl_tpu_torch.models.layers import (
-    Conv, Dense, Model, TorchEncoderLayer, sinusoidal_position_encoding,
+    Conv, Dense, Model, TorchEncoderLayer, dropped, sinusoidal_position_encoding,
 )
 from attackfl_tpu_torch.registry import register_model
 
@@ -68,5 +68,5 @@ class TransformerClassifier(Model):
             h = getattr(self, f"encoder{i}")(h, None if masks is None else masks[4 * i:4 * i + 4])
         h = F.relu(self.cls_dense1(torch.mean(h, dim=1)))
         if masks is not None:
-            h = h * masks[-1]
+            h = dropped(h, masks[-1])
         return self.cls_dense2(h)

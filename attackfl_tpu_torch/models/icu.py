@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from attackfl_tpu_torch.models.layers import (
-    BiGRUStack, Conv, Dense, LayerNorm, Model, TransformerBlock, adaptive_avg_pool1d, gelu,
+    BiGRUStack, Conv, Dense, LayerNorm, Model, TransformerBlock, adaptive_avg_pool1d, dropped,
+    gelu,
 )
 from attackfl_tpu_torch.registry import register_model
 
@@ -68,7 +69,7 @@ class CNNModel(Model):
     def forward(self, vitals: torch.Tensor, labs: torch.Tensor, masks=None) -> torch.Tensor:
         parts = [self._branch(x, name) for x, name in zip((vitals, labs), BRANCHES)]
         if masks is not None:
-            parts = [p * m for p, m in zip(parts, masks)]
+            parts = [dropped(p, m) for p, m in zip(parts, masks)]
         x = F.relu(self.fc1(torch.cat(parts, dim=1)))
         x = F.relu(self.fc2(x))
         x = F.relu(self.fc3(x))
@@ -107,7 +108,7 @@ class RNNModel(Model):
     def forward(self, vitals: torch.Tensor, labs: torch.Tensor, masks=None) -> torch.Tensor:
         parts = [self._branch(x, name) for x, name in zip((vitals, labs), BRANCHES)]
         if masks is not None:
-            parts = [p * m for p, m in zip(parts, masks)]
+            parts = [dropped(p, m) for p, m in zip(parts, masks)]
         x = F.relu(self.fc1(torch.cat(parts, dim=1)))
         x = F.relu(self.fc2(x))
         return torch.sigmoid(self.output(x))
@@ -164,6 +165,6 @@ class TransformerModel(Model):
                        self._branch(labs, "labs", block[1])], dim=1)
         x = gelu(self.fc1(x))
         if masks is not None:
-            x = x * masks[8]
+            x = dropped(x, masks[8])
         x = gelu(self.fc2(x))
         return torch.sigmoid(self.output(x))

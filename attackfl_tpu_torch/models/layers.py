@@ -14,6 +14,15 @@ generator.
 
 Activations inside a model are channel-first, as torch's convolutions
 take them; a conv permutes its flax-layout kernel in ``forward``.
+
+Mixed dtypes promote as flax's ``promote_dtype`` does: Dense and
+LayerNorm compute in the promoted type of their input and parameters
+(bfloat16 with float32 is float32), so a model fed bfloat16 parameters and
+a float32 constant or carry leaves bfloat16 where the JAX model does (the
+convolutions and GroupNorm only ever see one dtype).  Normalization
+statistics are float32 inside ``F.layer_norm`` and ``F.group_norm``, as in
+flax, and a dropout mask multiplies in its activation's dtype
+(:func:`dropped`).  With every operand of one dtype nothing is cast.
 """
 
 from __future__ import annotations
@@ -36,6 +45,21 @@ _TRUNC_STD = 0.87962566103423978
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.gelu``: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+def promoted(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``xs`` cast to their promoted dtype (flax ``promote_dtype``); the
+    tensors themselves when they share one."""
+    dtype = xs[0].dtype
+    for x in xs[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    return tuple(x.to(dtype) for x in xs)
+
+
+def dropped(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Inverted dropout by a pre-drawn mask (values 0 or 1/(1 - rate)),
+    in ``x``'s dtype as flax's ``Dropout`` computes it."""
+    return x * mask.to(x.dtype)
 
 
 def lecun_normal_(kernel: torch.Tensor, fan_in: int,
@@ -70,8 +94,9 @@ class Dense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.tensordot(x, self.kernel, dims=self.n_in)
-        return y if self.bias is None else y + self.bias
+        x, kernel = promoted(x, self.kernel)
+        y = torch.tensordot(x, kernel, dims=self.n_in)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -85,7 +110,8 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, self.scale.shape, self.scale, self.bias, LN_EPS)
+        x, scale, bias = promoted(x, self.scale, self.bias)
+        return F.layer_norm(x, scale.shape, scale, bias, LN_EPS)
 
 
 class GroupNorm(LayerNorm):
@@ -235,7 +261,7 @@ class Seq1Attention(nn.Module):
         scalar per (batch, head) on the value (JAX package layers.py:97-104)."""
         value = self.value(x)                              # (B, H, dh)
         if head_mask is not None:
-            value = value * head_mask.unsqueeze(-1)
+            value = dropped(value, head_mask.unsqueeze(-1))
         return self.out(value)
 
 
@@ -261,9 +287,9 @@ class TransformerBlock(nn.Module):
             y = self.ffn_dense2(gelu(self.ffn_dense1(x)))
             return self.ffn_norm(x + y)
         m_head, m_attn, m_ffn, m_out = masks
-        x = self.attention_norm(x + self.attention(x, m_head) * m_attn)
-        y = self.ffn_dense2(gelu(self.ffn_dense1(x)) * m_ffn)
-        return self.ffn_norm(x + y * m_out)
+        x = self.attention_norm(x + dropped(self.attention(x, m_head), m_attn))
+        y = self.ffn_dense2(dropped(gelu(self.ffn_dense1(x)), m_ffn))
+        return self.ffn_norm(x + dropped(y, m_out))
 
 
 class MultiHeadAttention(nn.Module):
@@ -286,7 +312,7 @@ class MultiHeadAttention(nn.Module):
         logits = torch.einsum("bqhd,bkhd->bhqk", q, self.key(x))
         weights = torch.softmax(logits, dim=-1)
         if weight_mask is not None:
-            weights = weights * weight_mask
+            weights = dropped(weights, weight_mask)
         return self.out(torch.einsum("bhqk,bkhd->bqhd", weights, self.value(x)))
 
 
@@ -310,9 +336,9 @@ class TorchEncoderLayer(nn.Module):
             return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
         m_weights, m_attn, m_ffn, m_out = masks
         tokens = x.shape[:2] + (-1,)
-        x = self.norm1(x + self.self_attn(x, m_weights) * m_attn.reshape(tokens))
-        y = self.linear2(F.relu(self.linear1(x)) * m_ffn.reshape(tokens))
-        return self.norm2(x + y * m_out.reshape(tokens))
+        x = self.norm1(x + dropped(self.self_attn(x, m_weights), m_attn.reshape(tokens)))
+        y = self.linear2(dropped(F.relu(self.linear1(x)), m_ffn.reshape(tokens)))
+        return self.norm2(x + dropped(y, m_out.reshape(tokens)))
 
 
 class GRUCell(nn.Module):
@@ -350,17 +376,24 @@ class BiGRUStack(nn.Module):
             self.add_module(f"GRUCell_{k}",
                             GRUCell(in_features if k < 2 else 2 * hidden, hidden))
 
+    def _carry(self, x: torch.Tensor) -> torch.Tensor:
+        """The zero carry, at least float32: flax's starts in the
+        parameter dtype (GRUCell ``initialize_carry``), so with bfloat16
+        inputs the recurrent path promotes to float32."""
+        dtype = torch.promote_types(x.dtype, torch.float32)
+        return x.new_zeros(x.shape[:1] + (self.hidden,), dtype=dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, F) -> (B, T, 2 * hidden)."""
         steps = x.shape[1]
         for k in range(self.layers):
             fwd, bwd = getattr(self, f"GRUCell_{2 * k}"), getattr(self, f"GRUCell_{2 * k + 1}")
-            h = x.new_zeros(x.shape[:1] + (self.hidden,))
+            h = self._carry(x)
             outs_f = []
             for t in range(steps):
                 h = fwd(h, x[:, t])
                 outs_f.append(h)
-            h = x.new_zeros(x.shape[:1] + (self.hidden,))
+            h = self._carry(x)
             outs_b = [None] * steps
             for t in reversed(range(steps)):
                 h = bwd(h, x[:, t])

@@ -31,10 +31,24 @@ train them, attack, then one hypernetwork update (``training/hyper.py``);
 with ``hyper_detection`` the embedding detector may remove clients and
 roll the round's update back; validation pools the active clients'
 generated models.
+
+A fault plan (``cfg.faults``) builds a host-side injector that the
+checkpoint manager consults and that records each broadcast's device-side
+injections once the round resolves (JAX engine.py:565-573,1431-1439).
+``checkpoint_async`` saves through a supervised background writer: the
+copy to the host stays on the round loop, the serialization and the
+write move to its thread (JAX engine.py:600-607,1441-1480).
+``validation_async`` starts each validation without a sync and folds
+its metrics and ``validation_ok`` into the round's history entry when it
+resolves, at the start of the next round or at the end of the run; the
+verdict never gates the round (JAX engine.py:1358-1373,1628-1635).
+Every exit of :meth:`Simulator.run`, a crashing round included, resolves
+the validations in flight and drains the writer (``_finish_run``).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import time
@@ -48,6 +62,7 @@ from attackfl_tpu_torch.data.partition import dirichlet_label_partition, draw_ro
 from attackfl_tpu_torch.data.synthetic import get_dataset
 from attackfl_tpu_torch.device import resolve_device
 from attackfl_tpu_torch.eval.validation import Validation
+from attackfl_tpu_torch.faults.inject import HostFaultInjector
 from attackfl_tpu_torch.models.hyper import make_hypernetwork
 from attackfl_tpu_torch.ops import defenses
 from attackfl_tpu_torch.ops import pytree as pt
@@ -80,20 +95,17 @@ def check_slice(cfg: Config) -> None:
     ICU, TransformerClassifier on HAR, ResNet18 on CIFAR10; every
     aggregation mode, hyper included (either hypernetwork class and
     update mode, the embedding detector), every attack, stragglers and the
-    Dirichlet split, checkpoints, the synchronous executor, local_backend
-    xla (float32) or, for TransformerModel, pallas (the config refuses it
-    for the others and for hyper)."""
+    Dirichlet split, fault plans, checkpoints with the synchronous or the
+    async writer, the synchronous executor with synchronous or async
+    validation, local_backend xla (in float32, bfloat16 or float16) or,
+    for TransformerModel, pallas (the config refuses it for the others,
+    for hyper and for a compute-dtype other than float32).  The pipelined
+    executor is queue 1, item 13."""
     if MODEL_DATA.get(cfg.model) != cfg.data_name:
         raise ValueError(f"model {cfg.model!r} does not run on {cfg.data_name!r}; the "
                          f"models and their datasets: {MODEL_DATA}")
-    # the pallas path ignores compute-dtype (K1 is float32), as in JAX
-    if cfg.local_backend == "xla" and cfg.mesh.compute_dtype != "float32":
-        _refuse(f"compute-dtype {cfg.mesh.compute_dtype!r} (mixed-precision local "
-                "training)", "item 3, rest")
-    if cfg.pipeline or cfg.validation_async:
-        _refuse("the pipelined executor and async validation", "item 13")
-    if cfg.checkpoint_async:
-        _refuse("the async checkpoint writer", "item 13")
+    if cfg.pipeline:
+        _refuse("the pipelined executor", "item 13")
     if cfg.mesh.num_devices > 1:
         _refuse("the multi-GPU client axis", "item 14")
     tel = cfg.telemetry
@@ -170,6 +182,8 @@ class Simulator:
             self.round_step = build_round_step(self.model, cfg, self.train_data,
                                                self.attack_groups, self.genuine_idx)
             self.aggregate = build_aggregator(self.model, cfg, self.test_data)
+        # the plan's host-side faults (the device-side ones are in round_step)
+        self.fault_injector = HostFaultInjector(cfg.faults) if cfg.faults else None
         # temp files of killed writes go before any new checkpoint activity
         swept = ckpt.sweep_orphans(cfg.checkpoint_dir)
         if swept:
@@ -177,7 +191,15 @@ class Simulator:
                   f"{cfg.checkpoint_dir or '.'}", flush=True)
         self.checkpoints = ckpt.CheckpointManager(
             ckpt.checkpoint_path(cfg), fingerprint=config_fingerprint(cfg),
-            keep=cfg.checkpoint_keep, fresh=not (cfg.resume or cfg.load_parameters))
+            keep=cfg.checkpoint_keep, fresh=not (cfg.resume or cfg.load_parameters),
+            injector=self.fault_injector)
+        self.checkpoint_writer = None
+        if cfg.checkpoint_async:
+            self.checkpoint_writer = ckpt.AsyncCheckpointWriter(
+                write_fn=lambda path, state, meta: self.checkpoints.write(state, meta),
+                on_restart=self._on_writer_restart)
+        # validation_async: (history entry, its round, the evaluation in flight)
+        self._inflight_validations: list[tuple[dict[str, Any], int, dict]] = []
         # reload_parameters_per_round: ((st_mtime_ns, st_size), params) of
         # the last read, so an unchanged file costs a stat
         self._reload_cache: tuple[tuple[int, int], dict] | None = None
@@ -282,9 +304,29 @@ class Simulator:
 
     def save_checkpoint(self, state: dict[str, Any]) -> bool:
         """Persist ``state`` as a round-stamped entry, the alias and the
-        manifest record; False when the write failed open."""
+        manifest record; False when the write failed open.  With
+        ``checkpoint_async`` the host snapshot is taken here, on the round
+        loop, and handed to the writer's thread: True once submitted."""
         meta = {"round": state["completed_rounds"], "broadcast": state["broadcasts"]}
-        return self.checkpoints.write(self.host_state(state), meta)
+        writer = self.checkpoint_writer
+        if self.fault_injector is not None:
+            self.fault_injector.maybe_kill_writer(meta["round"], writer)
+        if writer is None:
+            return self.checkpoints.write(self.host_state(state), meta)
+        writer.submit(self.checkpoints.path, ckpt.host_snapshot(self.host_state(state)), meta)
+        return True
+
+    def _on_writer_restart(self, restarts: int) -> None:
+        """The writer's supervisor revived a dead thread."""
+        log.warning("fault %s", json.dumps({"fault": "writer_death", "action": "recovered",
+                                             "restarts": restarts}))
+
+    def close(self) -> None:
+        """Drain and stop the async checkpoint writer.  Safe to call twice;
+        the Simulator still runs afterwards, saving synchronously."""
+        if self.checkpoint_writer is not None:
+            self.checkpoint_writer.close()
+            self.checkpoint_writer = None
 
     def _reload_params(self, state: dict[str, Any]) -> dict[str, Any]:
         """``reload_parameters_per_round`` (reference server.py:578-586):
@@ -327,6 +369,18 @@ class Simulator:
         return (self.validation is not None
                 and broadcast_number % self.cfg.validation_every == 0)
 
+    def _resolve_inflight_validations(self) -> None:
+        """Read the async validations in flight and fold each into its
+        round's history entry, with ``validation_ok``; the verdict does
+        not gate the round (JAX engine.py:1358-1373)."""
+        while self._inflight_validations:
+            entry, round_no, out = self._inflight_validations.pop(0)
+            val_ok, val_metrics = self.validation.resolve_async(out)
+            entry.update(val_metrics)
+            entry["validation_ok"] = val_ok
+            if not val_ok:
+                log.warning("async validation of round %d failed: %s", round_no, val_metrics)
+
     def run_round(self, state: dict[str, Any]) -> tuple[dict[str, Any], dict[str, Any]]:
         """Broadcast -> train -> attack -> defend and aggregate -> validate.
 
@@ -334,6 +388,9 @@ class Simulator:
         False) the new state keeps the previous global params but advances
         the generator, the broadcast clock and the genuine-leak pool
         (reference retry path, server.py:546-567)."""
+        # the validations started last round resolve here, after the card
+        # had the host's window between rounds to run them
+        self._resolve_inflight_validations()
         t0 = time.perf_counter()
         # hyper mode never reloads (reference gate server.py:580)
         if self.cfg.reload_parameters_per_round and not self.is_hyper:
@@ -377,9 +434,13 @@ class Simulator:
             new_global = self.aggregate(state["global_params"], stacked, sizes,
                                         weights_mask, draws)
             if self._validation_due(broadcast_number):
-                val_ok, val_metrics = self.validation.test(new_global)
-                metrics.update(val_metrics)
-                ok = ok and val_ok
+                if self.cfg.validation_async:
+                    self._inflight_validations.append(
+                        (metrics, metrics["round"], self.validation.test_async(new_global)))
+                else:
+                    val_ok, val_metrics = self.validation.test(new_global)
+                    metrics.update(val_metrics)
+                    ok = ok and val_ok
 
         metrics["ok"] = ok
         new_state = dict(state)
@@ -435,9 +496,14 @@ class Simulator:
                 if gen is None:
                     gen, _ = self.hnet.generate_all(hnet)
                 ids = torch.nonzero(new_active > 0)[:, 0].to(self.device)
-                val_ok, val_metrics = self.validation.test_hyper(pt.tree_take(gen, ids))
-                metrics.update(val_metrics)
-                ok = ok and val_ok
+                taken = pt.tree_take(gen, ids)
+                if self.cfg.validation_async:
+                    self._inflight_validations.append(
+                        (metrics, metrics["round"], self.validation.test_hyper_async(taken)))
+                else:
+                    val_ok, val_metrics = self.validation.test_hyper(taken)
+                    metrics.update(val_metrics)
+                    ok = ok and val_ok
 
         metrics["ok"] = ok
         new_state = dict(state)
@@ -462,32 +528,50 @@ class Simulator:
         """Run until ``num_rounds`` rounds complete (reference main loop,
         server.py:559-567), from ``state`` or else from
         :meth:`load_or_init_state`, saving a checkpoint after every ok
-        round unless ``save_checkpoints`` is False."""
+        round unless ``save_checkpoints`` is False.  Every exit, a
+        crashing round included, goes through ``_finish_run`` (JAX
+        engine.py:2634-2736)."""
         num_rounds = num_rounds if num_rounds is not None else self.cfg.num_round
         state = state if state is not None else self.load_or_init_state()
         history: list[dict[str, Any]] = []
         retries = 0
-        while state["completed_rounds"] < num_rounds:
-            round_no = state["completed_rounds"] + 1
-            state, metrics = self.run_round(state)
-            history.append(metrics)
-            if metrics["ok"]:
-                retries = 0
-                if save_checkpoints:
-                    self.save_checkpoint(state)
-                if verbose:
-                    keys = [k for k in ("roc_auc", "accuracy", "nll", "train_loss")
-                            if k in metrics]
-                    msg = " ".join(f"{k}={metrics[k]:.4f}" for k in keys)
-                    print(f"Round {round_no} done in {metrics['seconds']:.2f}s {msg}",
-                          flush=True)
-            else:
-                retries += 1
-                if verbose:
-                    print("Training failed!", flush=True)
-                log.warning("Round %d failed (retry %d)", round_no, retries)
-                if retries > MAX_ROUND_RETRIES:
-                    raise RuntimeError(
-                        f"Round {round_no} failed {retries} times; aborting "
-                        "(the reference would retry forever, server.py:546-556)")
+        try:
+            while state["completed_rounds"] < num_rounds:
+                round_no = state["completed_rounds"] + 1
+                state, metrics = self.run_round(state)
+                history.append(metrics)
+                if self.fault_injector is not None:
+                    self.fault_injector.note_round_resolved(metrics["broadcast"])
+                if metrics["ok"]:
+                    retries = 0
+                    if save_checkpoints:
+                        self.save_checkpoint(state)
+                    if verbose:
+                        keys = [k for k in ("roc_auc", "accuracy", "nll", "train_loss")
+                                if k in metrics]
+                        msg = " ".join(f"{k}={metrics[k]:.4f}" for k in keys)
+                        print(f"Round {round_no} done in {metrics['seconds']:.2f}s {msg}",
+                              flush=True)
+                else:
+                    retries += 1
+                    if verbose:
+                        print("Training failed!", flush=True)
+                    log.warning("Round %d failed (retry %d)", round_no, retries)
+                    if retries > MAX_ROUND_RETRIES:
+                        raise RuntimeError(
+                            f"Round {round_no} failed {retries} times; aborting "
+                            "(the reference would retry forever, server.py:546-556)")
+        finally:
+            self._finish_run()
         return state, history
+
+    def _finish_run(self) -> None:
+        """The end of every run (JAX engine.py:1213-1246): resolve the
+        validations in flight, then drain the async writer, so the last
+        submitted state is on disk when ``run`` returns or raises.  A
+        drain error is raised after the rest is done."""
+        try:
+            self._resolve_inflight_validations()
+        finally:
+            if self.checkpoint_writer is not None:
+                self.checkpoint_writer.drain()

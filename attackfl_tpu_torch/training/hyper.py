@@ -13,7 +13,9 @@ Clients removed by the embedding detector leave the round through an
 ``active_mask`` (C,): they still train (the shapes stay static, as in the
 JAX package), but their hypernetwork step, leak eligibility and
 validation rows are masked out.  Everything random comes from a
-``RoundDraws`` record, as in the plain round.
+``RoundDraws`` record, as in the plain round; a fault plan's forced
+dropout and NaN storm enter where the plain round takes them (JAX
+hyper.py:94-97,115-119,180-183).
 """
 
 from __future__ import annotations
@@ -25,11 +27,12 @@ import torch
 
 from attackfl_tpu_torch.config import Config
 from attackfl_tpu_torch.data.partition import RoundDraws, apply_client_dropout
+from attackfl_tpu_torch.faults.inject import apply_nan_storm, build_client_fault_fn
 from attackfl_tpu_torch.models.hyper import HyperNetwork
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.training import local
 from attackfl_tpu_torch.training.round import (
-    AttackGroup, _rows, attacking_groups, scatter_attacks,
+    AttackGroup, _rows, scatter_attacks,
 )
 
 B1, B2, EPS = local.B1, local.B2, local.EPS
@@ -126,24 +129,30 @@ def build_hyper_round(model, cfg: Config, train_data: dict[str, torch.Tensor],
     broadcast_number) -> (stacked, sizes, new_genuine, ok, loss)``
 
     Every client trains from its own generated params with the ``xla``
-    local update; an attacker in an attack round forges from the params
-    it was broadcast and its leak sample (``draws.leaks``, over the active
-    genuine clients).  An attack fires when ``broadcast >= attack_round``,
-    a genuine update has been leaked and some genuine client is active.
+    local update (in ``cfg.mesh.compute_dtype``); an attacker in an attack
+    round forges from the params it was broadcast and its leak sample
+    (``draws.leaks``, over the active genuine clients), and a ``none``
+    cohort reports the params it was broadcast.  An attack fires when
+    ``broadcast >= attack_round``, a genuine update has been leaked and
+    some genuine client is active.
     ``ok`` is every active client's training finite and at least one
     participant (active and kept); the loss is the participants' mean."""
     local_update = local.build_local_update(
         model, cfg.data_name, train_data, epochs=cfg.epochs, batch_size=cfg.batch_size,
-        lr=cfg.lr, clip_grad_norm=cfg.clip_grad_norm)
+        lr=cfg.lr, clip_grad_norm=cfg.clip_grad_norm,
+        compute_dtype=local.resolve_compute_dtype(cfg.mesh.compute_dtype))
     device = next(iter(train_data.values())).device
     genuine_arr = torch.as_tensor(list(genuine_idx), dtype=torch.int64, device=device)
-    # ``none`` cohorts train and report like genuine clients, as in the
-    # plain round (JAX training/round.py:296-303).  JAX's hyper round runs
-    # them through apply_attack('none') (hyper.py:143-178), which reports
-    # the rows they were broadcast, untrained, from attack_round on; the
-    # port does not copy that fault.
-    firing = attacking_groups(attack_groups)
+    # every group goes through the attack scatter, ``none`` cohorts too: JAX's
+    # hyper round runs them through apply_attack('none') (hyper.py:143-178),
+    # which reports the rows they were broadcast, untrained, from
+    # attack_round on (attacks.py:173-178); its plain round skips them
+    # (round.py:296-303), and so does the port's
+    groups = list(attack_groups)
     template = hnet.unravel_target(torch.zeros(hnet.num_target))
+    drop_rate = cfg.client_dropout_rate
+    forced_drop_fn = build_client_fault_fn(cfg.faults, cfg.total_clients, "dropout", device)
+    nan_storm_fn = build_client_fault_fn(cfg.faults, cfg.total_clients, "nan_storm", device)
 
     def round_step(flat: torch.Tensor, prev_genuine: dict, have_genuine: bool,
                    active_mask: torch.Tensor, draws: RoundDraws, broadcast_number: int):
@@ -154,21 +163,26 @@ def build_hyper_round(model, cfg: Config, train_data: dict[str, torch.Tensor],
             sizes, mask = apply_client_dropout(kept, sizes, mask)
         else:
             kept = torch.ones_like(sizes, dtype=torch.bool)
+        if forced_drop_fn is not None:
+            kept = kept & ~forced_drop_fn(broadcast_number)
+            sizes, mask = apply_client_dropout(kept, sizes, mask)
         stacked, ok, losses = local_update(broadcast, draws.idx, mask, draws.perms,
                                            draws.dropout_seed)
         any_active_genuine = bool(torch.any(active_mask[genuine_arr] > 0))
         stacked, ok = scatter_attacks(
-            stacked, ok, firing, draws,
+            stacked, ok, groups, draws,
             fires=lambda grp: (broadcast_number >= grp.attack_round and have_genuine
                                and any_active_genuine),
             own=lambda ids: pt.tree_take(broadcast, ids),
-            prev_genuine=prev_genuine, template=template)
+            prev_genuine=prev_genuine, template=template, kept=kept)
+        if nan_storm_fn is not None:
+            stacked, ok = apply_nan_storm(nan_storm_fn(broadcast_number), stacked, ok)
 
         on = active_mask > 0
         participating = active_mask * kept.to(active_mask.dtype)
         ok = torch.all(ok | ~on) & (torch.sum(participating) > 0)
         fresh = pt.tree_take(stacked, genuine_arr)
-        if draws.kept is not None:
+        if drop_rate > 0.0:
             # dropped genuine clients keep their last REPORTED update in
             # the leak pool (the plain round's rule)
             sel = ok & (kept[genuine_arr] | (not have_genuine))

@@ -24,6 +24,15 @@ per step from the counter-based hash keyed on (seed + epoch, step,
 client), with tensor ids apart from the fused kernel's.  The hash gives
 the same bits on the CPU and the card, so this path with dropout on is
 reproducible across devices.
+
+``compute_dtype`` (``cfg.mesh.compute_dtype`` bfloat16 or float16) runs
+the model's forward and backward in that dtype, as JAX's ``make_loss_fn``
+(local.py:39-91) does: the unravelled parameters and the floating input
+columns are cast on the way into the model, its output is cast back to
+float32 and the loss is reduced in float32.  The gradient comes back
+float32 through the cast's backward, so the master parameters, the clip
+and Adam stay float32.  There is no loss scaling, as in the JAX package.
+``None`` casts nothing.
 """
 
 from __future__ import annotations
@@ -44,28 +53,45 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 P_LO, P_HI = 1e-7, 1.0 - 1e-7
 # the dataset columns a model's forward takes, by dataset
 INPUTS = {"ICU": ("vitals", "labs"), "HAR": ("x",), "CIFAR10": ("x",)}
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
-def make_loss_fn(model, data_name: str) -> Callable:
+def resolve_compute_dtype(name: str) -> torch.dtype | None:
+    """``cfg.mesh.compute_dtype`` as :func:`make_loss_fn` takes it: None
+    for float32 (no cast at all), else the torch dtype."""
+    return None if name == "float32" else COMPUTE_DTYPES[name]
+
+
+def make_loss_fn(model, data_name: str, compute_dtype: torch.dtype | None = None
+                 ) -> Callable:
     """Per-batch masked mean loss ``loss(params, inputs, label, mask,
     masks)``, ``sum(per * mask) / max(sum(mask), 1)`` (JAX package
     local.py:54-91): ICU, BCE on sigmoid outputs clipped to [1e-7, 1 -
     1e-7] (client.py:77); HAR, softmax cross-entropy on the logits with
     integer labels (client.py:117); CIFAR10, NLL of the log-probabilities
     (src/Validation.py:76).  ``inputs``: the tuple of ``INPUTS[data_name]``
-    columns; ``masks`` as the model's forward takes them."""
+    columns; ``masks`` as the model's forward takes them.  With
+    ``compute_dtype`` the model runs in that dtype and its output is
+    float32 again before the loss."""
+    def forward(params, inputs, masks):
+        if compute_dtype is None:
+            return model.apply(params, *inputs, masks=masks)
+        cast = lambda x: x.to(compute_dtype) if x.is_floating_point() else x  # noqa: E731
+        out = model.apply(tree_map(cast, params), *(cast(x) for x in inputs), masks=masks)
+        return out.to(torch.float32)
+
     if data_name == "ICU":
         def per_row(params, inputs, label, masks):
-            probs = torch.clamp(model.apply(params, *inputs, masks=masks)[:, 0], P_LO, P_HI)
+            probs = torch.clamp(forward(params, inputs, masks)[:, 0], P_LO, P_HI)
             return -(label * torch.log(probs) + (1.0 - label) * torch.log(1.0 - probs))
     elif data_name == "HAR":
         def per_row(params, inputs, label, masks):
-            logits = model.apply(params, *inputs, masks=masks)
+            logits = forward(params, inputs, masks)
             picked = torch.gather(logits, 1, label[:, None])[:, 0]
             return torch.logsumexp(logits, dim=-1) - picked
     elif data_name == "CIFAR10":
         def per_row(params, inputs, label, masks):
-            logp = model.apply(params, *inputs, masks=masks)
+            logp = forward(params, inputs, masks)
             return -torch.gather(logp, 1, label[:, None])[:, 0]
     else:
         raise ValueError(f"Data name '{data_name}' is not valid.")
@@ -114,13 +140,15 @@ def step_masks(keys: torch.Tensor, specs) -> list[torch.Tensor] | None:
             for _, rows, width, rate in specs]
 
 
-def build_step_grad(model, data_name: str, template: dict) -> Callable:
+def build_step_grad(model, data_name: str, template: dict,
+                    compute_dtype: torch.dtype | None = None) -> Callable:
     """One minibatch's per-client gradient and loss: ``step(flat [C, P],
     inputs, label [C, B], mask [C, B], masks=None) -> (grads [C, P], loss
     [C])``, ``vmap(grad_and_value)`` over the rows of ``flat``, a tree
     shaped like ``template`` raveled; ``inputs`` a tuple of [C, B, ...]
-    tensors and ``masks`` a list of [C, rows, width]."""
-    loss_fn = make_loss_fn(model, data_name)
+    tensors and ``masks`` a list of [C, rows, width].  ``compute_dtype``:
+    see :func:`make_loss_fn`."""
+    loss_fn = make_loss_fn(model, data_name, compute_dtype)
     unravel = unraveler(template)
 
     def loss_of_row(flat, inputs, label, mask, masks=None):
@@ -131,7 +159,7 @@ def build_step_grad(model, data_name: str, template: dict) -> Callable:
 
 def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], *,
                        epochs: int, batch_size: int, lr: float, clip_grad_norm: float,
-                       dropout=None) -> Callable:
+                       dropout=None, compute_dtype: torch.dtype | None = None) -> Callable:
     """Batched local training of every client with torch autograd.
 
     Returns ``batched(params, idx [C, hi], mask [C, hi], perms [E, C, hi],
@@ -143,7 +171,7 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
     finite; ``loss`` is the last epoch's mean over its nb steps.
     ``params``: one tree, or a stacked tree with one row per client.
     ``dropout``: the rates in the order of ``model.dropout_rates`` (None:
-    those)."""
+    those); ``compute_dtype``: see :func:`make_loss_fn`."""
     rates = tuple(float(r) for r in (model.dropout_rates if dropout is None else dropout))
     B = batch_size
     clip = float(clip_grad_norm) if clip_grad_norm else 0.0
@@ -161,7 +189,7 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
         stacked = tree_broadcast(params, C) if leaf.ndim == ndim[path] else params
         template = tree_map(lambda x: x[0], stacked)
         unravel = unraveler(template)
-        step = build_step_grad(model, data_name, template)
+        step = build_step_grad(model, data_name, template, compute_dtype)
 
         p = tree_ravel_stacked(stacked)
         m, v = torch.zeros_like(p), torch.zeros_like(p)

@@ -18,7 +18,15 @@ RpcClient.py behaviour):
   sample masked, so its row is the broadcast params; a dropped attacker's
   row is not replaced; a dropped genuine client's leak-pool row stays
   stale (once the pool exists); a round where every client drops fails,
-  and the loss is the mean over the kept clients.
+  and the loss is the mean over the kept clients;
+* a fault plan (``Config.faults``, ``faults/inject.py``): a forced
+  ``dropout`` cohort drops after the sampled stragglers, and a
+  ``nan_storm`` sets its clients' rows to NaN after the attack scatter, so
+  a stormed attacker row is stormed too (JAX round.py:262-271,285-290,
+  333-340).  Whenever a forced-dropout cohort exists the round fails when
+  nobody is kept and the loss is the kept clients' mean (JAX
+  round.py:344,378-379); the leak pool's stale-row rule keys on
+  ``client_dropout_rate > 0``, as JAX's does (round.py:351-360).
 
 Randomness enters only through a :class:`~attackfl_tpu_torch.data.partition.RoundDraws`
 record, drawn by the engine.
@@ -33,6 +41,7 @@ import torch
 
 from attackfl_tpu_torch.config import NONE_ATTACK, Config
 from attackfl_tpu_torch.data.partition import RoundDraws, apply_client_dropout
+from attackfl_tpu_torch.faults.inject import apply_nan_storm, build_client_fault_fn
 from attackfl_tpu_torch.ops import aggregators, attacks, fused_step
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.training import local
@@ -101,18 +110,22 @@ def _rows(sel: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def scatter_attacks(stacked: dict, ok: torch.Tensor, groups: Sequence[AttackGroup],
                     draws: RoundDraws, fires: Callable[[AttackGroup], bool],
                     own: Callable[[torch.Tensor], dict], prev_genuine: dict,
-                    template: dict) -> tuple[dict, torch.Tensor]:
+                    template: dict, kept: torch.Tensor | None = None
+                    ) -> tuple[dict, torch.Tensor]:
     """Overwrite the rows of every attack group that ``fires`` with its
     attack, in place: each attacker forges from ``own(rows)``, its own
     params (n, ...) for the attacker ids ``rows``, and its leak sample of
     ``prev_genuine`` (``draws.leaks``); Random from ``draws.noise``
-    shaped like ``template`` (one unstacked tree).  ``groups`` are the
-    attacking groups, in the order of ``draws.leaks``.  A dropped attacker
-    (``draws.kept``) never reports: its row stays.  An attacking row's ok
-    flag is set: it did not train.  Returns ``(stacked, ok)``."""
-    kept = draws.kept
+    shaped like ``template`` (one unstacked tree); a ``none`` cohort
+    reports ``own(rows)`` (``apply_attack('none')``) and reads no leak.
+    ``groups`` are in the order of ``draws.leaks``, which holds an entry
+    for each group but the ``none`` ones.  A dropped attacker (``kept``
+    False) never reports: its row stays.  An attacking row's ok flag is
+    set: it did not train.  Returns ``(stacked, ok)``."""
     noise = iter(draws.noise)
-    for grp, leaks in zip(groups, draws.leaks):
+    leak_samples = iter(draws.leaks)
+    for grp in groups:
+        leaks = None if grp.mode == NONE_ATTACK else next(leak_samples)
         grp_noise = next(noise) if grp.mode == "Random" else None
         if not fires(grp):
             continue
@@ -120,13 +133,16 @@ def scatter_attacks(stacked: dict, ok: torch.Tensor, groups: Sequence[AttackGrou
 
         def attack_rows(rows, grp=grp, leaks=leaks, grp_noise=grp_noise, grp_arr=grp_arr):
             mine = own(grp_arr[rows])
+            if leaks is None:              # a none cohort reports what it was sent
+                return attacks.apply_attack(grp.mode, mine, None)
             if grp_noise is not None:      # Random reads no leaked model
                 z = pt.unraveler(template)(grp_noise[rows])
                 return attacks.apply_attack(grp.mode, mine, None, grp.args, noise=z)
             leaked = pt.tree_take(prev_genuine, leaks[rows])   # (n, k, ...)
             return attacks.apply_attack(grp.mode, mine, leaked, grp.args, dim=1)
 
-        attacked = map_attackers(attack_rows, len(grp.indices), leaks.shape[1], template)
+        leak_k = 0 if leaks is None else leaks.shape[1]
+        attacked = map_attackers(attack_rows, len(grp.indices), leak_k, template)
         active = (torch.ones(len(grp.indices), dtype=torch.bool, device=ok.device)
                   if kept is None else kept[grp_arr])
 
@@ -154,7 +170,9 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
               clip_grad_norm=cfg.clip_grad_norm)
     if cfg.local_backend == "xla":
         # dropout on wherever it runs, as the JAX package's xla path
-        batched_update = local.build_local_update(model, cfg.data_name, train_data, **kw)
+        batched_update = local.build_local_update(
+            model, cfg.data_name, train_data,
+            compute_dtype=local.resolve_compute_dtype(cfg.mesh.compute_dtype), **kw)
     else:
         # on the CPU the fused path trains with dropout off, as the JAX
         # package's interpret path does: there it is a correctness path
@@ -163,11 +181,20 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
             train_data, dropout=dropout, **kw)
     genuine_arr = torch.as_tensor(list(genuine_idx), dtype=torch.int64, device=device)
     firing = attacking_groups(attack_groups)
+    drop_rate = cfg.client_dropout_rate
+    forced_drop_fn = build_client_fault_fn(cfg.faults, cfg.total_clients, "dropout", device)
+    nan_storm_fn = build_client_fault_fn(cfg.faults, cfg.total_clients, "nan_storm", device)
 
     def round_step(global_params: dict, prev_genuine: dict, have_genuine: bool,
                    draws: RoundDraws, broadcast_number: int):
         sizes, mask, kept = draws.sizes, draws.mask, draws.kept
         if kept is not None:
+            sizes, mask = apply_client_dropout(kept, sizes, mask)
+        if forced_drop_fn is not None:
+            # the plan's cohort drops as a sampled straggler does
+            if kept is None:
+                kept = torch.ones_like(sizes, dtype=torch.bool)
+            kept = kept & ~forced_drop_fn(broadcast_number)
             sizes, mask = apply_client_dropout(kept, sizes, mask)
         stacked, ok, losses = batched_update(
             global_params, draws.idx, mask, draws.perms, draws.dropout_seed)
@@ -175,7 +202,9 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
             stacked, ok, firing, draws,
             fires=lambda grp: broadcast_number >= grp.attack_round and have_genuine,
             own=lambda ids: pt.tree_broadcast(global_params, ids.numel()),
-            prev_genuine=prev_genuine, template=global_params)
+            prev_genuine=prev_genuine, template=global_params, kept=kept)
+        if nan_storm_fn is not None:
+            stacked, ok = apply_nan_storm(nan_storm_fn(broadcast_number), stacked, ok)
 
         train_ok = torch.all(ok)
         if kept is None:
@@ -184,10 +213,13 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
         else:
             # a round where every client drops has no update at all: it fails
             train_ok = train_ok & torch.any(kept)
-            # a dropped genuine client never reports, so its last reported
-            # row stays in the leak pool (stale); before any report the pool
-            # rows are placeholders and its fresh no-op row is used instead
-            sel = train_ok & (kept[genuine_arr] | (not have_genuine))
+            if drop_rate > 0.0:
+                # a dropped genuine client never reports, so its last reported
+                # row stays in the leak pool (stale); before any report the
+                # pool rows are placeholders and its fresh no-op row is used
+                sel = train_ok & (kept[genuine_arr] | (not have_genuine))
+            else:
+                sel = train_ok.expand(len(genuine_idx))
             keptf = kept.to(losses.dtype)
             mean_loss = torch.sum(losses * keptf) / torch.clamp(torch.sum(keptf), min=1.0)
         fresh = pt.tree_take(stacked, genuine_arr)

@@ -17,7 +17,13 @@ tensors and Python scalars, read back with ``weights_only=True``.
   warning, the previous entry survives, and training goes on;
 * :meth:`CheckpointManager.load_latest` checks each entry's length, hash
   and structure, newest first, and falls back past a torn one;
-* :func:`sweep_orphans` removes the temp files of killed writes.
+* :func:`sweep_orphans` removes the temp files of killed writes;
+* a fault plan's host-side injector (``faults/inject.HostFaultInjector``)
+  is consulted at the top of every write attempt and after an entry is
+  recorded (JAX checkpoint.py:229-230,255-259).
+
+:class:`AsyncCheckpointWriter` (JAX checkpoint.py:355-499) moves the
+serialization, the write and the fsync to one supervised daemon thread.
 
 Only entries named ``{stem}.*.pth`` are taken, so a JAX run's
 ``.msgpack`` entries in the same manifest are skipped, never loaded.
@@ -25,13 +31,15 @@ Only entries named ``{stem}.*.pth`` are taken, so a JAX run's
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import io
 import json
 import logging
 import os
+import threading
 import time
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -152,7 +160,8 @@ class CheckpointManager:
     exponential backoff (base ``backoff`` seconds) and then fails open."""
 
     def __init__(self, path: str, *, fingerprint: str = "", keep: int = 3,
-                 retries: int = 3, backoff: float = 0.05, fresh: bool = True):
+                 retries: int = 3, backoff: float = 0.05, fresh: bool = True,
+                 injector=None):
         self.path = path
         self.directory = os.path.dirname(path) or "."
         stem = os.path.basename(path)
@@ -163,6 +172,7 @@ class CheckpointManager:
         self.backoff = float(backoff)
         self._entries: list[dict[str, Any]] | None = None
         self._fresh = fresh
+        self._injector = injector
         self.write_failures = 0
 
     @property
@@ -216,6 +226,8 @@ class CheckpointManager:
         delay = self.backoff
         for attempt in range(1, self.retries + 2):
             try:
+                if self._injector is not None:
+                    self._injector.on_checkpoint_write(round_no)
                 os.makedirs(self.directory, exist_ok=True)
                 _write_bytes(entry_path, data)
                 break
@@ -234,6 +246,10 @@ class CheckpointManager:
                 delay *= 2
         self._publish_alias(entry_path, data)
         self._record_entry(round_no, entry_name, data, meta)
+        if self._injector is not None:
+            # a torn entry is torn after it was recorded: the manifest
+            # keeps the honest hash, which the load checks against
+            self._injector.after_checkpoint_write(round_no, entry_path)
         return True
 
     def _publish_alias(self, entry_path: str, data: bytes) -> None:
@@ -310,6 +326,156 @@ class CheckpointManager:
                 return LoadResult(state, {"file": os.path.basename(self.path),
                                           "round": None, "legacy": True}, rejected, None)
         return LoadResult(None, None, rejected, manifest)
+
+
+def host_snapshot(state: dict[str, Any]) -> dict[str, Any]:
+    """A copy of ``state`` on the host that nothing writes to later, the
+    copy finished when it returns.  A device tensor's ``.cpu()`` is such
+    a copy; a CPU tensor (whose ``.cpu()`` is the tensor itself) is deep
+    copied, the views of one storage onto one copied storage, so the
+    snapshot serializes to the bytes the state itself would."""
+    memo: dict[int, Any] = {}
+
+    def snap(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.device.type != "cpu":
+            return x.detach().cpu()
+        return copy.deepcopy(x.detach(), memo)
+
+    return _map(snap, state)
+
+
+class AsyncCheckpointWriter:
+    """Background checkpoint persistence with last-write-wins coalescing
+    and a thread supervisor (JAX checkpoint.py:355-499).
+
+    The round loop calls :meth:`submit` with a host snapshot
+    (:func:`host_snapshot`); serialization, the write and the fsync run on
+    one daemon thread, which never touches the card.  The pending slot
+    holds one state: a submit while a write is queued replaces the queued
+    state (a checkpoint is a full snapshot, so only the newest matters;
+    the skip is counted in ``writes_coalesced``).  :meth:`drain` blocks
+    until everything submitted is on disk; :meth:`close` drains and stops
+    the thread and is safe to call twice.  An error of the write function
+    is raised on the next submit, drain or close.
+
+    ``write_fn(path, state, meta)`` replaces the default serialize and
+    write (the engine passes the :class:`CheckpointManager`'s write,
+    which retries and fails open).  A dead thread, killed through
+    :meth:`inject_thread_death` or by a bug, is restarted by the
+    supervisor (``_ensure_thread``) on the next submit, drain or close,
+    with the pending snapshot intact; ``on_restart(restarts)`` is told."""
+
+    def __init__(self, write_fn: Callable[[str, Any, dict], Any] | None = None,
+                 on_restart: Callable[[int], None] | None = None):
+        self._cond = threading.Condition()
+        self._pending: tuple[str, Any, dict] | None = None
+        self._writing = False
+        self._closed = False
+        self._crash = False
+        self._error: BaseException | None = None
+        self._write_fn = write_fn
+        self._on_restart = on_restart
+        self.writes_completed = 0
+        self.writes_coalesced = 0
+        self.restarts = 0
+        self._thread = self._spawn_thread()
+
+    def _spawn_thread(self) -> threading.Thread:
+        thread = threading.Thread(target=self._loop, name="attackfl-torch-ckpt-writer",
+                                  daemon=True)
+        thread.start()
+        return thread
+
+    def _ensure_thread(self) -> None:
+        """The supervisor: restart a dead writer thread that was not
+        closed.  The caller holds the lock; the pending snapshot stays."""
+        if self._closed or self._thread.is_alive():
+            return
+        self.restarts += 1
+        self._writing = False
+        self._crash = False
+        self._thread = self._spawn_thread()
+        if self._on_restart is not None:
+            self._on_restart(self.restarts)
+
+    def inject_thread_death(self) -> None:
+        """The writer thread exits as if it crashed; pending work stays
+        queued for the restarted thread."""
+        with self._cond:
+            self._crash = True
+            self._cond.notify_all()
+
+    def _write(self, path: str, state: Any, meta: dict) -> None:
+        if self._write_fn is not None:
+            self._write_fn(path, state, meta)
+            return
+        # a temp suffix of its own: a synchronous save to the same path
+        # must not clobber this write's temp
+        _write_bytes(path, to_bytes(state), tmp_suffix=f"{SUFFIX}.tmp.async{id(self):x}")
+
+    def _loop(self) -> None:
+        while True:
+            with self._cond:
+                while self._pending is None and not self._closed and not self._crash:
+                    self._cond.wait()
+                if self._crash:
+                    return
+                if self._pending is None and self._closed:
+                    return
+                path, state, meta = self._pending
+                self._pending = None
+                self._writing = True
+            try:
+                self._write(path, state, meta)
+            except BaseException as e:  # noqa: BLE001 — raised on the next call
+                with self._cond:
+                    self._error = e
+                    self._writing = False
+                    self._cond.notify_all()
+                continue
+            with self._cond:
+                self.writes_completed += 1
+                self._writing = False
+                self._cond.notify_all()
+
+    def _check_error(self) -> None:
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise RuntimeError("async checkpoint write failed") from error
+
+    def submit(self, path: str, state: Any, meta: dict[str, Any] | None = None) -> None:
+        """Queue ``state`` (a host snapshot) for ``path`` and return."""
+        with self._cond:
+            self._check_error()
+            if self._closed:
+                raise RuntimeError("AsyncCheckpointWriter is closed")
+            self._ensure_thread()
+            if self._pending is not None:
+                self.writes_coalesced += 1
+            self._pending = (path, state, dict(meta or {}))
+            self._cond.notify_all()
+
+    def drain(self) -> None:
+        """Block until every submitted state is written."""
+        with self._cond:
+            self._ensure_thread()
+            while self._pending is not None or self._writing:
+                self._cond.wait(timeout=0.5)
+                self._ensure_thread()
+            self._check_error()
+
+    def close(self) -> None:
+        """Drain and stop the writer thread.  Safe to call twice."""
+        with self._cond:
+            if self._closed and not self._thread.is_alive():
+                return
+            self._ensure_thread()
+            self._closed = True
+            self._cond.notify_all()
+        self._thread.join()
+        self._check_error()
 
 
 def checkpoint_path(cfg, base_dir: str | None = None) -> str:

@@ -66,8 +66,24 @@ no result line):
                  every round ok, K3 once per minibatch step (never under
                  ResNet18); generate_all, the update in each mode and the
                  detector's removals on the card against the CPU from the
-                 same (warm) state.
-Each of phases 4-10 resets the kernel launch counts before each run and
+                 same (warm) state;
+ 11. faults, dtypes, async -- a. config 4 (cut) under each backend with a
+                 fault plan (a NaN storm at broadcast 2, a forced-dropout
+                 cohort at broadcast 3, two failed writes of the first
+                 save, a torn round-2 entry): the ok sequence, the
+                 cohort's rows bit for bit, the save's retries, and a
+                 resume that falls back past the torn entry to the
+                 uninterrupted run's params; b. hyper config 2 (cut) with
+                 a NaN storm: the failed broadcast rolls back; c. config 4
+                 (cut, pallas) with the async checkpoint writer, async
+                 validation and a killed writer thread: params and AUCs
+                 of the synchronous run, the save's cost on the round
+                 loop under each writer; d. the BF16_ACCURACY.json family
+                 (16 clients, 30 rounds) in float32 and bfloat16 under
+                 xla, and one bf16 minibatch step at config 4's shape on
+                 the card against the CPU, its GEMMs bf16 kernels; e. the
+                 HAR classifier and config 5 (cut) in bfloat16.
+Each of phases 4-11 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
@@ -96,8 +112,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from attackfl_tpu_torch import cli, validate_kernels  # noqa: E402
 from attackfl_tpu_torch.config import (  # noqa: E402
-    AttackSpec, Config, HyperDetectionConfig, load_config,
+    AttackSpec, Config, HyperDetectionConfig, MeshConfig, load_config,
 )
+from attackfl_tpu_torch.faults.plan import parse_fault_plan  # noqa: E402
 from attackfl_tpu_torch.data.partition import random_permutations  # noqa: E402
 from attackfl_tpu_torch.data.synthetic import get_dataset  # noqa: E402
 from attackfl_tpu_torch.device import resolve_device  # noqa: E402
@@ -115,6 +132,7 @@ from attackfl_tpu_torch.training import engine  # noqa: E402
 from attackfl_tpu_torch.training.hyper import build_hyper_update  # noqa: E402
 from attackfl_tpu_torch.training import round as tround  # noqa: E402
 from attackfl_tpu_torch.training.engine import Simulator  # noqa: E402
+from attackfl_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 
 # BASELINE config 4 is cut in depth only (width, clients, attackers and
 # batch stay as published): epochs and samples per client to DEPTH["cut"],
@@ -192,7 +210,8 @@ MODEL_RUNS = (
 )
 # chance level of each run's round metric (AUC, accuracy); config 5 is
 # gated on a finite NLL and ok rounds only
-CHANCE = {"config 1": 0.5, "RNNModel": 0.5, "HAR": 1.0 / 6.0, "config 5": None}
+CHANCE = {"config 1": 0.5, "RNNModel": 0.5, "HAR": 1.0 / 6.0, "config 5": None,
+          "HAR bf16": 1.0 / 6.0, "config 5 bf16": None}
 # one minibatch step on the card against the CPU, from the run's last
 # params: gradients within this share of the largest |g|, losses within
 # STEP_LOSS_TOL * max(1, |loss|) (config 5's NLL is ~20 after Opt-Fang,
@@ -239,6 +258,29 @@ PARAM_TOL, LOSS_TOL_PER_STEP, MV_RTOL = 2e-4, 1e-4, 1e-3
 # from the cold Adam state p is gated where the first step's gradient is
 # at least this large (Adam's eps is 1e-8); see check_fused_step
 GRAD_FLOOR = 1e-6
+
+
+# phase 11.  a: config 4 (cut) under this plan, by the CLI's grammar
+FAULT_PLAN = ("nan_storm@2:clients=5,60;dropout@3:clients=0,1,2,3,4,5,6,7,8,9;"
+              "ckpt_write_error@1:count=2;ckpt_torn@2")
+FAULT_STORM, FAULT_COHORT = (5, 60), tuple(range(10))
+# d: BF16_ACCURACY.json's family (scripts/bf16_accuracy.py:50-59, the JAX
+# package's CPU run: final AUC 0.9304 in both dtypes, rounds within
+# 5e-4), under xla; each final AUC within BF16_AUC_TOL of the artifact's,
+# bf16's within BF16_F32_TOL of float32's
+BF16_FAMILY = dict(num_round=30, total_clients=16, mode="fedavg", model="TransformerModel",
+                   data_name="ICU", num_data_range=(512, 768), epochs=2, batch_size=128,
+                   train_size=4096, test_size=1024, genuine_rate=0.5, local_backend="xla",
+                   attacks=(AttackSpec(mode="LIE", num_clients=4, attack_round=2),))
+BF16_ARTIFACT_AUC, BF16_AUC_TOL, BF16_F32_TOL = 0.9304, 0.01, 0.005
+# e: the float32 rows of these runs in PERF.md §5, printed beside bf16's
+F32_ROWS = {"HAR": "1.0442-1.0506 s/round, idle 0.045, peak 19.933 GiB",
+           "config 5": "2.463-2.5245 s/round, idle 0.079, peak 15.110 GiB"}
+# filled by main_path (each backend's run history) and checkpoint_phase
+# (the gap between two config-4 runs without a stop, per backend)
+MAIN_HISTORY: dict = {}
+MAIN_STATES: dict = {}
+RUN_GAPS: dict = {}
 
 
 def log(msg: str) -> None:
@@ -742,6 +784,7 @@ def main_path() -> tuple[dict, dict]:
                   {"fused_step": 0, "dropout_mask": len(history) * cfg.epochs * nb})
         if launches != expect:
             raise AssertionError(f"{backend}: kernel launches {launches}, expected {expect}")
+        MAIN_HISTORY[backend] = history
         got = [(round(h["roc_auc"], 4), round(h["train_loss"], 4)) for h in history]
         if got != BASELINE_ROUNDS[backend]:
             raise AssertionError(f"{backend}: rounds {got} differ from the earlier slices' "
@@ -805,6 +848,7 @@ def checkpoint_phase(main_states: dict) -> None:
             _, whole, _, _ = run_config(sim.cfg, f"{backend} checkpointed", sim=sim,
                                         save_checkpoints=True)
             gap = max_param_gap(main_states[backend]["global_params"], whole["global_params"])
+            RUN_GAPS[backend] = gap
             sizes = [e["bytes"] for e in sim.checkpoints.read_manifest()["entries"]]
             log(f"[checkpoints] {backend}: two runs without a stop differ by max |d params| "
                 f"{gap:.3e}; saves of rounds 1-3: {sizes} bytes in "
@@ -1564,6 +1608,299 @@ def hyper_phase(card: str) -> None:
         shutil.rmtree(workdir)
 
 
+def launch_counts() -> dict:
+    return {"fused_step": tfs.run_epoch.launches, "dropout_mask": tfs.fill_masks.launches}
+
+
+def reset_launches() -> None:
+    torch.cuda.synchronize()
+    tfs.run_epoch.launches = tfs.fill_masks.launches = 0
+
+
+def require_kernel(label: str, cfg: Config, launches: dict, broadcasts: int) -> None:
+    """K1 under pallas (epochs a broadcast), K3 once per minibatch step
+    under xla."""
+    nb = -(-cfg.num_data_range[1] // cfg.batch_size)
+    expect = ({"fused_step": broadcasts * cfg.epochs, "dropout_mask": 0}
+              if cfg.local_backend == "pallas" else
+              {"fused_step": 0, "dropout_mask": broadcasts * cfg.epochs * nb})
+    if launches != expect:
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {expect}")
+
+
+def cohort_rows_check(sim: Simulator, label: str) -> None:
+    """Broadcast 3's round step: the forced cohort's rows are the params
+    it was broadcast, bit for bit, with size 0."""
+    state = sim.init_state()
+    draws = sim.draw_round(torch.Generator(device=sim.device).manual_seed(11))
+    stacked, sizes = sim.round_step(state["global_params"], state["prev_genuine"], False,
+                                    draws, 3)[:2]
+    cohort = list(FAULT_COHORT)
+    for (path, rows), (_, p) in zip(tree_items(stacked), tree_items(state["global_params"])):
+        if not torch.equal(rows[cohort], p.expand((len(cohort),) + tuple(p.shape))):
+            raise AssertionError(f"{label}: a forced-dropout client's {path} moved")
+    if sizes[cohort].any() or not sizes.any():
+        raise AssertionError(f"{label}: the cohort's sizes {sizes[cohort].tolist()}")
+    log(f"[faults] {label}: broadcast 3's round step: cohort {cohort} reports the broadcast "
+        "params bit for bit, sizes 0")
+
+
+def fault_run(backend: str, root: str) -> list:
+    """Run a: config 4 (cut) with FAULT_PLAN, saving every round; then 2
+    rounds into another directory and a resumed Simulator for round 3.
+    Returns the synchronous saves' host seconds."""
+    plan = parse_fault_plan(FAULT_PLAN)
+    whole_dir, cut_dir = os.path.join(root, backend, "whole"), os.path.join(root, backend, "cut")
+    sim = Simulator(cut_config(local_backend=backend, checkpoint_dir=whole_dir, faults=plan),
+                    device="cuda")
+    cohort_rows_check(sim, backend)
+    saves = []
+    save = sim.save_checkpoint
+
+    def timed_save(state, save=save):
+        t0 = time.perf_counter()
+        written = save(state)
+        saves.append(time.perf_counter() - t0)
+        return written
+
+    sim.save_checkpoint = timed_save
+    state = sim.init_state()
+    reset_launches()
+    whole, history = sim.run(state=state, verbose=False)
+    launches = launch_counts()
+    seq = [(h["broadcast"], h["ok"]) for h in history]
+    records = [(r["fault"], r["round"]) for r in sim.fault_injector.records]
+    rounds = [e["round"] for e in sim.checkpoints.read_manifest()["entries"]]
+    log(f"[faults] {backend}: broadcasts (number, ok) {seq}; AUC "
+        f"{[round(h.get('roc_auc', float('nan')), 4) for h in history]}; injected {records}; "
+        f"manifest rounds {rounds}; launches {launches}; sync saves "
+        f"{[round(t, 4) for t in saves]} s (the first with two retries' backoff)")
+    if seq != [(1, True), (2, False), (3, True), (4, True)]:
+        raise AssertionError(f"{backend}: the faulted run's broadcasts {seq}")
+    if records[:2] != [("ckpt_write_error", 1)] * 2 or rounds != [1, 2, 3]:
+        raise AssertionError(f"{backend}: the first save did not retry through two failures")
+    require_kernel(f"{backend} faults", sim.cfg, launches, len(history))
+
+    Simulator(cut_config(local_backend=backend, checkpoint_dir=cut_dir, faults=plan),
+              device="cuda").run(num_rounds=2, verbose=False)
+    resumed_sim = Simulator(cut_config(local_backend=backend, checkpoint_dir=cut_dir,
+                                       faults=plan, resume=True), device="cuda")
+    state = resumed_sim.load_or_init_state()
+    reset_launches()
+    resumed, rest = resumed_sim.run(state=state, verbose=False)
+    launches = launch_counts()
+    gap = max_param_gap(resumed["global_params"], whole["global_params"])
+    log(f"[faults] {backend}: resume from round {state['completed_rounds']} (the round-2 entry "
+        f"torn); resumed broadcasts {[(h['broadcast'], h['ok']) for h in rest]}; resumed vs "
+        f"uninterrupted max |d params| {gap:.3e} (two runs without a stop: "
+        f"{RUN_GAPS[backend]:.3e}); launches {launches}")
+    if state["completed_rounds"] != 1 or [h["round"] for h in rest if h["ok"]] != [2, 3]:
+        raise AssertionError(f"{backend}: the resume did not fall back past the torn entry")
+    if gap > RUN_GAPS[backend]:
+        raise AssertionError(f"{backend}: the resumed run left the uninterrupted one")
+    require_kernel(f"{backend} resumed", resumed_sim.cfg, launches, len(rest))
+    return saves
+
+
+def hyper_fault_run(workdir: str) -> None:
+    """Run b: hyper config 2 (cut) with a NaN storm at broadcast 2: the
+    broadcast fails, the hypernetwork and Adam's state stay, the retry
+    is ok."""
+    label, config, cut = HYPER_RUNS[0]
+    cfg = Config(**{**config, **cut, "log_path": workdir, "checkpoint_dir": workdir,
+                    "faults": parse_fault_plan("nan_storm@2")})
+    sim = Simulator(cfg, device="cuda")
+    state = sim.init_state()
+    reset_launches()
+    seq = []
+    while state["completed_rounds"] < cfg.num_round:
+        before = (state["hnet_params"], state["hyper_opt_state"])
+        state, metrics = sim.run_round(state)
+        seq.append((metrics["broadcast"], metrics["ok"]))
+        if not metrics["ok"] and not (
+                torch.equal(state["hnet_params"], before[0])
+                and all(torch.equal(state["hyper_opt_state"][k], before[1][k])
+                        for k in ("m", "v", "count"))):
+            raise AssertionError("hyper: the stormed broadcast moved the hypernetwork")
+    launches = launch_counts()
+    log(f"[faults] hyper {label}: broadcasts (number, ok) {seq}; the stormed broadcast kept "
+        f"the hypernetwork and Adam's state bit for bit; launches {launches}")
+    if seq != [(1, True), (2, False), (3, True), (4, True)]:
+        raise AssertionError(f"hyper: broadcasts {seq}")
+    require_kernel("hyper faults", cfg, launches, len(seq))
+
+
+def async_run(root: str, sync_saves: list) -> None:
+    """Run c: config 4 (cut) under pallas with the async writer, async
+    validation and a killed writer thread before round 2's submit."""
+    cfg = cut_config(local_backend="pallas", checkpoint_dir=os.path.join(root, "async"),
+                     checkpoint_async=True, validation_async=True,
+                     faults=parse_fault_plan("writer_death@2"))
+    sim = Simulator(cfg, device="cuda")
+    submits = []
+    save = sim.save_checkpoint
+
+    def timed_save(state, save=save):
+        t0 = time.perf_counter()
+        written = save(state)
+        submits.append(time.perf_counter() - t0)
+        return written
+
+    sim.save_checkpoint = timed_save
+    state = sim.init_state()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, history = sim.run(state=state, verbose=False)
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    writer = sim.checkpoint_writer
+    sim.close()
+    sync = MAIN_HISTORY["pallas"]
+    gap = max_param_gap(state["global_params"], MAIN_STATES["pallas"]["global_params"])
+    aucs = [h["roc_auc"] for h in history]
+    entry = sim.checkpoints.read_manifest()["entries"][-1]
+    loaded = ckpt.load_state(os.path.join(sim.checkpoints.directory, entry["file"]),
+                             sim.host_state(sim.init_state()))
+    loaded_gap = max_param_gap(tree_map(lambda x: x.cuda(), loaded["global_params"]),
+                               MAIN_STATES["pallas"]["global_params"])
+    log(f"[async] pallas, async writer + async validation + writer_death@2: "
+        f"{len(history)} rounds ok={[h['ok'] for h in history]} in {run_s:.3f} s; AUC {aucs} "
+        f"(sync {[h['roc_auc'] for h in sync]}); validation_ok "
+        f"{[h['validation_ok'] for h in history]}; max |d params| from the sync run {gap:.3e} "
+        f"(two runs without a stop: {RUN_GAPS['pallas']:.3e}); writer restarts "
+        f"{writer.restarts}, writes {writer.writes_completed}, coalesced "
+        f"{writer.writes_coalesced}; newest entry round {entry['round']} loads within "
+        f"{loaded_gap:.3e}; launches {launches}")
+    log(f"[async] the round loop's cost of a save (host clock, {card_line()}): async submit "
+        f"{[round(t * 1e3, 3) for t in submits]} ms (the copy to the host included) against "
+        f"the synchronous save's {[round(t * 1e3, 3) for t in sync_saves]} ms in run a "
+        "(the first with two retries' backoff)")
+    if not all(h["ok"] and h["validation_ok"] for h in history) or len(history) != 3:
+        raise AssertionError("async: a round or its validation failed")
+    if gap > RUN_GAPS["pallas"] or loaded_gap > RUN_GAPS["pallas"]:
+        raise AssertionError("async: the params differ from the synchronous run's")
+    if gap == 0.0 and aucs != [h["roc_auc"] for h in sync]:
+        raise AssertionError("async: the AUCs differ from the synchronous run's")
+    if writer.restarts != 1 or entry["round"] != 3:
+        raise AssertionError(f"async: writer restarts {writer.restarts}, newest entry "
+                             f"{entry['round']}")
+    require_kernel("async", cfg, launches, len(history))
+
+
+def bf16_family(workdir: str) -> None:
+    """Run d: BF16_FAMILY in float32, then in bfloat16."""
+    finals, trajectories = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = Config(**BF16_FAMILY, mesh=MeshConfig(compute_dtype=dtype), log_path=workdir,
+                     checkpoint_dir=workdir)
+        sim = Simulator(cfg, device="cuda")
+        state = sim.init_state()
+        reset_launches()
+        t0 = time.perf_counter()
+        state, history = sim.run(state=state, save_checkpoints=False, verbose=False)
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        trajectories[dtype] = [h["roc_auc"] for h in history]
+        finals[dtype] = trajectories[dtype][-1]
+        log(f"[bf16] family {dtype}: {len(history)} rounds in {seconds:.3f} s, all ok "
+            f"{all(h['ok'] for h in history)}; AUC {[round(a, 4) for a in trajectories[dtype]]}; "
+            f"launches {launches}")
+        if not all(h["ok"] for h in history) or len(history) != cfg.num_round:
+            raise AssertionError(f"bf16 family {dtype}: a round failed")
+        if not abs(finals[dtype] - BF16_ARTIFACT_AUC) <= BF16_AUC_TOL:
+            raise AssertionError(f"bf16 family {dtype}: final AUC {finals[dtype]:.4f} is not "
+                                 f"within {BF16_AUC_TOL} of {BF16_ARTIFACT_AUC}")
+        require_kernel(f"bf16 family {dtype}", cfg, launches, len(history))
+    diff = abs(finals["bfloat16"] - finals["float32"])
+    per_round = max(abs(a - b) for a, b in zip(*trajectories.values()))
+    log(f"[bf16] family: final AUC float32 {finals['float32']:.4f}, bfloat16 "
+        f"{finals['bfloat16']:.4f} (the artifact's {BF16_ARTIFACT_AUC} in both), |d| "
+        f"{diff:.4f} (tol {BF16_F32_TOL}); largest per-round |d AUC| {per_round:.4f} (the "
+        "artifact's 5e-4)")
+    if diff > BF16_F32_TOL:
+        raise AssertionError("bf16 family: bfloat16's final AUC left float32's")
+
+
+def bf16_step_on_card_and_cpu() -> None:
+    """One minibatch step of TransformerModel at config 4's shape (100
+    clients, B = 128, its K3 masks) in float32 and in bfloat16 on the card
+    and on the CPU: the card's bf16 distance from its float32 step within
+    twice the CPU's plus 1e-6; the card's bf16 GEMM kernels bf16 ones
+    (every product of TransformerModel is bfloat16, as in JAX's jaxpr:
+    tests/test_torch_port_bf16.py)."""
+    C, B = CONFIG4["total_clients"], CONFIG4["batch_size"]
+    model = TransformerModel()
+    params = model.init(torch.Generator().manual_seed(1))
+    data = get_dataset("ICU", "train", 4096, 1)
+    gen = torch.Generator().manual_seed(13)
+    idx = torch.randint(0, 4096, (C, B), generator=gen)
+    flat = tree_ravel_stacked(tree_broadcast(params, C))
+    flat = flat + 1e-3 * torch.randn(flat.shape, generator=gen)
+    keys = tfs.client_keys(17, 3, torch.arange(C))
+    specs = model.mask_specs([(B, 7), (B, 16)], model.dropout_rates)
+    grads, gemms = {}, []
+    for dev in ("cuda", "cpu"):
+        cols = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+        labels = local.labels_of(cols, "ICU")
+        rows = idx.to(dev)
+        masks = local.step_masks(keys.to(dev), specs)
+        batch = (tuple(cols[k][rows] for k in ("vitals", "labs")), labels[rows],
+                 torch.ones((C, B), device=dev), masks)
+        for dtype in (None, torch.bfloat16):
+            step = local.build_step_grad(model, "ICU", params, dtype)
+            if dev == "cuda" and dtype is not None:
+                step(flat.to(dev), *batch)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    g, _ = step(flat.to(dev), *batch)
+                    torch.cuda.synchronize()
+                gemms = sorted({e.name for e in prof.events()
+                                if e.device_type != DeviceType.CPU
+                                and re.search(r"gemm|gemv|xmma|cutlass", e.name, re.I)})
+            else:
+                g, _ = step(flat.to(dev), *batch)
+            grads[dev, dtype] = g.cpu()
+    card = float((grads["cuda", torch.bfloat16] - grads["cuda", None]).abs().max())
+    cpu = float((grads["cpu", torch.bfloat16] - grads["cpu", None]).abs().max())
+    scale = float(grads["cpu", None].abs().max())
+    not_bf16 = [n for n in gemms if not re.search(r"bf16|bfloat16", n, re.I)]
+    log(f"[bf16] step C={C} B={B}: max |g_bf16 - g_f32| card {card:.3e}, CPU {cpu:.3e} "
+        f"(max |g| {scale:.3e}; gate card <= 2 x CPU + 1e-6); the card's GEMM kernels "
+        f"{[n[:90] for n in gemms]}; not bf16: {not_bf16}")
+    if not card <= 2.0 * cpu + 1e-6:
+        raise AssertionError("bf16 step: the card's bf16 step is further from float32 than "
+                             "the CPU's")
+    if not gemms or not_bf16:
+        raise AssertionError(f"bf16 step: GEMM kernels that are not bf16: {not_bf16}")
+
+
+def faults_dtypes_async_phase(card: str) -> None:
+    """Phase 11: runs a-e."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_faults_")
+    try:
+        t0 = time.perf_counter()
+        saves = {backend: fault_run(backend, root) for backend in ("pallas", "xla")}
+        t1 = time.perf_counter()
+        hyper_fault_run(root)
+        t2 = time.perf_counter()
+        async_run(root, saves["pallas"])
+        t3 = time.perf_counter()
+        bf16_family(root)
+        bf16_step_on_card_and_cpu()
+        t4 = time.perf_counter()
+        for label, config, cut in MODEL_RUNS[2:]:
+            bf16 = dict(config, mesh=MeshConfig(compute_dtype="bfloat16"))
+            sim, state = model_run(f"{label} bf16", bf16, cut, card)
+            log(f"[bf16] {label}: float32 in PERF.md §5: {F32_ROWS[label]}; this call's "
+                "float32 run is phase 9's")
+            del sim, state
+            torch.cuda.empty_cache()
+        log(f"[phase 11] a {t1 - t0:.1f} s, b {t2 - t1:.1f} s, c {t3 - t2:.1f} s, d "
+            f"{t4 - t3:.1f} s, e {time.perf_counter() - t4:.1f} s")
+    finally:
+        shutil.rmtree(root)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1589,12 +1926,14 @@ def main() -> int:
     kernels = [check_fused_step(card, built["fused_step"][1]), check_dropout_mask()]
     xla_epoch_ms()
     launches, states = main_path()
+    MAIN_STATES.update(states)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     for name, phase in (("checkpoints", lambda: checkpoint_phase(states)),
                         ("stragglers", straggler_phase), ("attacks", attack_phase),
                         ("defenses", defense_phase), ("models", lambda: models_phase(card)),
-                        ("hyper", lambda: hyper_phase(card))):
+                        ("hyper", lambda: hyper_phase(card)),
+                        ("faults, dtypes, async", lambda: faults_dtypes_async_phase(card))):
         t0 = time.perf_counter()
         phase()
         log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")

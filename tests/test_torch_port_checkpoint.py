@@ -17,10 +17,11 @@ import torch
 
 from attackfl_tpu.config import AttackSpec as JaxAttackSpec
 from attackfl_tpu.config import Config as JaxConfig
+from attackfl_tpu.config import MeshConfig as JaxMeshConfig
 from attackfl_tpu.utils.atomicio import content_hash as jax_content_hash
 from attackfl_tpu.utils.fingerprint import config_fingerprint as jax_config_fingerprint
 from attackfl_tpu_torch import cli
-from attackfl_tpu_torch.config import AttackSpec, Config
+from attackfl_tpu_torch.config import AttackSpec, Config, MeshConfig
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.training.engine import Simulator
 from attackfl_tpu_torch.utils import checkpoint as ckpt
@@ -233,19 +234,23 @@ def test_content_hash_matches_jax():
     {**SMALL, "attacks": "LIE"},
     {**SMALL, "partition": "dirichlet", "dirichlet_alpha": 0.3, "client_dropout_rate": 0.1,
      "attacks": "Min-Max", "checkpoint_dir": "/elsewhere", "resume": True},
+    {**SMALL, "local_backend": "xla", "mesh": "bfloat16", "checkpoint_async": True},
 ])
 def test_config_fingerprint_matches_jax(kw):
     """Same config, same 16 hex digits; volatile fields do not count."""
-    def build(cls, spec):
+    def build(cls, spec, mesh):
         args = dict(kw)
         if "attacks" in args:
             args["attacks"] = (spec(mode=args["attacks"], num_clients=2, attack_round=2),)
+        if "mesh" in args:
+            args["mesh"] = mesh(compute_dtype=args["mesh"])
         return cls(**args)
 
-    ours = config_fingerprint(build(Config, AttackSpec))
-    assert ours == jax_config_fingerprint(build(JaxConfig, JaxAttackSpec))
+    ours = config_fingerprint(build(Config, AttackSpec, MeshConfig))
+    assert ours == jax_config_fingerprint(build(JaxConfig, JaxAttackSpec, JaxMeshConfig))
     assert len(ours) == 16
-    assert ours == config_fingerprint(build(Config, AttackSpec).replace(log_path="/tmp/x"))
+    assert ours == config_fingerprint(build(Config, AttackSpec, MeshConfig).replace(
+        log_path="/tmp/x"))
 
 
 def test_cli_resume(tmp_path, capsys, monkeypatch):

@@ -13,11 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from attackfl_tpu.config import config_from_dict as jax_config_from_dict
 from attackfl_tpu.config import load_config as jax_load_config
 from attackfl_tpu.data.synthetic import get_dataset as jax_get_dataset
 from attackfl_tpu.models.icu import TransformerModel as JaxTransformerModel
 from attackfl_tpu.ops import pytree as jpt
-from attackfl_tpu_torch.config import Config, load_config
+from attackfl_tpu_torch.config import Config, config_from_dict, load_config
 from attackfl_tpu_torch.data.synthetic import get_dataset
 from attackfl_tpu_torch.models.icu import TransformerModel
 from attackfl_tpu_torch.ops import pytree as tpt
@@ -63,8 +64,17 @@ def test_config_validation_matches():
         Config(model="CNNModel", local_backend="pallas")
     with pytest.raises(ValueError, match="num-data-range"):
         Config(num_data_range=(10, 5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Config(faults=({"kind": "nan_storm", "round": 2},))
+    # fault plans are taken as the JAX package takes them, and a cohort
+    # client outside the federation is refused alike
+    raw = {"server": {"clients": 4}, "faults": [{"kind": "nan_storm", "round": 2,
+                                                 "clients": [1]}]}
+    ours, ref = config_from_dict(raw).faults, jax_config_from_dict(raw).faults
+    assert [dataclasses.asdict(s) for s in ours] == [dataclasses.asdict(s) for s in ref]
+    bad = {"server": {"clients": 4}, "faults": [{"kind": "dropout", "round": 2,
+                                                 "clients": [4]}]}
+    for build in (config_from_dict, jax_config_from_dict):
+        with pytest.raises(ValueError, match="out of range"):
+            build(bad)
 
 
 def test_params_from_jax_round_trips(jax_params):

@@ -10,6 +10,7 @@ from attackfl_tpu_torch.config import (
     AGGREGATION_MODES, AttackSpec, Config, HyperDetectionConfig, MeshConfig, TelemetryConfig,
 )
 from attackfl_tpu_torch.data.partition import draw_round
+from attackfl_tpu_torch.faults.plan import parse_fault_plan
 from attackfl_tpu_torch.ops import fused_step
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.training.engine import MAX_ROUND_RETRIES, Simulator, check_slice
@@ -50,14 +51,25 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("override", [
     {"mesh": MeshConfig(num_devices=2)},
-    {"local_backend": "xla", "mesh": MeshConfig(compute_dtype="bfloat16")},
     {"pipeline": True},
     {"telemetry": TelemetryConfig(monitor=True)},
-    {"checkpoint_async": True},
 ])
 def test_outside_the_slice_is_refused(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulator(Config(**{**SMALL, **override}), device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    {"local_backend": "xla", "mesh": MeshConfig(compute_dtype="bfloat16")},
+    {"checkpoint_async": True, "validation_async": True},
+])
+def test_mixed_precision_and_the_async_paths_are_in_the_slice(override):
+    """bf16 for the xla update (ROADMAP item 3b), the async checkpoint
+    writer and async validation (item 13, part) were refused until this
+    slice; the Simulator now builds with them."""
+    sim = Simulator(Config(**{**SMALL, **override}), device="cpu")
+    assert (sim.checkpoint_writer is not None) == bool(override.get("checkpoint_async"))
+    sim.close()
 
 
 @pytest.mark.parametrize("model,data", [("CNNModel", "ICU"), ("RNNModel", "ICU"),
@@ -110,26 +122,29 @@ def test_hyper_refusals_of_the_jax_package_stay(override, match):
         Config(**{**SMALL, "mode": "hyper", **override})
 
 
-def test_hyper_keeps_the_other_items_refusals():
+def test_hyper_takes_bf16_and_faults_and_keeps_the_pipeline_refusal():
+    """Hyper mode takes bf16 and a fault plan as the plain round does;
+    the pipelined executor stays refused (ROADMAP queue 1, item 13)."""
     hyper = {**SMALL, "mode": "hyper", "local_backend": "xla"}
-    with pytest.raises(NotImplementedError, match="item 3, rest"):
-        check_slice(Config(**hyper, mesh=MeshConfig(compute_dtype="bfloat16")))
+    check_slice(Config(**hyper, mesh=MeshConfig(compute_dtype="bfloat16")))
     with pytest.raises(NotImplementedError, match="item 13"):
         check_slice(Config(**hyper, pipeline=True))
-    with pytest.raises(NotImplementedError, match="item 11, rest"):
-        Config(**hyper, faults=({"kind": "nan_storm"},))
+    cfg = Config(**hyper, faults=parse_fault_plan("nan_storm@2:clients=1;dropout@3"))
+    check_slice(cfg)
+    assert [s.kind for s in cfg.faults] == ["nan_storm", "dropout"]
 
 
 def test_compute_dtype_is_refused_where_it_applies():
     """As in JAX, compute-dtype reaches only the xla local update.  For
-    pallas the config itself refuses it (K1 is float32), so check_slice's
-    refusal is the xla path's: mixed precision is not ported yet."""
+    pallas the config itself refuses it (K1 is float32); the xla path
+    takes bfloat16 and float16."""
     bf16 = MeshConfig(compute_dtype="bfloat16")
     with pytest.raises(ValueError, match="computes in float32"):
         Config(**{**SMALL, "mesh": bf16})
     check_slice(Config(**{**SMALL, "local_backend": "xla"}))
-    with pytest.raises(NotImplementedError, match="item 3, rest"):
-        check_slice(Config(**{**SMALL, "local_backend": "xla", "mesh": bf16}))
+    for dtype in ("bfloat16", "float16"):
+        check_slice(Config(**{**SMALL, "local_backend": "xla",
+                              "mesh": MeshConfig(compute_dtype=dtype)}))
 
 
 def test_failed_round_keeps_params_and_leak_pool():

@@ -5,8 +5,8 @@ One hyper round of each hypernetwork class on CNNModel against the JAX package's
 draws (JAX's key schedule fed through ``RoundDraws``), with dropout off,
 one genuine client inactive and one LIE attacker forging from the params
 it was broadcast: every row, the new leak pool, ``ok`` and the loss
-within 2e-4; and a ``none`` cohort, which the port lets train and
-report where JAX's hyper round reports the rows it was broadcast.  Both
+within 2e-4; and a ``none`` cohort, which reports the rows it was
+broadcast in both packages.  Both
 sides run in float64 (JAX under ``enable_x64``): in float32 Adam's cold
 start turns noise-level gradients into up to ``lr`` (``ROADMAP.md`` §3).  The hyper validation and the engine's hyper round
 are in ``test_torch_port_hyper_engine.py``.
@@ -24,6 +24,7 @@ from attackfl_tpu.config import Config as JaxConfig
 from attackfl_tpu.config import TelemetryConfig as JaxTelemetryConfig
 from attackfl_tpu.data.partition import sample_round_indices as jax_sample_round_indices
 from attackfl_tpu.data.synthetic import get_dataset as jax_get_dataset
+from attackfl_tpu.faults.plan import parse_fault_plan as jax_parse_fault_plan
 from attackfl_tpu.models import icu as jicu
 from attackfl_tpu.models.hyper import make_cnn_hyper as jax_make_cnn_hyper
 from attackfl_tpu.models.hyper import make_hypernetwork as jax_make_hypernetwork
@@ -31,6 +32,7 @@ from attackfl_tpu.training import round as jround
 from attackfl_tpu.training.hyper import build_hyper_round as jax_build_hyper_round
 from attackfl_tpu_torch.config import AttackSpec, Config
 from attackfl_tpu_torch.data.partition import RoundDraws
+from attackfl_tpu_torch.faults.plan import parse_fault_plan
 from attackfl_tpu_torch.models.hyper import make_hypernetwork
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.registry import get_model
@@ -66,17 +68,20 @@ def _worst(ours: dict, ref: dict) -> float:
     return max(float(np.abs(x.numpy() - ref[path]).max()) for path, x in pt.tree_items(ours))
 
 
-def _rounds(cls: str, specs: tuple[dict, ...], model: str = "CNNModel"):
-    """One hyper round of ``cls`` with the attack ``specs`` (one LIE
-    attacker, and what else they name) on both sides from the same state and draws: ``(ours,
-    jax's, the port's round step and its inputs, the attack groups)``."""
+def _rounds(cls: str, specs: tuple[dict, ...], model: str = "CNNModel", plan: str = ""):
+    """One hyper round (broadcast 1) of ``cls`` with the attack ``specs``
+    (one LIE attacker, and what else they name) and the fault plan
+    ``plan`` on both sides from the same state and draws: ``(ours, jax's,
+    the port's round step and its inputs, the attack groups)``."""
     shared = dict(total_clients=C, mode="hyper", model=model, data_name="ICU",
                   hyper_class=cls, num_data_range=(LO, HI), epochs=EPOCHS, batch_size=BATCH,
                   train_size=TRAIN, test_size=16, genuine_rate=0.5)
     jcfg = JaxConfig(**shared, prng_impl="threefry2x32",
                      attacks=tuple(JaxAttackSpec(**a) for a in specs),
+                     faults=jax_parse_fault_plan(plan),
                      telemetry=JaxTelemetryConfig(enabled=False))
-    tcfg = Config(**shared, attacks=tuple(AttackSpec(**a) for a in specs))
+    tcfg = Config(**shared, attacks=tuple(AttackSpec(**a) for a in specs),
+                  faults=parse_fault_plan(plan))
     train_np = as_dtype(jax_get_dataset("ICU", "train", TRAIN, 1), np.float64)
     jgroups, genuine = jround.build_attack_groups(jcfg)
     G = len(genuine)
@@ -138,30 +143,24 @@ def test_hyper_round_matches_jax(cls):
     assert abs(float(loss) - float(jloss)) <= ROUND_TOL
 
 
-def test_hyper_none_cohort_reports_its_trained_rows():
-    """A ``none`` cohort in hyper mode trains and reports like a genuine
-    client, as in the plain round (JAX training/round.py:296-303).  This
-    departs from JAX's hyper round on purpose: it runs a ``none`` group
-    through ``apply_attack``, which hands back the rows the cohort was
-    broadcast (hyper.py:143-178), so from ``attack_round`` on JAX reports
-    an untrained model for it.  Every other row agrees with JAX."""
+def test_hyper_none_cohort_reports_its_broadcast_rows_as_jax():
+    """A ``none`` cohort in hyper mode goes through the attack scatter as
+    in JAX's hyper round (hyper.py:143-178): ``apply_attack('none')``
+    hands back the rows the cohort was broadcast (attacks.py:173-178), so
+    from ``attack_round`` on it reports an untrained model and its ok
+    flag is set.  The port replicates that fault of the reference (its
+    plain round skips ``none`` cohorts, round.py:296-303).  The cohort's
+    rows and every other row equal JAX's within ROUND_TOL."""
     ours, jout, (hnet, tcfg, train_np, genuine, inputs), jgroups = _rounds(
         "HyperNetwork", (LIE, dict(mode="none", num_clients=1, attack_round=1)))
-    stacked, jstacked = ours[0], jout[0]
+    stacked, jstacked = ours[0], _np(jout[0])
     (cohort,) = [list(g.indices) for g in jgroups if g.mode == "none"]
     others = [i for i in range(C) if i not in cohort]
-    # the port's cohort rows are those of the same round with no attack groups
-    plain = build_hyper_round(dropout_off(get_model("CNNModel")), tcfg,
-                              {k: torch.from_numpy(v) for k, v in train_np.items()},
-                              [], genuine, hnet)
-    trained = plain(*inputs)[0]
-    for (_, a), (_, b) in zip(pt.tree_items(pt.tree_take(stacked, cohort)),
-                              pt.tree_items(pt.tree_take(trained, cohort))):
-        assert torch.equal(a, b)
-    # JAX reports the cohort's broadcast rows; the port's differ from them
     broadcast, _ = hnet.generate_all(inputs[0])
-    jstacked = _np(jstacked)
-    assert _worst(pt.tree_take(broadcast, cohort), pt.tree_take(jstacked, cohort)) <= 1e-12
-    assert _worst(pt.tree_take(stacked, cohort), pt.tree_take(broadcast, cohort)) > 1e-3
+    for (_, a), (_, b) in zip(pt.tree_items(pt.tree_take(stacked, cohort)),
+                              pt.tree_items(pt.tree_take(broadcast, cohort))):
+        assert torch.equal(a, b)
+    assert _worst(pt.tree_take(stacked, cohort), pt.tree_take(jstacked, cohort)) <= ROUND_TOL
     assert _worst(pt.tree_take(stacked, others), pt.tree_take(jstacked, others)) <= ROUND_TOL
+    assert _worst(ours[2], jout[2]) <= ROUND_TOL
     assert bool(ours[3]) == bool(jout[3]) is True
