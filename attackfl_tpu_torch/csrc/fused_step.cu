@@ -470,7 +470,8 @@ __device__ void ln_bwd(int B, const float* dy, int lddy, const float* xhat, cons
 
 __global__ void __launch_bounds__(THREADS)
 train_epoch_kernel(Groups grp, const float* __restrict__ batches, float* __restrict__ loss_out,
-                   float* __restrict__ scratch, int nb, int B, uint32_t seed, int t_offset,
+                   float* __restrict__ scratch, int nb, int B,
+                   const long long* __restrict__ seed_ptr, int seed_offset, int t_offset,
                    float lr, float clip, Drop drop) {
   __shared__ float red[WARPS];
   extern __shared__ __align__(16) float sm[];
@@ -496,6 +497,9 @@ train_epoch_kernel(Groups grp, const float* __restrict__ batches, float* __restr
   float* gw_h2 = S.grad + OFF_WH2;
   float* gvecs = S.grad + OFF_VECS;
 
+  // the epoch's dropout seed, read from device memory: the low 32 bits of
+  // seed + seed_offset, as the wrapper's int64 hash takes them
+  const uint32_t seed = (uint32_t)(unsigned long long)(*seed_ptr + seed_offset);
   float loss_acc = 0.0f;
 
   for (int j = 0; j < nb; ++j) {
@@ -758,9 +762,12 @@ int fused_step_scratch_floats(int B) { return (int)scratch_floats(B); }
 // One epoch for C clients.  ptrs: 21 device pointers, the packed groups of
 // p, then m, then v, each in GROUP_ORDER, each [C, ...] contiguous float32.
 // batches [C, nb, B, 32], loss [C], scratch C * fused_step_scratch_floats(B).
+// seed: one int64 in device memory; the epoch's dropout seed is its value
+// plus seed_offset, so a seed drawn on the device never visits the host.
 // Launches on `stream`; returns cudaGetLastError() of the launch.
 int fused_step_run_epoch(void* const* ptrs, const float* batches, float* loss, float* scratch,
-                         int C, int nb, int B, uint32_t seed, int t_offset, float lr, float clip,
+                         int C, int nb, int B, const long long* seed, int seed_offset,
+                         int t_offset, float lr, float clip,
                          uint32_t thr_attn, float scale_attn, uint32_t thr_block,
                          float scale_block, uint32_t thr_head, float scale_head, void* stream) {
   Groups grp;
@@ -775,7 +782,7 @@ int fused_step_run_epoch(void* const* ptrs, const float* batches, float* loss, f
       train_epoch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   train_epoch_kernel<<<C, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      grp, batches, loss, scratch, nb, B, seed, t_offset, lr, clip, drop);
+      grp, batches, loss, scratch, nb, B, seed, seed_offset, t_offset, lr, clip, drop);
   return (int)cudaGetLastError();
 }
 

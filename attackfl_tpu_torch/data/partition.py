@@ -32,7 +32,9 @@ class RoundDraws:
     mask: torch.Tensor         # (C, hi) bool, first `sizes[c]` slots valid
     sizes: torch.Tensor        # (C,) int64
     perms: torch.Tensor        # (epochs, C, hi) int64 per-epoch shuffles
-    dropout_seed: int          # kernel dropout seed of epoch 0 (+e per epoch)
+    # dropout seed of epoch 0 (+e per epoch): a 0-dim int64 tensor on the
+    # round's device as drawn (an int from a caller is hashed alike)
+    dropout_seed: int | torch.Tensor
     leaks: tuple[torch.Tensor, ...]   # per attack group: (attackers, leak_k) int64
     kept: torch.Tensor | None = None  # (C,) bool; None without stragglers
     noise: tuple[torch.Tensor, ...] = ()  # per Random group: (attackers, P) N(0, 1)
@@ -132,7 +134,8 @@ def draw_round(gen: torch.Generator, *, num_clients: int, pool_size: int,
     idx, mask, sizes = sample_round_indices(gen, num_clients, pool_size, lo, hi,
                                             client_pools)
     perms = random_permutations(gen, (epochs, num_clients, hi))
-    seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen, device=gen.device))
+    # the dropout seed stays on the device: the kernels read it there
+    seed = torch.randint(0, 2 ** 31 - 1, (), generator=gen, device=gen.device)
     if leak_pool is None:
         leaks = tuple(random_permutations(gen, (n, num_genuine))[:, :leak_k]
                       for n in leak_groups)

@@ -115,12 +115,19 @@ def evaluate_hyper_cifar(model, stacked: dict, test_data: dict[str, torch.Tensor
 
 
 EVALUATORS = {"ICU": evaluate_icu, "HAR": evaluate_har, "CIFAR10": evaluate_cifar}
+# the metrics each dataset's evaluation reports besides ``ok``, in its
+# order (the fused path's NaN row of a skipped validation)
+METRIC_KEYS = {"ICU": ("roc_auc", "metric"), "HAR": ("accuracy", "metric"),
+               "CIFAR10": ("nll", "accuracy", "metric")}
 # HAR has no hyper evaluation (reference src/Validation.py:138-145)
 HYPER_EVALUATORS = {"ICU": evaluate_hyper_icu, "CIFAR10": evaluate_hyper_cifar}
 
 
 class Validation:
-    """The reference's ``Validation.test`` surface (src/Validation.py)."""
+    """The reference's ``Validation.test`` surface (src/Validation.py).
+    ``logger``: a ``telemetry.Logger``; :meth:`test` writes its metrics
+    line to ``app.log`` through it (JAX validation.py:187-190), the hyper
+    and async evaluations write nothing, as JAX's."""
 
     def __init__(self, model, data_name: str, test_data: dict[str, np.ndarray],
                  device: torch.device, logger=None):
@@ -134,7 +141,10 @@ class Validation:
                           for k, v in test_data.items()}
 
     def test(self, params: Any) -> tuple[bool, dict[str, float]]:
-        return self._result(self.evaluate(self.model, params, self.test_data))
+        ok, metrics = self._result(self.evaluate(self.model, params, self.test_data))
+        if self.logger:
+            self.logger.log_info(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+        return ok, metrics
 
     def test_hyper(self, stacked: Any) -> tuple[bool, dict[str, float]]:
         """Hyper mode: the pooled evaluation of the stacked per-client
@@ -165,9 +175,9 @@ class Validation:
         evaluation to finish)."""
         return self._result(dict(out))
 
-    def _result(self, out: dict[str, torch.Tensor]) -> tuple[bool, dict[str, float]]:
+    @staticmethod
+    def _result(out: dict[str, torch.Tensor]) -> tuple[bool, dict[str, float]]:
+        """``(ok, metrics)`` on the host, the metrics in sorted key order,
+        as JAX's jitted evaluation returns its dict."""
         ok = bool(out.pop("ok"))
-        metrics = {k: float(v) for k, v in out.items()}
-        if self.logger:
-            self.logger.info(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
-        return ok, metrics
+        return ok, {k: float(out[k]) for k in sorted(out)}

@@ -194,8 +194,10 @@ def drop_params(rate: float) -> tuple[int, float]:
     return thr, float(np.float32(1.0 / (1.0 - rate)))
 
 
-def client_keys(seed: int, step: int, clients: torch.Tensor) -> torch.Tensor:
-    """Per-client hash keys of one minibatch step, int64 [C]."""
+def client_keys(seed, step, clients: torch.Tensor) -> torch.Tensor:
+    """Per-client hash keys of one minibatch step, int64 [C].  ``seed``
+    is an int or a 0-dim int64 tensor on the clients' device (the round's
+    draw, which stays there); both give the same bits."""
     k = fmix32((seed & _M32) ^ _GOLDEN)
     k = fmix32(k ^ (step & _M32))
     return fmix32(clients.to(torch.int64) ^ k)
@@ -356,12 +358,13 @@ def _pad(x, width=D):
 
 @torch.no_grad()
 def run_epoch_reference(p, m, v, batches, seed, t_offset, *, lr, clip,
-                        drop_attn=0.1, drop_block=0.1, drop_head=0.3):
+                        drop_attn=0.1, drop_block=0.1, drop_head=0.3, seed_offset=0):
     """One epoch of fused Adam steps in plain PyTorch ops, on any device.
 
     Arguments and result as :func:`run_epoch`; p, m and v are updated in
     place."""
     C, nb, B, _ = batches.shape
+    seed = seed + seed_offset
     dev = batches.device
     clients = torch.arange(C, dtype=torch.int64, device=dev)
     loss_sums = torch.zeros(C, dtype=torch.float32, device=dev)
@@ -531,7 +534,8 @@ def _check_inputs(p, m, v, batches) -> None:
                     f"{(C,) + GROUP_SHAPES[k]}")
 
 
-def _launch(p, m, v, batches, seed, t_offset, lr, clip, rates) -> torch.Tensor:
+def _launch(p, m, v, batches, seed: torch.Tensor, seed_offset: int, t_offset, lr, clip,
+            rates) -> torch.Tensor:
     from attackfl_tpu_torch.ops.build import load_library
 
     lib = load_library("fused_step")
@@ -546,7 +550,7 @@ def _launch(p, m, v, batches, seed, t_offset, lr, clip, rates) -> torch.Tensor:
     with torch.cuda.device(batches.device):
         rc = lib.fused_step_run_epoch(
             ptrs, batches.data_ptr(), loss.data_ptr(), scratch.data_ptr(),
-            C, nb, B, seed & _M32, t_offset, lr, clip,
+            C, nb, B, seed.data_ptr(), seed_offset, t_offset, lr, clip,
             thr_a, sc_a, thr_b, sc_b, thr_h, sc_h, stream)
     if rc != 0:
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")
@@ -555,15 +559,30 @@ def _launch(p, m, v, batches, seed, t_offset, lr, clip, rates) -> torch.Tensor:
     return loss
 
 
+def _seed_tensor(seed, device: torch.device) -> torch.Tensor:
+    """``seed`` as the 0-dim int64 tensor on ``device`` that K1 reads: a
+    tensor as given, an int by a fill on the device (no copy from the
+    host)."""
+    if not isinstance(seed, torch.Tensor):
+        return torch.full((), int(seed), dtype=torch.int64, device=device)
+    if seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != device:
+        raise ValueError(f"the seed must be one int64 on {device}, got {seed.dtype} "
+                         f"{tuple(seed.shape)} on {seed.device}")
+    return seed.reshape(()).contiguous()
+
+
 def run_epoch(p, m, v, batches, seed, t_offset, *, lr, clip,
-              drop_attn=0.1, drop_block=0.1, drop_head=0.3):
+              drop_attn=0.1, drop_block=0.1, drop_head=0.3, seed_offset=0):
     """One epoch of fused Adam steps for every client.
 
     p, m, v: dicts of packed ``[C, ...]`` float32 groups (``pack_params``),
-    updated in place.  batches: ``[C, nb, B, 32]`` float32.  seed: dropout
-    seed of the epoch; t_offset: Adam steps taken before this epoch.
-    Returns ``(p, m, v, loss_sums [C])``, the per-client sum of the nb
-    per-step masked-mean losses.
+    updated in place.  batches: ``[C, nb, B, 32]`` float32.  The epoch's
+    dropout seed is ``seed + seed_offset``: ``seed`` an int or a 0-dim
+    int64 tensor on the batches' device, which the kernel reads from
+    device memory, so a seed drawn on the card is never copied to the
+    host; ``seed_offset`` (the epoch) a host int.  t_offset: Adam steps
+    taken before this epoch.  Returns ``(p, m, v, loss_sums [C])``, the
+    per-client sum of the nb per-step masked-mean losses.
 
     CUDA tensors go to the kernel (counted in ``run_epoch.launches``); CPU
     tensors to :func:`run_epoch_reference`."""
@@ -571,13 +590,15 @@ def run_epoch(p, m, v, batches, seed, t_offset, *, lr, clip,
     kw = dict(lr=float(lr), clip=float(clip))
     rates = (float(drop_attn), float(drop_block), float(drop_head))
     if batches.device.type == "cpu":
-        return run_epoch_reference(p, m, v, batches, int(seed), int(t_offset),
+        if isinstance(seed, torch.Tensor):
+            seed = _seed_tensor(seed, batches.device)
+        return run_epoch_reference(p, m, v, batches, seed, int(t_offset),
                                    drop_attn=rates[0], drop_block=rates[1],
-                                   drop_head=rates[2], **kw)
+                                   drop_head=rates[2], seed_offset=int(seed_offset), **kw)
     if batches.device.type != "cuda":
         raise ValueError(f"run_epoch runs on cuda or cpu, not {batches.device}")
-    loss = _launch(p, m, v, batches, int(seed), int(t_offset), kw["lr"],
-                   kw["clip"], rates)
+    loss = _launch(p, m, v, batches, _seed_tensor(seed, batches.device), int(seed_offset),
+                   int(t_offset), kw["lr"], kw["clip"], rates)
     run_epoch.launches += 1
     return p, m, v, loss
 
@@ -595,7 +616,8 @@ def build_fused_local_update(dataset: dict[str, torch.Tensor], *, epochs: int,
     seed) -> (stacked_params [C, ...], ok [C] bool, loss [C])``: per epoch
     the PADDED index array is permuted by ``perms[e]``, cut into nb fixed
     minibatches (the tail padded with masked rows), and trained with
-    dropout seed ``seed + e``; ``loss`` is the last epoch's mean."""
+    dropout seed ``seed + e`` (``seed`` an int or the round's 0-dim int64
+    device tensor); ``loss`` is the last epoch's mean."""
     feats = torch.cat([dataset["vitals"], dataset["labs"],
                        dataset["label"][:, None]], dim=1).to(torch.float32)
     B = batch_size
@@ -623,7 +645,7 @@ def build_fused_local_update(dataset: dict[str, torch.Tensor], *, epochs: int,
                  torch.zeros((C, nb, B, 7), dtype=torch.float32, device=idx.device)],
                 dim=-1).contiguous()
             gp, gm, gv, sums = run_epoch(
-                gp, gm, gv, batch, seed + e, e * nb, lr=lr, clip=clip,
+                gp, gm, gv, batch, seed, e * nb, lr=lr, clip=clip, seed_offset=e,
                 drop_attn=dropout[0], drop_block=dropout[1], drop_head=dropout[2])
             ok = ok & torch.isfinite(sums)
         return unpack_params(gp, stacked), ok, sums / nb

@@ -44,6 +44,21 @@ resolves, at the start of the next round or at the end of the run; the
 verdict never gates the round (JAX engine.py:1358-1373,1628-1635).
 Every exit of :meth:`Simulator.run`, a crashing round included, resolves
 the validations in flight and drains the writer (``_finish_run``).
+
+``{log_path}/app.log`` is the reference's file log (``telemetry.Logger``,
+src/Log.py): ``run`` writes ``### Application start ###`` and each failed
+round's ``Round N failed (retry k)``, and each synchronous validation
+writes its metrics line (JAX engine.py:163,2689,2726).
+
+The fused multi-round path (:meth:`Simulator.run_fast` over
+:meth:`Simulator.run_scan`, JAX engine.py:1812-2248) runs a chunk of
+broadcasts as device-side steps over the state: ``ok``, the metrics, the
+leak flag and the completed-round count stay device tensors through the
+chunk, a failed round keeps the old params by ``torch.where`` (the
+aggregate and the hypernetwork update are computed on every broadcast),
+validation is inlined and gates the round, and the host reads each
+chunk's outcome once.  On config 4's path (fedavg with LIE under either
+backend) a chunk makes no other read of the card.
 """
 
 from __future__ import annotations
@@ -52,7 +67,7 @@ import json
 import logging
 import os
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -61,12 +76,13 @@ from attackfl_tpu_torch.config import Config
 from attackfl_tpu_torch.data.partition import dirichlet_label_partition, draw_round
 from attackfl_tpu_torch.data.synthetic import get_dataset
 from attackfl_tpu_torch.device import resolve_device
-from attackfl_tpu_torch.eval.validation import Validation
+from attackfl_tpu_torch.eval.validation import METRIC_KEYS, Validation
 from attackfl_tpu_torch.faults.inject import HostFaultInjector
 from attackfl_tpu_torch.models.hyper import make_hypernetwork
 from attackfl_tpu_torch.ops import defenses
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.registry import get_model
+from attackfl_tpu_torch.telemetry.console import Logger, print_with_color
 from attackfl_tpu_torch.training.hyper import build_hyper_round, build_hyper_update
 from attackfl_tpu_torch.training.round import (
     ROOT_SIZE, attacking_groups, build_aggregator, build_attack_groups, build_round_step,
@@ -76,6 +92,8 @@ from attackfl_tpu_torch.utils import checkpoint as ckpt
 from attackfl_tpu_torch.utils.fingerprint import config_fingerprint
 
 MAX_ROUND_RETRIES = 20
+# run_fast's chunk length when none is given (JAX engine.py:75)
+DEFAULT_SCAN_CHUNK = 16
 log = logging.getLogger("attackfl_tpu_torch")
 
 
@@ -132,10 +150,13 @@ def host_filter(mode: str, stacked: dict, attacker_mask: np.ndarray,
 class Simulator:
     """End-to-end federated simulation of one Config on one device."""
 
-    def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: Config, device: str | torch.device = "cuda",
+                 logger: Logger | None = None):
         check_slice(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        # opened once the config and the device are accepted
+        self.logger = logger or Logger(f"{cfg.log_path}/app.log")
         self.model = get_model(cfg.model)
         data_seed = cfg.data_seed if cfg.data_seed is not None else cfg.random_seed
         train_np = get_dataset(cfg.data_name, "train", cfg.train_size, data_seed)
@@ -156,7 +177,8 @@ class Simulator:
         self.attacker_mask = np.zeros(cfg.total_clients, dtype=bool)
         for grp in self.attack_groups:
             self.attacker_mask[list(grp.indices)] = True
-        self.validation = (Validation(self.model, cfg.data_name, test_np, self.device, log)
+        self.validation = (Validation(self.model, cfg.data_name, test_np, self.device,
+                                      self.logger)
                            if cfg.validation else None)
         self.num_params = sum(x.numel() for x in self.model.parameters())
         self.is_hyper = cfg.mode == "hyper"
@@ -203,6 +225,7 @@ class Simulator:
         # reload_parameters_per_round: ((st_mtime_ns, st_size), params) of
         # the last read, so an unchanged file costs a stat
         self._reload_cache: tuple[tuple[int, int], dict] | None = None
+        self._fused_body = None
 
     # ------------------------------------------------------------------
     # state
@@ -535,6 +558,7 @@ class Simulator:
         state = state if state is not None else self.load_or_init_state()
         history: list[dict[str, Any]] = []
         retries = 0
+        self.logger.log_info("### Application start ###")
         try:
             while state["completed_rounds"] < num_rounds:
                 round_no = state["completed_rounds"] + 1
@@ -556,11 +580,258 @@ class Simulator:
                     retries += 1
                     if verbose:
                         print("Training failed!", flush=True)
-                    log.warning("Round %d failed (retry %d)", round_no, retries)
+                    self.logger.log_warning(f"Round {round_no} failed (retry {retries})")
                     if retries > MAX_ROUND_RETRIES:
                         raise RuntimeError(
                             f"Round {round_no} failed {retries} times; aborting "
                             "(the reference would retry forever, server.py:546-556)")
+        finally:
+            self._finish_run()
+        return state, history
+
+    # ------------------------------------------------------------------
+    # the fused multi-round path
+    # ------------------------------------------------------------------
+
+    def supports_fused(self) -> bool:
+        """True when a broadcast needs no host-side work between its
+        training and its acceptance (JAX engine.py:1812-1829): gmm and
+        fltracer filter on the host, the hyper detector runs DBSCAN and a
+        rollback on the host, and ``reload_parameters_per_round`` reads a
+        file before every broadcast (hyper mode never reloads, so it
+        keeps the fused path)."""
+        if self.cfg.mode in ("gmm", "fltracer"):
+            return False
+        if self.is_hyper and self.detector is not None:
+            return False
+        if self.cfg.reload_parameters_per_round and not self.is_hyper:
+            return False
+        return True
+
+    def _build_fused_body(self) -> Callable:
+        """One broadcast as a step over the fused state (JAX
+        ``_build_fused_body``, engine.py:1831-1984): ``body(state) ->
+        (state, metrics)``, every metric a 0-dim device tensor.
+
+        The whole round runs: draws, the round step, then the aggregate
+        (or the hypernetwork update) and, when the broadcast is due, the
+        validation of its result.  ``ok`` is training ok, some client
+        reported and the validation passed; a failed round keeps the old
+        params by ``torch.where``, never by a host branch.  A train-failed
+        round reports NaN metrics (the synchronous loop does not validate
+        it); with ``validation_every > 1`` a skipped broadcast reports NaN
+        metrics and carries no gate.  Validation gates the round here
+        even under ``validation_async``, as JAX's fused chunk does.  The
+        broadcast clock is a host int: it advances by one a broadcast."""
+        cfg = self.cfg
+        validation = self.validation
+        val_every = cfg.validation_every
+        metric_keys = METRIC_KEYS[cfg.data_name] if validation is not None else ()
+        nan = torch.full((), float("nan"), device=self.device)
+
+        def accept(flag, new, old):
+            return pt.tree_map(lambda n, o: torch.where(flag, n, o), new, old)
+
+        def validate(b: int, train_ok, ok, loss, evaluate: Callable):
+            """The broadcast's metrics and its ok after the validation
+            gate; ``evaluate()`` starts the evaluation (no sync)."""
+            metrics = {"train_loss": loss}
+            if validation is not None:
+                if b % val_every == 0:
+                    ev = dict(evaluate())
+                    ok = ok & ev.pop("ok")
+                    metrics.update({k: torch.where(train_ok, v, nan) for k, v in ev.items()})
+                else:
+                    metrics.update({k: nan for k in metric_keys})
+            metrics["ok"] = ok
+            return ok, metrics
+
+        if self.is_hyper:
+            def body(state):
+                b = state["broadcasts"] + 1
+                draws = self.draw_round(state["rng"])
+                active = state["active_mask"]
+                hnet, opt = state["hnet_params"], state["hyper_opt_state"]
+                stacked, sizes, new_gen, train_ok, loss = self.round_step(
+                    hnet, state["prev_genuine"], state["have_genuine"], active, draws, b)
+                # dropped clients (size 0) skip their step
+                new_hnet, new_opt = self.hyper_update(hnet, opt, stacked, active * (sizes > 0))
+                ok, metrics = validate(
+                    b, train_ok, train_ok, loss,
+                    lambda: validation.test_hyper_async(self.hnet.generate_all(new_hnet)[0]))
+                # Adam's step count is a host int, so that its bias
+                # corrections are host floats: its select reads ok
+                count = new_opt["count"] if bool(ok) else opt["count"]
+                new_state = dict(
+                    state, hnet_params=torch.where(ok, new_hnet, hnet),
+                    hyper_opt_state={"count": count, "m": torch.where(ok, new_opt["m"], opt["m"]),
+                                     "v": torch.where(ok, new_opt["v"], opt["v"])},
+                    prev_genuine=new_gen, have_genuine=state["have_genuine"] | train_ok,
+                    completed_rounds=state["completed_rounds"] + ok.to(torch.int64),
+                    broadcasts=b)
+                return new_state, metrics
+        else:
+            weights = torch.ones(cfg.total_clients, device=self.device)
+
+            def body(state):
+                b = state["broadcasts"] + 1
+                draws = self.draw_round(state["rng"])
+                params = state["global_params"]
+                stacked, sizes, new_gen, train_ok, loss = self.round_step(
+                    params, state["prev_genuine"], state["have_genuine"], draws, b)
+                # the clients that reported: a round where none did fails
+                round_mask = weights * (sizes > 0)
+                new_global = self.aggregate(params, stacked, sizes, round_mask, draws)
+                ok = train_ok & torch.any(round_mask > 0)
+                ok, metrics = validate(b, train_ok, ok, loss,
+                                       lambda: validation.test_async(new_global))
+                new_state = dict(
+                    state, global_params=accept(ok, new_global, params), prev_genuine=new_gen,
+                    have_genuine=state["have_genuine"] | train_ok,
+                    completed_rounds=state["completed_rounds"] + ok.to(torch.int64),
+                    broadcasts=b)
+                return new_state, metrics
+        return body
+
+    def _fused_state(self, state: dict[str, Any]) -> dict[str, Any]:
+        """The fused carry of ``state`` without touching it: its own
+        generator (a copy of the caller's), the completed-round count and
+        the leak flag as device tensors (made by fills, not copies from
+        the host), the broadcast clock a host int, the active mask on the
+        device."""
+        out = dict(state)
+        rng = torch.Generator(device=self.device)
+        rng.set_state(state["rng"].get_state())
+        out["rng"] = rng
+        done, have = state["completed_rounds"], state["have_genuine"]
+        out["completed_rounds"] = (done if isinstance(done, torch.Tensor) else torch.full(
+            (), int(done), dtype=torch.int64, device=self.device))
+        out["have_genuine"] = (have if isinstance(have, torch.Tensor) else torch.full(
+            (), bool(have), dtype=torch.bool, device=self.device))
+        out["broadcasts"] = int(state["broadcasts"])
+        if "active_mask" in out:
+            out["active_mask"] = state["active_mask"].to(self.device)
+        return out
+
+    def run_scan(self, state: dict[str, Any], num_broadcasts: int
+                 ) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
+        """Run ``num_broadcasts`` broadcasts as device-side steps (JAX
+        ``run_scan``, engine.py:2069-2103).  Returns ``(new_state,
+        metrics)``: each metric a ``(num_broadcasts,)`` device tensor, the
+        keys sorted as JAX's; in ``new_state`` the completed-round count
+        and ``have_genuine`` are device tensors.  Failed rounds keep the
+        previous params and the broadcast clock still advances, as in
+        :meth:`run_round`.  The caller's ``state`` is left as it was."""
+        if not self.supports_fused():
+            raise ValueError(
+                f"mode '{self.cfg.mode}' (hyper-detection="
+                f"{self.is_hyper and self.detector is not None}) "
+                "needs host-side per-round work; use run_round/run instead")
+        if "active_mask" in state and not bool(torch.all(state["active_mask"] > 0)):
+            # the fused hyper body validates every client's generated model;
+            # the per-round path validates only the active ones
+            raise ValueError(
+                "state has inactive clients (resumed from a hyper-detection "
+                "run?); use run_round/run for active-mask-aware validation")
+        if self._fused_body is None:
+            self._fused_body = self._build_fused_body()
+        carry = self._fused_state(state)
+        rows = []
+        for _ in range(num_broadcasts):
+            carry, metrics = self._fused_body(carry)
+            rows.append(metrics)
+        if "active_mask" in carry:
+            carry["active_mask"] = state["active_mask"]
+        return carry, {k: torch.stack([r[k] for r in rows]) for k in sorted(rows[0])}
+
+    @staticmethod
+    def _read_chunk(state: dict[str, Any], metrics: dict[str, torch.Tensor]
+                    ) -> tuple[dict[str, Any], dict[str, np.ndarray]]:
+        """The chunk's one read of the card: its metrics, the
+        completed-round count and the leak flag in one float64 copy to the
+        host (every value is exact in float64).  Returns the state with
+        those two as host values, as :meth:`run` keeps them, and the
+        metrics as host arrays."""
+        keys = list(metrics)
+        packed = torch.cat([torch.stack([metrics[k].to(torch.float64) for k in keys]).reshape(-1),
+                            torch.stack([state["completed_rounds"].to(torch.float64),
+                                         state["have_genuine"].to(torch.float64)])]).cpu()
+        values = packed.numpy()
+        n = metrics[keys[0]].shape[0]
+        host = {k: values[i * n:(i + 1) * n] for i, k in enumerate(keys)}
+        state = dict(state, completed_rounds=int(values[-2]), have_genuine=bool(values[-1]))
+        return state, host
+
+    def run_fast(self, num_rounds: int | None = None, state: dict[str, Any] | None = None,
+                 chunk_size: int | None = None, save_checkpoints: bool = True,
+                 verbose: bool = True, progress: dict[str, Any] | None = None,
+                 ) -> tuple[dict[str, Any], list[dict[str, Any]]]:
+        """Like :meth:`run`, on the fused path: chunks of broadcasts by
+        :meth:`run_scan`, one read of the card per chunk (JAX ``run_fast``,
+        engine.py:2105-2248).  Checkpoints land per chunk, not per round
+        (``chunk_size=1`` for the reference's cadence); the retry cap is
+        applied after each chunk.
+
+        The chunk policy is JAX's: ``chunk_size`` chunks when given, else
+        a first chunk of ``min(DEFAULT_SCAN_CHUNK, remaining)``, then full
+        chunks while they fit, then chunks of one.  Each history entry
+        holds the round's metrics and ``ok``, ``chunk_seconds`` (the
+        chunk's wall time: a round's own time is not observed inside a
+        chunk), ``chunk_len``, ``round`` (the attempt's index, continuing
+        from a resumed state) and ``broadcast``.  ``progress``, if given,
+        gets ``ok_rounds`` and ``interim_rounds_per_sec_incl_compile``
+        after every chunk.  Writes nothing to ``app.log``, as JAX's."""
+        num_rounds = num_rounds if num_rounds is not None else self.cfg.num_round
+        state = state if state is not None else self.load_or_init_state()
+        history: list[dict[str, Any]] = []
+        consecutive_failures = 0
+        first_dispatch = True
+        round_offset = int(state["completed_rounds"])
+        t_start = time.perf_counter()
+        try:
+            while int(state["completed_rounds"]) < num_rounds:
+                remaining = num_rounds - int(state["completed_rounds"])
+                cap = chunk_size if chunk_size else DEFAULT_SCAN_CHUNK
+                if chunk_size:
+                    n = min(chunk_size, remaining)
+                elif first_dispatch or remaining >= cap:
+                    n = min(cap, remaining)
+                else:
+                    n = 1
+                first_dispatch = False
+                t0 = time.perf_counter()
+                state, metrics = self.run_scan(state, n)
+                state, host = self._read_chunk(state, metrics)
+                elapsed = time.perf_counter() - t0
+                for i in range(n):
+                    entry = {k: (bool(v[i]) if k == "ok" else float(v[i]))
+                             for k, v in host.items()}
+                    entry["chunk_seconds"] = elapsed
+                    entry["chunk_len"] = n
+                    entry["round"] = round_offset + len(history) + 1
+                    entry["broadcast"] = state["broadcasts"] - n + i + 1
+                    history.append(entry)
+                    if self.fault_injector is not None:
+                        self.fault_injector.note_round_resolved(entry["broadcast"])
+                    consecutive_failures = 0 if entry["ok"] else consecutive_failures + 1
+                if consecutive_failures > MAX_ROUND_RETRIES:
+                    raise RuntimeError(
+                        f"round failed {consecutive_failures} times in a row; aborting "
+                        "(the reference would retry forever, server.py:546-556)")
+                if progress is not None:
+                    ok_so_far = sum(1 for h in history if h["ok"])
+                    progress["ok_rounds"] = ok_so_far
+                    progress["interim_rounds_per_sec_incl_compile"] = round(
+                        ok_so_far / (time.perf_counter() - t_start), 4)
+                if save_checkpoints:
+                    self.save_checkpoint(state)
+                if verbose:
+                    last = history[-1]
+                    keys = [k for k in ("roc_auc", "accuracy", "nll", "train_loss") if k in last]
+                    msg = " ".join(f"{k}={last[k]:.4f}" for k in keys)
+                    print_with_color(
+                        f"[fast] {state['completed_rounds']}/{num_rounds} rounds, chunk of {n} "
+                        f"in {elapsed:.2f}s ({elapsed / n:.3f}s/round) {msg}", "green")
         finally:
             self._finish_run()
         return state, history

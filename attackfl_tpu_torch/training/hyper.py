@@ -32,7 +32,7 @@ from attackfl_tpu_torch.models.hyper import HyperNetwork
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.training import local
 from attackfl_tpu_torch.training.round import (
-    AttackGroup, _rows, scatter_attacks,
+    AttackGroup, _rows, group_rows, scatter_attacks,
 )
 
 B1, B2, EPS = local.B1, local.B2, local.EPS
@@ -149,13 +149,17 @@ def build_hyper_round(model, cfg: Config, train_data: dict[str, torch.Tensor],
     # attack_round on (attacks.py:173-178); its plain round skips them
     # (round.py:296-303), and so does the port's
     groups = list(attack_groups)
+    rows_of = group_rows(groups, device)
     template = hnet.unravel_target(torch.zeros(hnet.num_target))
     drop_rate = cfg.client_dropout_rate
     forced_drop_fn = build_client_fault_fn(cfg.faults, cfg.total_clients, "dropout", device)
     nan_storm_fn = build_client_fault_fn(cfg.faults, cfg.total_clients, "nan_storm", device)
 
-    def round_step(flat: torch.Tensor, prev_genuine: dict, have_genuine: bool,
-                   active_mask: torch.Tensor, draws: RoundDraws, broadcast_number: int):
+    def round_step(flat: torch.Tensor, prev_genuine: dict,
+                   have_genuine: bool | torch.Tensor, active_mask: torch.Tensor,
+                   draws: RoundDraws, broadcast_number: int):
+        if not isinstance(have_genuine, torch.Tensor):
+            have_genuine = torch.full((), bool(have_genuine), dtype=torch.bool, device=device)
         with torch.no_grad():
             broadcast, _ = hnet.generate_all(flat)
         sizes, mask, kept = draws.sizes, draws.mask, draws.kept
@@ -170,11 +174,11 @@ def build_hyper_round(model, cfg: Config, train_data: dict[str, torch.Tensor],
                                            draws.dropout_seed)
         any_active_genuine = bool(torch.any(active_mask[genuine_arr] > 0))
         stacked, ok = scatter_attacks(
-            stacked, ok, groups, draws,
-            fires=lambda grp: (broadcast_number >= grp.attack_round and have_genuine
-                               and any_active_genuine),
+            stacked, ok, groups, rows_of, draws,
+            fires=lambda grp: broadcast_number >= grp.attack_round and any_active_genuine,
             own=lambda ids: pt.tree_take(broadcast, ids),
-            prev_genuine=prev_genuine, template=template, kept=kept)
+            prev_genuine=prev_genuine, template=template, kept=kept,
+            have_genuine=have_genuine)
         if nan_storm_fn is not None:
             stacked, ok = apply_nan_storm(nan_storm_fn(broadcast_number), stacked, ok)
 
@@ -185,7 +189,7 @@ def build_hyper_round(model, cfg: Config, train_data: dict[str, torch.Tensor],
         if drop_rate > 0.0:
             # dropped genuine clients keep their last REPORTED update in
             # the leak pool (the plain round's rule)
-            sel = ok & (kept[genuine_arr] | (not have_genuine))
+            sel = ok & (kept[genuine_arr] | ~have_genuine)
         else:
             sel = ok.expand(len(genuine_idx))
         new_genuine = pt.tree_map(lambda n, p: torch.where(_rows(sel, n), n, p),

@@ -12,7 +12,11 @@ RpcClient.py behaviour):
 * each attacker gets its own leak sample of ``max(int(genuine_rate * G),
   1)`` genuine models drawn without replacement;
 * the attack fires when ``broadcast >= attack_round`` and a genuine set
-  exists; an attacking row's ok flag is reset (it did not train);
+  exists; an attacking row's ok flag is reset (it did not train).  The
+  broadcast test is the host's; ``have_genuine`` may be a device flag
+  (the fused path's), so the rows are selected by ``kept & have_genuine``
+  on the device and the attack is computed whenever the broadcast test
+  passes;
 * the genuine-leak pool absorbs only rounds whose training was clean;
 * stragglers (``RoundDraws.kept``): a dropped client gets size 0 and every
   sample masked, so its row is the broadcast params; a dropped attacker's
@@ -107,29 +111,39 @@ def _rows(sel: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return sel.reshape((-1,) + (1,) * (like.ndim - 1))
 
 
+def group_rows(groups: Sequence[AttackGroup], device: torch.device) -> list[torch.Tensor]:
+    """Each group's client ids as an int64 tensor on ``device``, made once
+    when a round is built: a copy from the host inside a round would wait
+    for the card."""
+    return [torch.as_tensor(g.indices, dtype=torch.int64, device=device) for g in groups]
+
+
 def scatter_attacks(stacked: dict, ok: torch.Tensor, groups: Sequence[AttackGroup],
-                    draws: RoundDraws, fires: Callable[[AttackGroup], bool],
+                    rows_of: Sequence[torch.Tensor], draws: RoundDraws,
+                    fires: Callable[[AttackGroup], bool],
                     own: Callable[[torch.Tensor], dict], prev_genuine: dict,
-                    template: dict, kept: torch.Tensor | None = None
-                    ) -> tuple[dict, torch.Tensor]:
-    """Overwrite the rows of every attack group that ``fires`` with its
-    attack, in place: each attacker forges from ``own(rows)``, its own
-    params (n, ...) for the attacker ids ``rows``, and its leak sample of
-    ``prev_genuine`` (``draws.leaks``); Random from ``draws.noise``
-    shaped like ``template`` (one unstacked tree); a ``none`` cohort
-    reports ``own(rows)`` (``apply_attack('none')``) and reads no leak.
-    ``groups`` are in the order of ``draws.leaks``, which holds an entry
-    for each group but the ``none`` ones.  A dropped attacker (``kept``
-    False) never reports: its row stays.  An attacking row's ok flag is
-    set: it did not train.  Returns ``(stacked, ok)``."""
+                    template: dict, kept: torch.Tensor | None = None,
+                    *, have_genuine: bool | torch.Tensor) -> tuple[dict, torch.Tensor]:
+    """Overwrite the rows of every attack group that ``fires`` (a host
+    test) with its attack, in place: each attacker forges from
+    ``own(rows)``, its own params (n, ...) for the attacker ids ``rows``,
+    and its leak sample of ``prev_genuine`` (``draws.leaks``); Random
+    from ``draws.noise`` shaped like ``template`` (one unstacked tree); a
+    ``none`` cohort reports ``own(rows)`` (``apply_attack('none')``) and
+    reads no leak.  ``groups`` are in the order of ``draws.leaks``, which
+    holds an entry for each group but the ``none`` ones; ``rows_of`` holds
+    each group's ids (:func:`group_rows`).  A row is replaced where its
+    attacker reported (``kept``; a dropped attacker never reports) and
+    ``have_genuine`` holds, a bool or a 0-dim bool tensor on the device
+    (JAX round.py:308-332: ``active & kept``).  An attacking row's ok flag
+    is set: it did not train.  Returns ``(stacked, ok)``."""
     noise = iter(draws.noise)
     leak_samples = iter(draws.leaks)
-    for grp in groups:
+    for grp, grp_arr in zip(groups, rows_of):
         leaks = None if grp.mode == NONE_ATTACK else next(leak_samples)
         grp_noise = next(noise) if grp.mode == "Random" else None
         if not fires(grp):
             continue
-        grp_arr = torch.as_tensor(grp.indices, dtype=torch.int64, device=ok.device)
 
         def attack_rows(rows, grp=grp, leaks=leaks, grp_noise=grp_noise, grp_arr=grp_arr):
             mine = own(grp_arr[rows])
@@ -144,7 +158,7 @@ def scatter_attacks(stacked: dict, ok: torch.Tensor, groups: Sequence[AttackGrou
         leak_k = 0 if leaks is None else leaks.shape[1]
         attacked = map_attackers(attack_rows, len(grp.indices), leak_k, template)
         active = (torch.ones(len(grp.indices), dtype=torch.bool, device=ok.device)
-                  if kept is None else kept[grp_arr])
+                  if kept is None else kept[grp_arr]) & have_genuine
 
         def scatter(s, a, grp_arr=grp_arr, active=active):
             s[grp_arr] = torch.where(_rows(active, a), a, s[grp_arr])
@@ -159,7 +173,11 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
                      attack_groups: Sequence[AttackGroup],
                      genuine_idx: Sequence[int]) -> Callable:
     """Build ``round_step(global_params, prev_genuine, have_genuine, draws,
-    broadcast_number) -> (stacked, sizes, new_genuine, ok, mean_loss)``.
+    broadcast_number) -> (stacked, sizes, new_genuine, ok, mean_loss)``:
+    ``have_genuine`` a bool or a 0-dim bool tensor on the round's device,
+    ``ok`` and ``mean_loss`` 0-dim device tensors.  The step reads nothing
+    back from the card (on config 4's path; the γ searches and FLTrust's
+    root seed still do, ROADMAP.md item 3a).
 
     ``train_data`` lies on the device the round runs on.  ``local_backend``
     ``xla`` trains with torch autograd (``training/local.py``), ``pallas``
@@ -181,12 +199,18 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
             train_data, dropout=dropout, **kw)
     genuine_arr = torch.as_tensor(list(genuine_idx), dtype=torch.int64, device=device)
     firing = attacking_groups(attack_groups)
+    firing_rows = group_rows(firing, device)
     drop_rate = cfg.client_dropout_rate
     forced_drop_fn = build_client_fault_fn(cfg.faults, cfg.total_clients, "dropout", device)
     nan_storm_fn = build_client_fault_fn(cfg.faults, cfg.total_clients, "nan_storm", device)
 
-    def round_step(global_params: dict, prev_genuine: dict, have_genuine: bool,
-                   draws: RoundDraws, broadcast_number: int):
+    def round_step(global_params: dict, prev_genuine: dict,
+                   have_genuine: bool | torch.Tensor, draws: RoundDraws,
+                   broadcast_number: int):
+        # a host bool (the synchronous loop's) as the device flag the
+        # fused path carries: a fill, no copy from the host
+        if not isinstance(have_genuine, torch.Tensor):
+            have_genuine = torch.full((), bool(have_genuine), dtype=torch.bool, device=device)
         sizes, mask, kept = draws.sizes, draws.mask, draws.kept
         if kept is not None:
             sizes, mask = apply_client_dropout(kept, sizes, mask)
@@ -199,10 +223,11 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
         stacked, ok, losses = batched_update(
             global_params, draws.idx, mask, draws.perms, draws.dropout_seed)
         stacked, ok = scatter_attacks(
-            stacked, ok, firing, draws,
-            fires=lambda grp: broadcast_number >= grp.attack_round and have_genuine,
+            stacked, ok, firing, firing_rows, draws,
+            fires=lambda grp: broadcast_number >= grp.attack_round,
             own=lambda ids: pt.tree_broadcast(global_params, ids.numel()),
-            prev_genuine=prev_genuine, template=global_params, kept=kept)
+            prev_genuine=prev_genuine, template=global_params, kept=kept,
+            have_genuine=have_genuine)
         if nan_storm_fn is not None:
             stacked, ok = apply_nan_storm(nan_storm_fn(broadcast_number), stacked, ok)
 
@@ -217,7 +242,7 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
                 # a dropped genuine client never reports, so its last reported
                 # row stays in the leak pool (stale); before any report the
                 # pool rows are placeholders and its fresh no-op row is used
-                sel = train_ok & (kept[genuine_arr] | (not have_genuine))
+                sel = train_ok & (kept[genuine_arr] | ~have_genuine)
             else:
                 sel = train_ok.expand(len(genuine_idx))
             keptf = kept.to(losses.dtype)

@@ -82,8 +82,25 @@ no result line):
                  (16 clients, 30 rounds) in float32 and bfloat16 under
                  xla, and one bf16 minibatch step at config 4's shape on
                  the card against the CPU, its GEMMs bf16 kernels; e. the
-                 HAR classifier and config 5 (cut) in bfloat16.
-Each of phases 4-11 resets the kernel launch counts before each run and
+                 HAR classifier and config 5 (cut) in bfloat16;
+ 12. fused path and launch surface -- a. config 4 (cut) under each
+                 backend through Simulator.run_fast(chunk_size=3): the
+                 params of phase 4's run within the gap between two runs
+                 without a stop, the rounds' AUC and loss BASELINE_ROUNDS,
+                 K1 2 and K3 24 launches a round, s/round beside run's;
+                 b. the host syncs (torch.cuda.set_sync_debug_mode("warn"))
+                 of a run round and of a run_fast chunk at lengths 1 and 3
+                 under each backend: a chunk makes SYNCS_PER_CHUNK at
+                 both lengths; c. phase 11a's fault plan under
+                 run_fast(chunk_size=1) with checkpoints: T, F, T, T, the
+                 params of phase 11a's run, and a resume past the torn
+                 entry ending on the uninterrupted run; d. hyper config 2
+                 (cut) under run_fast: run's params bit for bit; e. three
+                 `python -m attackfl_tpu_torch client` registrations (one
+                 LIE attacker) and `server --rounds 1` on a copy of
+                 config.yaml cut to 3 clients: exit 0, the registrations'
+                 attackers, app.log's lines, K3 launched.
+Each of phases 4-12 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
@@ -102,6 +119,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
+from collections import Counter
 
 import numpy as np
 import torch
@@ -276,11 +295,19 @@ BF16_ARTIFACT_AUC, BF16_AUC_TOL, BF16_F32_TOL = 0.9304, 0.01, 0.005
 # e: the float32 rows of these runs in PERF.md §5, printed beside bf16's
 F32_ROWS = {"HAR": "1.0442-1.0506 s/round, idle 0.045, peak 19.933 GiB",
            "config 5": "2.463-2.5245 s/round, idle 0.079, peak 15.110 GiB"}
+# phase 12.  a: run_fast's chunk length on config 4 (cut); b: the chunk
+# lengths whose host syncs are counted, and the syncs a chunk makes: its
+# one read of the card (Simulator._read_chunk), whatever its length;
+# e: config.yaml cut to these clients, samples and rounds
+FUSED_CHUNK, SYNC_CHUNKS, SYNCS_PER_CHUNK = 3, (1, 3), 1
+SURFACE_CUT = {"clients": 3, "num-data-range": [256, 512], "num-round": 2}
 # filled by main_path (each backend's run history) and checkpoint_phase
-# (the gap between two config-4 runs without a stop, per backend)
+# (the gap between two config-4 runs without a stop, per backend), and by
+# fault_run (the faulted run's final state, per backend)
 MAIN_HISTORY: dict = {}
 MAIN_STATES: dict = {}
 RUN_GAPS: dict = {}
+FAULT_STATES: dict = {}
 
 
 def log(msg: str) -> None:
@@ -519,7 +546,9 @@ def check_fused_step(card: str, ptxas: str) -> dict:
 
     kw = step_kwargs((0.1, 0.1, 0.3))
     tp, tm, tv = clone_groups(groups), *cold
-    ms = time_ms(lambda: tfs.run_epoch(tp, tm, tv, batches, 1, 0, **kw))
+    # the seed in device memory, as the round's draw hands it to K1
+    seed = torch.full((), 1, dtype=torch.int64, device="cuda")
+    ms = time_ms(lambda: tfs.run_epoch(tp, tm, tv, batches, seed, 0, **kw))
     plain_ms = time_ms(lambda: tfs.run_epoch_reference(tp, tm, tv, batches, 1, 0, **kw),
                        warmup=1, reps=5)
     work = tfs.epoch_work(C, nb, B)
@@ -543,7 +572,8 @@ def check_fused_step(card: str, ptxas: str) -> dict:
     per_step = []
     for rows in sizes:
         rb = batches.repeat(1, 1, -(-rows // B), 1)[:, :, :rows].contiguous()
-        per_step.append(time_ms(lambda: tfs.run_epoch(tp, tm, tv, rb, 1, 0, **kw), reps=15) / nb)
+        per_step.append(time_ms(lambda: tfs.run_epoch(tp, tm, tv, rb, seed, 0, **kw),
+                                reps=15) / nb)
     one = np.polyfit(sizes[:3], per_step[:3], 1)
     whole = np.polyfit(sizes[2:], per_step[2:], 1)
     parts = {"row-independent (clip, Adam, weight staging, barriers)": whole[1],
@@ -1667,6 +1697,7 @@ def fault_run(backend: str, root: str) -> list:
     state = sim.init_state()
     reset_launches()
     whole, history = sim.run(state=state, verbose=False)
+    FAULT_STATES[backend] = whole
     launches = launch_counts()
     seq = [(h["broadcast"], h["ok"]) for h in history]
     records = [(r["fault"], r["round"]) for r in sim.fault_injector.records]
@@ -1901,6 +1932,222 @@ def faults_dtypes_async_phase(card: str) -> None:
         shutil.rmtree(root)
 
 
+def count_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result, the synchronizing CUDA operations it made (each copy between
+    the host and the card from pageable memory, each stream sync, each
+    read of a device value), and where in the Python code they were."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+    sites = Counter(f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in syncs)
+    return out, len(syncs), sites
+
+
+def fused_runs() -> None:
+    """Phase 12 a and b: config 4 (cut) through run_fast under each
+    backend, then the host syncs of run and of run_fast chunks."""
+    for backend in ("pallas", "xla"):
+        cfg = cut_config(local_backend=backend)
+        sim = Simulator(cfg, device="cuda")
+        state = sim.init_state()
+        reset_launches()
+        state, history = sim.run_fast(state=state, chunk_size=FUSED_CHUNK,
+                                      save_checkpoints=False, verbose=False)
+        launches = launch_counts()
+        gap = max_param_gap(state["global_params"], MAIN_STATES[backend]["global_params"])
+        got = [(round(h["roc_auc"], 4), round(h["train_loss"], 4)) for h in history]
+        per_round = [h["chunk_seconds"] / h["chunk_len"] for h in history[::FUSED_CHUNK]]
+        log(f"[fused] {backend}: run_fast(chunk_size={FUSED_CHUNK}) {len(history)} rounds "
+            f"ok={[h['ok'] for h in history]}; (AUC, loss) {got}; chunk lengths "
+            f"{[h['chunk_len'] for h in history]}; max |d params| from phase 4's run {gap:.3e} "
+            f"(two runs without a stop: {RUN_GAPS[backend]:.3e}); launches {launches}; "
+            f"s/round {[round(t, 4) for t in per_round]} (chunk seconds / chunk length) "
+            f"against run's {[round(h['seconds'], 4) for h in MAIN_HISTORY[backend]]} in "
+            f"phase 4 ({card_line()})")
+        if not all(h["ok"] for h in history) or got != BASELINE_ROUNDS[backend]:
+            raise AssertionError(f"fused {backend}: rounds {got} differ from "
+                                 f"{BASELINE_ROUNDS[backend]}")
+        if gap > RUN_GAPS[backend]:
+            raise AssertionError(f"fused {backend}: the params left phase 4's run's")
+        require_kernel(f"fused {backend}", cfg, launches, len(history))
+
+    for backend in ("pallas", "xla"):
+        sim = Simulator(cut_config(local_backend=backend), device="cuda")
+        state = sim.init_state()
+        _, per_round, sites = count_syncs(lambda: sim.run_round(state))
+        chunks = {}
+        for n in SYNC_CHUNKS:
+            fresh = sim.init_state()
+            (_, history), chunks[n], chunk_sites = count_syncs(lambda: sim.run_fast(
+                num_rounds=n, state=fresh, chunk_size=n, save_checkpoints=False,
+                verbose=False))
+            if len(history) != n or not all(h["ok"] for h in history):
+                raise AssertionError(f"syncs {backend}: the chunk of {n} was not one ok chunk")
+            log(f"[fused] {backend}: a run_fast chunk of {n} made {chunks[n]} host syncs, at "
+                f"{dict(chunk_sites)}")
+        log(f"[fused] {backend}: host syncs of one run round {per_round} (at {dict(sites)}); "
+            f"of a run_fast chunk {chunks} by chunk length (documented: {SYNCS_PER_CHUNK})")
+        if set(chunks.values()) != {SYNCS_PER_CHUNK}:
+            raise AssertionError(f"syncs {backend}: a chunk made {chunks} syncs, not "
+                                 f"{SYNCS_PER_CHUNK} at every length")
+
+
+def fused_fault_run(backend: str, root: str) -> None:
+    """Phase 12 c: FAULT_PLAN under run_fast(chunk_size=1) with
+    checkpoints, then 2 rounds into another directory and a resumed
+    Simulator's run_fast for round 3."""
+    plan = parse_fault_plan(FAULT_PLAN)
+    whole_dir = os.path.join(root, "fused", backend, "whole")
+    cut_dir = os.path.join(root, "fused", backend, "cut")
+    sim = Simulator(cut_config(local_backend=backend, checkpoint_dir=whole_dir, faults=plan),
+                    device="cuda")
+    state = sim.init_state()
+    reset_launches()
+    whole, history = sim.run_fast(state=state, chunk_size=1, verbose=False)
+    launches = launch_counts()
+    seq = [(h["broadcast"], h["ok"]) for h in history]
+    gap = max_param_gap(whole["global_params"], FAULT_STATES[backend]["global_params"])
+    rounds = [e["round"] for e in sim.checkpoints.read_manifest()["entries"]]
+    log(f"[fused] {backend} faults: broadcasts (number, ok) {seq}; max |d params| from phase "
+        f"11a's run {gap:.3e}; injected {[(r['fault'], r['round']) for r in sim.fault_injector.records]}; "
+        f"manifest rounds {rounds}; launches {launches}")
+    if seq != [(1, True), (2, False), (3, True), (4, True)] or gap > RUN_GAPS[backend]:
+        raise AssertionError(f"fused {backend} faults: broadcasts {seq}, gap {gap:.3e}")
+    require_kernel(f"fused {backend} faults", sim.cfg, launches, len(history))
+
+    Simulator(cut_config(local_backend=backend, checkpoint_dir=cut_dir, faults=plan),
+              device="cuda").run_fast(num_rounds=2, chunk_size=1, verbose=False)
+    resumed_sim = Simulator(cut_config(local_backend=backend, checkpoint_dir=cut_dir,
+                                       faults=plan, resume=True), device="cuda")
+    state = resumed_sim.load_or_init_state()
+    reset_launches()
+    resumed, rest = resumed_sim.run_fast(state=state, chunk_size=1, verbose=False)
+    launches = launch_counts()
+    gap = max_param_gap(resumed["global_params"], whole["global_params"])
+    log(f"[fused] {backend} faults: resume from round {state['completed_rounds']} (the round-2 "
+        f"entry torn); resumed (round, broadcast, ok) "
+        f"{[(h['round'], h['broadcast'], h['ok']) for h in rest]}; resumed vs uninterrupted "
+        f"max |d params| {gap:.3e}; launches {launches}")
+    if state["completed_rounds"] != 1 or [h["round"] for h in rest] != [2, 3]:
+        raise AssertionError(f"fused {backend}: the resume did not fall back past the torn entry")
+    if gap > RUN_GAPS[backend]:
+        raise AssertionError(f"fused {backend}: the resumed run left the uninterrupted one")
+    require_kernel(f"fused {backend} resumed", resumed_sim.cfg, launches, len(rest))
+
+
+def fused_hyper_run(workdir: str) -> None:
+    """Phase 12 d: hyper config 2 (cut) under run and under run_fast."""
+    label, config, cut = HYPER_RUNS[0]
+    cfg = Config(**{**config, **cut, "log_path": workdir, "checkpoint_dir": workdir})
+    states = {}
+    for how in ("run", "run_fast"):
+        sim = Simulator(cfg, device="cuda")
+        state = sim.init_state()
+        reset_launches()
+        t0 = time.perf_counter()
+        states[how], history = getattr(sim, how)(state=state, save_checkpoints=False,
+                                                 verbose=False)
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        log(f"[fused] hyper {label} {how}: {len(history)} rounds ok="
+            f"{[h['ok'] for h in history]} in {seconds:.3f} s; AUC "
+            f"{[round(h['roc_auc'], 4) for h in history]}; launches {launches}")
+        require_kernel(f"hyper {how}", cfg, launches, len(history))
+    a, b = states["run"], states["run_fast"]
+    same = (torch.equal(a["hnet_params"], b["hnet_params"])
+            and all(torch.equal(a["hyper_opt_state"][k], b["hyper_opt_state"][k])
+                    for k in ("count", "m", "v")))
+    log(f"[fused] hyper {label}: run_fast's hypernetwork and Adam state equal run's bit for "
+        f"bit: {same}")
+    if not same:
+        raise AssertionError("hyper: run_fast's hypernetwork differs from run's")
+
+
+def launch_surface(workdir: str) -> None:
+    """Phase 12 e: three client registrations through `python -m
+    attackfl_tpu_torch client`, then the server through the same CLI,
+    in this process so that its kernel launches are counted."""
+    import yaml
+
+    with open(os.path.join(REPO, "config.yaml")) as fh:
+        doc = yaml.safe_load(fh)
+    server = doc["server"]
+    server["clients"], server["num-round"] = SURFACE_CUT["clients"], SURFACE_CUT["num-round"]
+    server.setdefault("data-distribution", {})["num-data-range"] = SURFACE_CUT["num-data-range"]
+    doc["log_path"] = workdir
+    path = os.path.join(workdir, "config.yaml")
+    with open(path, "w") as fh:
+        yaml.safe_dump(doc, fh)
+    for args in ([], ["--attack", "True", "--attack_mode", "LIE", "--attack_round", "1"], []):
+        subprocess.run([sys.executable, "-m", "attackfl_tpu_torch", "client", "--config", path,
+                        *args], cwd=REPO, check=True, capture_output=True, text=True,
+                       timeout=120)
+    reg_dir = os.path.join(workdir, cli.REG_DIR)
+    regs = []
+    for name in sorted(os.listdir(reg_dir)):
+        with open(os.path.join(reg_dir, name)) as fh:
+            regs.append(json.load(fh))
+    expect = tuple(AttackSpec(mode="LIE", client_ids=(i,), attack_round=1)
+                   for i, reg in enumerate(regs) if reg["attack"])
+    built = []
+
+    class Recording(Simulator):
+        def __init__(self, cfg, *args, **kwargs):
+            built.append(cfg)
+            super().__init__(cfg, *args, **kwargs)
+
+    reset_launches()
+    engine.Simulator = Recording
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["server", "--config", path, "--rounds", "1"])
+        torch.cuda.synchronize()
+    finally:
+        engine.Simulator = Simulator
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(os.path.join(workdir, "app.log")) as fh:
+        lines = [line.split(" - ", 1)[1] for line in fh.read().splitlines()]
+    attacks = built[0].attacks if built else None
+    log(f"[surface] 3 clients registered ({[r['attack'] for r in regs]}), server --rounds 1: "
+        f"exit {rc} in {seconds:.3f} s (construction included); attackers {attacks}; app.log "
+        f"{lines}; launches {launches}; left in {cli.REG_DIR}: {os.listdir(reg_dir)}")
+    if rc != 0 or attacks != expect or len(expect) != 1:
+        raise AssertionError(f"surface: exit {rc}, attackers {attacks}, expected {expect}")
+    if lines[0] != "INFO - ### Application start ###" or not any(
+            "roc_auc=" in line for line in lines[1:]):
+        raise AssertionError(f"surface: app.log holds {lines}")
+    require_kernel("surface", built[0], launches, 1)
+
+
+def fused_phase() -> None:
+    """Phase 12: runs a-e."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_fused_")
+    try:
+        t0 = time.perf_counter()
+        fused_runs()
+        t1 = time.perf_counter()
+        for backend in ("pallas", "xla"):
+            fused_fault_run(backend, root)
+        t2 = time.perf_counter()
+        fused_hyper_run(root)
+        t3 = time.perf_counter()
+        surface = os.path.join(root, "surface")
+        os.makedirs(surface)
+        launch_surface(surface)
+        log(f"[phase 12] a+b {t1 - t0:.1f} s, c {t2 - t1:.1f} s, d {t3 - t2:.1f} s, e "
+            f"{time.perf_counter() - t3:.1f} s")
+    finally:
+        shutil.rmtree(root)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1933,7 +2180,8 @@ def main() -> int:
                         ("stragglers", straggler_phase), ("attacks", attack_phase),
                         ("defenses", defense_phase), ("models", lambda: models_phase(card)),
                         ("hyper", lambda: hyper_phase(card)),
-                        ("faults, dtypes, async", lambda: faults_dtypes_async_phase(card))):
+                        ("faults, dtypes, async", lambda: faults_dtypes_async_phase(card)),
+                        ("fused path and launch surface", fused_phase)):
         t0 = time.perf_counter()
         phase()
         log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")

@@ -129,6 +129,24 @@ def test_kernel_tiling_matches_plain_version(card, clients, batch, rates):
 
 
 @pytest.mark.cuda
+def test_kernel_with_a_device_seed_equals_the_int_seed(card):
+    """K1 reading its seed (plus the epoch offset) from device memory, as
+    the round's draw leaves it there, is bit-equal to K1 given the int."""
+    groups, batches = _inputs(card, masked_client=2)
+    kw = dict(lr=0.004, clip=1.0, drop_attn=0.1, drop_block=0.1, drop_head=0.3)
+    runs = []
+    for seed, offset in ((12, 0), (torch.tensor(11, dtype=torch.int64, device=card), 1)):
+        p = {k: v.clone() for k, v in groups.items()}
+        runs.append(tfs.run_epoch(p, tfs.zeros_like_groups(p), tfs.zeros_like_groups(p),
+                                  batches, seed, 0, seed_offset=offset, **kw))
+    torch.cuda.synchronize()
+    for a, b in zip(runs[0][:3], runs[1][:3]):
+        for k in tfs.GROUP_ORDER:
+            assert torch.equal(a[k], b[k]), k
+    assert torch.equal(runs[0][3], runs[1][3])
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_cpu_cuda_mix(card):
     groups, batches = _inputs(card, masked_client=0)
     m = tfs.zeros_like_groups(groups)
