@@ -32,13 +32,13 @@ _USAGE = """usage: python -m attackfl_tpu_torch <command> [options]
 commands:
   server   wait for `server.clients` registrations beside the config, then
            run the federation with their attackers (--config PATH,
-           --device cuda|cpu, --no-wait, --rounds N, --resume,
-           --checkpoint-async, --inject-faults PLAN, --validation-every K,
-           --validation-async, --compile-cache DIR; not ported yet, each
-           refused with its ROADMAP item: --pipeline, --pipeline-depth K,
-           --monitor, --monitor-port N, --profile-rounds A:B, --hotspots
-           A:B, --numerics, --coordinator HOST:PORT with --num-processes
-           and --process-id)
+           --device cuda|cpu, --no-wait, --rounds N, --pipeline,
+           --pipeline-depth K|auto, --resume, --checkpoint-async,
+           --inject-faults PLAN, --validation-every K, --validation-async,
+           --compile-cache DIR; not ported yet, each refused with its
+           ROADMAP item: --monitor, --monitor-port N, --profile-rounds A:B,
+           --hotspots A:B, --numerics, --coordinator HOST:PORT with
+           --num-processes and --process-id)
   client   register one client for the server (--config PATH, --attack
            [True], --attack_mode MODE, --attack_round N, --attack_args X..)
   run      server --no-wait: attackers from the config's attack-clients
@@ -148,8 +148,8 @@ def server_main(argv=None) -> int:
     parser.add_argument("--rounds", type=int, default=None, help="override num-round")
     # --- round-executor and persistence overrides (the config's server: section) ---
     parser.add_argument("--pipeline", action="store_true",
-                        help="pipelined round executor (server.pipeline; not ported yet, "
-                             "ROADMAP.md item 13)")
+                        help="depth-k pipelined round executor: round N resolves while "
+                             "the next rounds run on the card (server.pipeline)")
     parser.add_argument("--pipeline-depth", type=str, default=None, metavar="K",
                         help="pipeline depth, 0..max or 'auto' (server.pipeline-depth); "
                              "implies --pipeline")

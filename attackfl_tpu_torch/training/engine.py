@@ -59,14 +59,36 @@ aggregate and the hypernetwork update are computed on every broadcast),
 validation is inlined and gates the round, and the host reads each
 chunk's outcome once.  On config 4's path (fedavg with LIE under either
 backend) a chunk makes no other read of the card.
+
+The depth-k pipelined executor (``run(pipeline=True)``,
+:meth:`Simulator._run_pipelined`, JAX engine.py:2254-2628) dispatches
+every round as one call of the same fused body and resolves each round up
+to k rounds later, in dispatch order: a round's metrics are copied into
+pinned host memory behind a CUDA event when it is dispatched, and the
+resolve waits on that event alone, never on the rounds queued after it.
+Acceptance is the body's ``torch.where``, so a rollback anywhere in the
+queue needs no re-dispatch and the final state is ``run``'s bit for bit
+at every depth.  After ``pipeline_demote_after`` consecutive rollbacks it
+resolves each round before the next dispatch (depth 0), and returns to
+the configured depth after ``pipeline_repromote_after`` clean rounds.
+
+Every executor takes a ``stop`` hook (``run``, ``run_fast``,
+``_run_pipelined``): called with the completed-round count between
+rounds (between chunks under ``run_fast``, before each dispatch in the
+pipeline), a truthy verdict ends the run at that boundary, the rounds in
+flight still resolving and checkpointing, and a string verdict is kept
+as ``_stop_reason``.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import os
+import statistics
 import time
+from collections import deque
 from typing import Any, Callable
 
 import numpy as np
@@ -94,7 +116,55 @@ from attackfl_tpu_torch.utils.fingerprint import config_fingerprint
 MAX_ROUND_RETRIES = 20
 # run_fast's chunk length when none is given (JAX engine.py:75)
 DEFAULT_SCAN_CHUNK = 16
+# the ceiling of `pipeline_depth: auto` (JAX engine.py:76-79)
+AUTO_DEPTH_CAP = 8
 log = logging.getLogger("attackfl_tpu_torch")
+
+
+def auto_depth_from_records(records, fingerprint: str, window: int = 5
+                            ) -> tuple[int | None, dict[str, Any]]:
+    """The pipeline depth the ledger's measurements propose, before the
+    clamps (JAX ``auto_depth_from_records``, engine.py:82-134).
+
+    Each record of this config's fingerprint gives ``round_device_time``
+    D (device seconds a round) and ``host_resolution_latency`` H (host
+    seconds a round spent resolving), H plus the record's foreground
+    checkpoint seconds a round (``time_attribution.checkpoint_s`` over
+    ``rounds``).  Over the medians of the newest ``window`` such records
+    the pick is ``k = ceil(H / D)``, at least 1.  Returns ``(k, info)``,
+    ``(None, {"reason": "no_ledger_peers"})`` when no record carries the
+    inputs."""
+    peers: list[tuple[float, float]] = []
+
+    def number(value) -> float | None:
+        if isinstance(value, (int, float)) and not isinstance(value, bool):
+            return value + 0.0
+        return None
+
+    for record in records:
+        if record.get("fingerprint") != fingerprint:
+            continue
+        device = number(record.get("round_device_time"))
+        host = number(record.get("host_resolution_latency"))
+        if device is None or device <= 0 or host is None or host < 0:
+            continue
+        rounds = number(record.get("rounds"))
+        ckpt_fg = number((record.get("time_attribution") or {}).get("checkpoint_s"))
+        if ckpt_fg is not None and rounds and rounds > 0:
+            host += ckpt_fg / rounds
+        peers.append((device, host))
+    if not peers:
+        return None, {"reason": "no_ledger_peers"}
+    peers = peers[-window:]
+    device = statistics.median([d for d, _ in peers])
+    host = statistics.median([h for _, h in peers])
+    ratio = host / device
+    return max(1, math.ceil(ratio)), {
+        "round_device_time": round(device, 6),
+        "host_latency_per_round": round(host, 6),
+        "ratio": round(ratio, 4),
+        "peers": len(peers),
+    }
 
 
 def _refuse(what: str, item: str) -> None:
@@ -117,13 +187,11 @@ def check_slice(cfg: Config) -> None:
     async writer, the synchronous executor with synchronous or async
     validation, local_backend xla (in float32, bfloat16 or float16) or,
     for TransformerModel, pallas (the config refuses it for the others,
-    for hyper and for a compute-dtype other than float32).  The pipelined
-    executor is queue 1, item 13."""
+    for hyper and for a compute-dtype other than float32); the
+    synchronous, fused and pipelined executors."""
     if MODEL_DATA.get(cfg.model) != cfg.data_name:
         raise ValueError(f"model {cfg.model!r} does not run on {cfg.data_name!r}; the "
                          f"models and their datasets: {MODEL_DATA}")
-    if cfg.pipeline:
-        _refuse("the pipelined executor", "item 13")
     if cfg.mesh.num_devices > 1:
         _refuse("the multi-GPU client axis", "item 14")
     tel = cfg.telemetry
@@ -225,7 +293,13 @@ class Simulator:
         # reload_parameters_per_round: ((st_mtime_ns, st_size), params) of
         # the last read, so an unchanged file costs a stat
         self._reload_cache: tuple[tuple[int, int], dict] | None = None
-        self._fused_body = None
+        # the fused body, built once for each value of include_eval
+        self._fused_bodies: dict[bool, Callable] = {}
+        # the stop hook's string verdict (JAX engine.py:306), the pipeline
+        # depth this run resolved and how (JAX engine.py:557-558)
+        self._stop_reason: str | None = None
+        self._depth_resolved: int | None = None
+        self._depth_info: dict[str, Any] | None = None
 
     # ------------------------------------------------------------------
     # state
@@ -545,22 +619,52 @@ class Simulator:
     # the loop
     # ------------------------------------------------------------------
 
+    def _consult_stop(self, stop: Callable[[int], Any] | None, completed_rounds) -> bool:
+        """One consultation of the stop hook, shared by every executor
+        (JAX engine.py:1050-1063): a truthy verdict stops the run, and a
+        string verdict is kept as ``_stop_reason`` ("stopped" for any
+        other).  The hook may raise; the run's ``finally`` drains."""
+        if stop is None:
+            return False
+        verdict = stop(int(completed_rounds))
+        if not verdict:
+            return False
+        self._stop_reason = verdict if isinstance(verdict, str) else "stopped"
+        return True
+
     def run(self, num_rounds: int | None = None, state: dict[str, Any] | None = None,
-            save_checkpoints: bool = True, verbose: bool = True,
+            save_checkpoints: bool = True, verbose: bool = True, pipeline: bool | None = None,
+            stop: Callable[[int], Any] | None = None,
             ) -> tuple[dict[str, Any], list[dict[str, Any]]]:
         """Run until ``num_rounds`` rounds complete (reference main loop,
         server.py:559-567), from ``state`` or else from
         :meth:`load_or_init_state`, saving a checkpoint after every ok
         round unless ``save_checkpoints`` is False.  Every exit, a
         crashing round included, goes through ``_finish_run`` (JAX
-        engine.py:2634-2736)."""
+        engine.py:2634-2736).
+
+        ``pipeline`` (default ``cfg.pipeline``) takes the depth-k
+        pipelined executor (:meth:`_run_pipelined`, the depth resolved
+        first by :meth:`resolve_pipeline_depth`); the modes without
+        :meth:`supports_fused` fall back to this loop with a warning.
+        ``stop``, if given, is called with the completed-round count
+        before each round: a truthy verdict ends the run there."""
         num_rounds = num_rounds if num_rounds is not None else self.cfg.num_round
         state = state if state is not None else self.load_or_init_state()
+        if self.cfg.pipeline if pipeline is None else pipeline:
+            if self.supports_fused():
+                depth = self.resolve_pipeline_depth(save_checkpoints)
+                return self._run_pipelined(num_rounds, state, save_checkpoints, verbose,
+                                           stop=stop, depth=depth)
+            print_with_color(f"[pipeline] mode '{self.cfg.mode}' needs host-side per-round "
+                             "work; falling back to the synchronous path.", "yellow")
         history: list[dict[str, Any]] = []
         retries = 0
         self.logger.log_info("### Application start ###")
         try:
             while state["completed_rounds"] < num_rounds:
+                if self._consult_stop(stop, state["completed_rounds"]):
+                    break
                 round_no = state["completed_rounds"] + 1
                 state, metrics = self.run_round(state)
                 history.append(metrics)
@@ -608,10 +712,13 @@ class Simulator:
             return False
         return True
 
-    def _build_fused_body(self) -> Callable:
+    def _build_fused_body(self, include_eval: bool = True) -> Callable:
         """One broadcast as a step over the fused state (JAX
         ``_build_fused_body``, engine.py:1831-1984): ``body(state) ->
         (state, metrics)``, every metric a 0-dim device tensor.
+        ``include_eval=False`` leaves the validation out (the pipeline
+        under ``validation_async`` starts it beside the body): the
+        metrics are then the train loss and ``ok``.
 
         The whole round runs: draws, the round step, then the aggregate
         (or the hypernetwork update) and, when the broadcast is due, the
@@ -624,7 +731,7 @@ class Simulator:
         even under ``validation_async``, as JAX's fused chunk does.  The
         broadcast clock is a host int: it advances by one a broadcast."""
         cfg = self.cfg
-        validation = self.validation
+        validation = self.validation if include_eval else None
         val_every = cfg.validation_every
         metric_keys = METRIC_KEYS[cfg.data_name] if validation is not None else ()
         nan = torch.full((), float("nan"), device=self.device)
@@ -693,6 +800,26 @@ class Simulator:
                 return new_state, metrics
         return body
 
+    def _fused_body(self, include_eval: bool) -> Callable:
+        """The body for ``include_eval``, built on its first use only."""
+        if include_eval not in self._fused_bodies:
+            self._fused_bodies[include_eval] = self._build_fused_body(include_eval)
+        return self._fused_bodies[include_eval]
+
+    def _require_fused(self, state: dict[str, Any]) -> None:
+        """Refuse the fused body where it would not run ``run``'s round."""
+        if not self.supports_fused():
+            raise ValueError(
+                f"mode '{self.cfg.mode}' (hyper-detection="
+                f"{self.is_hyper and self.detector is not None}) "
+                "needs host-side per-round work; use run_round/run instead")
+        if "active_mask" in state and not bool(torch.all(state["active_mask"] > 0)):
+            # the fused hyper body validates every client's generated model;
+            # the per-round path validates only the active ones
+            raise ValueError(
+                "state has inactive clients (resumed from a hyper-detection "
+                "run?); use run_round/run for active-mask-aware validation")
+
     def _fused_state(self, state: dict[str, Any]) -> dict[str, Any]:
         """The fused carry of ``state`` without touching it: its own
         generator (a copy of the caller's), the completed-round count and
@@ -722,23 +849,12 @@ class Simulator:
         and ``have_genuine`` are device tensors.  Failed rounds keep the
         previous params and the broadcast clock still advances, as in
         :meth:`run_round`.  The caller's ``state`` is left as it was."""
-        if not self.supports_fused():
-            raise ValueError(
-                f"mode '{self.cfg.mode}' (hyper-detection="
-                f"{self.is_hyper and self.detector is not None}) "
-                "needs host-side per-round work; use run_round/run instead")
-        if "active_mask" in state and not bool(torch.all(state["active_mask"] > 0)):
-            # the fused hyper body validates every client's generated model;
-            # the per-round path validates only the active ones
-            raise ValueError(
-                "state has inactive clients (resumed from a hyper-detection "
-                "run?); use run_round/run for active-mask-aware validation")
-        if self._fused_body is None:
-            self._fused_body = self._build_fused_body()
+        self._require_fused(state)
+        body = self._fused_body(include_eval=True)
         carry = self._fused_state(state)
         rows = []
         for _ in range(num_broadcasts):
-            carry, metrics = self._fused_body(carry)
+            carry, metrics = body(carry)
             rows.append(metrics)
         if "active_mask" in carry:
             carry["active_mask"] = state["active_mask"]
@@ -765,6 +881,7 @@ class Simulator:
     def run_fast(self, num_rounds: int | None = None, state: dict[str, Any] | None = None,
                  chunk_size: int | None = None, save_checkpoints: bool = True,
                  verbose: bool = True, progress: dict[str, Any] | None = None,
+                 stop: Callable[[int], Any] | None = None,
                  ) -> tuple[dict[str, Any], list[dict[str, Any]]]:
         """Like :meth:`run`, on the fused path: chunks of broadcasts by
         :meth:`run_scan`, one read of the card per chunk (JAX ``run_fast``,
@@ -780,7 +897,8 @@ class Simulator:
         chunk), ``chunk_len``, ``round`` (the attempt's index, continuing
         from a resumed state) and ``broadcast``.  ``progress``, if given,
         gets ``ok_rounds`` and ``interim_rounds_per_sec_incl_compile``
-        after every chunk.  Writes nothing to ``app.log``, as JAX's."""
+        after every chunk.  ``stop`` (see :meth:`run`) is consulted
+        between chunks.  Writes nothing to ``app.log``, as JAX's."""
         num_rounds = num_rounds if num_rounds is not None else self.cfg.num_round
         state = state if state is not None else self.load_or_init_state()
         history: list[dict[str, Any]] = []
@@ -790,6 +908,8 @@ class Simulator:
         t_start = time.perf_counter()
         try:
             while int(state["completed_rounds"]) < num_rounds:
+                if self._consult_stop(stop, state["completed_rounds"]):
+                    break
                 remaining = num_rounds - int(state["completed_rounds"])
                 cap = chunk_size if chunk_size else DEFAULT_SCAN_CHUNK
                 if chunk_size:
@@ -835,6 +955,244 @@ class Simulator:
         finally:
             self._finish_run()
         return state, history
+
+    # ------------------------------------------------------------------
+    # the pipelined executor
+    # ------------------------------------------------------------------
+
+    def resolve_pipeline_depth(self, save_checkpoints: bool = True) -> int:
+        """``cfg.pipeline_depth`` as the depth of this run (JAX
+        engine.py:2254-2328).  An int is used as it is.  ``"auto"`` takes
+        :func:`auto_depth_from_records` over the cross-run ledger, which
+        the port does not keep yet (ROADMAP.md queue 1, item 16): with no
+        measurement it is depth 1, said in a yellow line.  The pick is
+        capped by :data:`AUTO_DEPTH_CAP`, and by 2 under a synchronous
+        checkpoint every round (a deeper queue waits behind the write).
+        The depth and how it was found stay in ``_depth_resolved`` and
+        ``_depth_info``."""
+        configured = self.cfg.pipeline_depth
+        if isinstance(configured, int):
+            self._depth_resolved = configured
+            self._depth_info = {"source": "config", "depth": configured}
+            return configured
+        info: dict[str, Any] = {"source": "auto"}
+        records: list[dict[str, Any]] = []
+        k, measured = auto_depth_from_records(records, self.checkpoints.fingerprint)
+        info.update(measured)
+        if k is None:
+            k = 1
+            print_with_color(
+                "[pipeline] depth auto: no ledger measurement for this config yet — "
+                "defaulting to depth-1 (the port keeps no ledger yet: ROADMAP.md queue 1, "
+                "item 16)", "yellow")
+        cap = AUTO_DEPTH_CAP
+        if save_checkpoints and not self.cfg.checkpoint_async:
+            cap = min(cap, 2)
+        if k > cap:
+            info["clamped_from"] = k
+            k = cap
+        info["depth"] = k
+        self._depth_resolved = k
+        self._depth_info = info
+        if "ratio" in info:
+            print_with_color(
+                f"[pipeline] depth auto -> {k} (measured host/device ratio {info['ratio']} "
+                f"over {info['peers']} ledger record(s)"
+                + (f", clamped from {info['clamped_from']}" if "clamped_from" in info else "")
+                + ")", "cyan")
+        return k
+
+    def _dispatch_pipeline_round(self, body: Callable, carry: dict[str, Any],
+                                 keep_state: bool) -> tuple[dict[str, Any], dict[str, Any]]:
+        """Issue one round (``body`` on ``carry``) and, under
+        ``validation_async`` on a due broadcast, its evaluation; then
+        copy the round's metrics, the evaluation's and the leak flag into
+        host memory behind an event, without waiting.  Returns the new
+        carry and the queue slot.  With ``keep_state`` the slot keeps the
+        round's state for its checkpoint: the body writes no tensor of
+        the state it is given, and the generator, which it advances in
+        place, is kept as its state after this round."""
+        carry, metrics = body(carry)
+        b = carry["broadcasts"]
+        val: dict[str, torch.Tensor] = {}
+        if (self.validation is not None and self.cfg.validation_async
+                and b % self.cfg.validation_every == 0):
+            if self.is_hyper:
+                gen, _ = self.hnet.generate_all(carry["hnet_params"])
+                val = self.validation.test_hyper_async(gen)
+            else:
+                val = self.validation.test_async(carry["global_params"])
+        keys, val_keys = sorted(metrics), sorted(val)
+        packed = torch.stack([t.to(torch.float64) for t in (
+            [metrics[k] for k in keys] + [val[k] for k in val_keys] + [carry["have_genuine"]])])
+        # a blocking read would wait for every round queued after this one
+        # as well: the copy goes to pinned memory and the resolve waits on
+        # this round's event alone (on the CPU the copy is done at once)
+        on_card = packed.device.type == "cuda"
+        host = torch.empty(packed.shape, dtype=torch.float64, pin_memory=on_card)
+        host.copy_(packed, non_blocking=True)
+        event = None
+        if on_card:
+            event = torch.cuda.Event()
+            event.record()
+        slot = {"keys": keys, "val_keys": val_keys, "host": host, "event": event,
+                "broadcast": b,
+                "state": dict(carry, rng=carry["rng"].get_state()) if keep_state else None}
+        return carry, slot
+
+    def _resolve_pipeline_round(self, pending: dict[str, Any], round_no: int
+                                ) -> tuple[dict[str, Any], bool]:
+        """One round's history entry, and its leak flag, once its copy has
+        landed (JAX ``_resolve_pipeline_round``, engine.py:2380-2404): the
+        metrics (``ok`` a bool, the rest floats), ``round``,
+        ``broadcast``, ``pipelined``; an async validation is folded in
+        through ``_inflight_validations``, its verdict not gating the
+        round."""
+        if pending["event"] is not None:
+            pending["event"].synchronize()
+        values = pending["host"].tolist()
+        keys, val_keys = pending["keys"], pending["val_keys"]
+        entry: dict[str, Any] = {k: (bool(v) if k == "ok" else float(v))
+                                 for k, v in zip(keys, values)}
+        entry["round"] = round_no
+        entry["broadcast"] = pending["broadcast"]
+        entry["pipelined"] = True
+        if val_keys:
+            out = dict(zip(val_keys, values[len(keys):len(keys) + len(val_keys)]))
+            self._inflight_validations.append((entry, round_no, out))
+            self._resolve_inflight_validations()
+        return entry, bool(values[-1])
+
+    def _checkpoint_slot(self, slot_state: dict[str, Any], completed: int,
+                         have_genuine: bool, active_mask) -> None:
+        """Save a resolved round's own state as ``run`` holds it: the
+        round count from the host's resolved count, the generator as it
+        was after that round."""
+        rng = torch.Generator(device=self.device)
+        rng.set_state(slot_state["rng"])
+        state = dict(slot_state, rng=rng, completed_rounds=completed,
+                     have_genuine=have_genuine)
+        if active_mask is not None:
+            state["active_mask"] = active_mask
+        self.save_checkpoint(state)
+
+    def _run_pipelined(self, num_rounds: int, state: dict[str, Any], save_checkpoints: bool,
+                       verbose: bool, stop: Callable[[int], Any] | None = None,
+                       depth: int | None = None,
+                       ) -> tuple[dict[str, Any], list[dict[str, Any]]]:
+        """The depth-k software-pipelined round loop (JAX
+        ``_run_pipelined``, engine.py:2406-2628).
+
+        Every round is one call of the one cached fused body (validation
+        inlined, unless ``validation_async`` starts it beside the body),
+        and up to ``depth`` rounds stay in flight beyond the oldest
+        unresolved one; rounds resolve in dispatch order.  Acceptance is
+        the body's ``torch.where``, so the rounds dispatched after a
+        rollback already trained from the kept params, as ``run``'s retry
+        does: the final state equals ``run``'s at every depth.  Depth 0
+        resolves each round before the next dispatch; None resolves the
+        depth from the config (:meth:`resolve_pipeline_depth`).  Each ok
+        round's own state is checkpointed when it resolves.
+
+        After ``cfg.pipeline_demote_after`` consecutive rollbacks the loop
+        demotes to depth 0: no dispatch until the queue drains, then one
+        round at a time; after ``cfg.pipeline_repromote_after`` clean
+        rounds it returns to the configured depth.  Neither builds
+        anything: every depth calls the same body.  ``stop`` is consulted
+        before each dispatch; once it says stop, nothing more is
+        dispatched and the rounds in flight resolve and checkpoint.
+        Returns the state as ``run`` returns it (the round count and the
+        leak flag host values) and the history."""
+        cfg = self.cfg
+        if depth is None:
+            depth = self.resolve_pipeline_depth(save_checkpoints)
+        self._require_fused(state)
+        history: list[dict[str, Any]] = []
+        include_eval = self.validation is not None and not cfg.validation_async
+        body = self._fused_body(include_eval)
+        carry = self._fused_state(state)
+        completed = int(state["completed_rounds"])
+        have_genuine = bool(state["have_genuine"])
+        active_mask = state.get("active_mask")
+        # unresolved rounds in dispatch order: at most overlap() + 1 slots
+        queue: deque[dict[str, Any]] = deque()
+        consecutive_failures = 0
+        degraded = False
+        clean_streak = 0
+        last_resolve = time.perf_counter()
+
+        def overlap() -> int:
+            """Rounds allowed in flight beyond the resolving one."""
+            return 0 if degraded else depth
+
+        stopping = False
+        try:
+            while completed < num_rounds or queue:
+                stopping = stopping or self._consult_stop(stop, completed)
+                if stopping and not queue:
+                    break
+                want_more = completed + len(queue) < num_rounds and not stopping
+                if want_more and len(queue) <= overlap():
+                    carry, slot = self._dispatch_pipeline_round(body, carry, save_checkpoints)
+                    queue.append(slot)
+                    want_more = completed + len(queue) < num_rounds and not stopping
+                # resolve the oldest round once the queue is past its
+                # overlap, or while draining (the stop hook or the tail)
+                if queue and (len(queue) > overlap() or not want_more):
+                    pending = queue.popleft()
+                    round_no = completed + 1
+                    entry, have_genuine = self._resolve_pipeline_round(pending, round_no)
+                    now = time.perf_counter()
+                    entry["seconds"] = now - last_resolve
+                    last_resolve = now
+                    if degraded:
+                        entry["degraded"] = True
+                    history.append(entry)
+                    if self.fault_injector is not None:
+                        self.fault_injector.note_round_resolved(pending["broadcast"])
+                    if entry["ok"]:
+                        completed += 1
+                        consecutive_failures = 0
+                        if save_checkpoints:
+                            self._checkpoint_slot(pending["state"], completed, have_genuine,
+                                                  active_mask)
+                        if degraded:
+                            clean_streak += 1
+                            if clean_streak >= cfg.pipeline_repromote_after:
+                                degraded = False
+                                clean_streak = 0
+                                print_with_color(
+                                    f"[pipeline] re-promoted to depth-{depth} after "
+                                    f"{cfg.pipeline_repromote_after} clean rounds", "cyan")
+                        if verbose:
+                            keys = [k for k in ("roc_auc", "accuracy", "nll", "train_loss")
+                                    if k in entry and entry[k] == entry[k]]
+                            msg = " ".join(f"{k}={entry[k]:.4f}" for k in keys)
+                            print_with_color(f"[pipeline] round {round_no} resolved in "
+                                             f"{entry['seconds']:.2f}s {msg}", "green")
+                    else:
+                        consecutive_failures += 1
+                        clean_streak = 0
+                        print_with_color("Training failed!", "yellow")
+                        self.logger.log_warning(
+                            f"Round {round_no} failed (retry {consecutive_failures})")
+                        if not degraded and consecutive_failures >= cfg.pipeline_demote_after:
+                            degraded = True
+                            print_with_color(
+                                f"[pipeline] {consecutive_failures} consecutive rollbacks — "
+                                f"demoting from depth-{depth} to synchronous (depth-0) "
+                                "resolution", "yellow")
+                        if consecutive_failures > MAX_ROUND_RETRIES:
+                            raise RuntimeError(
+                                f"Round {round_no} failed {consecutive_failures} times; "
+                                "aborting (the reference would retry forever, "
+                                "server.py:546-556)")
+        finally:
+            self._finish_run()
+        out = dict(carry, completed_rounds=completed, have_genuine=have_genuine)
+        if active_mask is not None:
+            out["active_mask"] = active_mask
+        return out, history
 
     def _finish_run(self) -> None:
         """The end of every run (JAX engine.py:1213-1246): resolve the

@@ -99,9 +99,34 @@ no result line):
                  `python -m attackfl_tpu_torch client` registrations (one
                  LIE attacker) and `server --rounds 1` on a copy of
                  config.yaml cut to 3 clients: exit 0, the registrations'
-                 attackers, app.log's lines, K3 launched.
-Each of phases 4-12 resets the kernel launch counts before each run and
-requires the run's kernel to have been launched.
+                 attackers, app.log's lines, K3 launched;
+ 13. pipelined executor -- a. config 4 (cut) under each backend through
+                 Simulator.run(pipeline=True) at depths 0, 1, 2 and 4: the
+                 params of phase 4's run within the gap between two runs
+                 without a stop, its ok sequence and broadcasts, the rounds'
+                 AUC and loss BASELINE_ROUNDS; s/round, dispatch and
+                 resolve milliseconds a round; the host syncs of a depth-2
+                 run (none besides the resolve's event waits); the device
+                 idle share of a depth-0 and a depth-2 run under pallas;
+                 b. phase 11a's fault plan at depth 2 under each backend
+                 (phase 11a's ok sequence and params), and a plan failing
+                 every client on broadcasts 2-4 at depth 3 with demotion
+                 after 2 rollbacks and re-promotion after 2 clean rounds:
+                 run's ok sequence and params, one demotion, one
+                 re-promotion to depth 3; c. checkpoints at depth 2 with
+                 the synchronous and the async writer: each entry run's
+                 for its round, a resume continuing the numbering and
+                 ending on the uninterrupted run, the syncs a round the
+                 saves add; d. hyper config 2 (cut) at depth 2: run's
+                 hypernetwork and Adam state bit for bit, its syncs a
+                 round; e. a stop hook at one completed round: the rounds
+                 in flight resolve and checkpoint, the verdict is kept;
+                 f. `server --no-wait --pipeline-depth 2` on phase 12e's
+                 cut of config.yaml: exit 0, K3 launched, app.log as the
+                 pipelined executor writes it.
+Each of phases 4-13 resets the kernel launch counts before each run and
+requires the run's kernel to have been launched.  The kernels record's
+launches are phase 4's main path's and phase 13a's pipelined runs'.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
 toolkit, imports nothing of JAX, and fails when run outside the repository.
@@ -109,7 +134,9 @@ toolkit, imports nothing of JAX, and fails when run outside the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -301,6 +328,14 @@ F32_ROWS = {"HAR": "1.0442-1.0506 s/round, idle 0.045, peak 19.933 GiB",
 # e: config.yaml cut to these clients, samples and rounds
 FUSED_CHUNK, SYNC_CHUNKS, SYNCS_PER_CHUNK = 3, (1, 3), 1
 SURFACE_CUT = {"clients": 3, "num-data-range": [256, 512], "num-round": 2}
+# phase 13.  a: the pipeline's depths on config 4 (cut), and those whose
+# run is profiled under pallas for the device's idle share; b: a plan that
+# fails every client on broadcasts 2-4, run at DEMOTE_DEPTH with demotion
+# after 2 rollbacks and re-promotion after 2 clean rounds; e: the stop
+# hook says "drain" once this many rounds are done
+PIPE_DEPTHS, PROFILED_DEPTHS = (0, 1, 2, 4), (0, 2)
+DEMOTE_PLAN, DEMOTE_DEPTH = "nan_storm@2;nan_storm@3;nan_storm@4", 3
+STOP_ROUNDS = 1
 # filled by main_path (each backend's run history) and checkpoint_phase
 # (the gap between two config-4 runs without a stop, per backend), and by
 # fault_run (the faulted run's final state, per backend)
@@ -2070,10 +2105,9 @@ def fused_hyper_run(workdir: str) -> None:
         raise AssertionError("hyper: run_fast's hypernetwork differs from run's")
 
 
-def launch_surface(workdir: str) -> None:
-    """Phase 12 e: three client registrations through `python -m
-    attackfl_tpu_torch client`, then the server through the same CLI,
-    in this process so that its kernel launches are counted."""
+def surface_yaml(workdir: str) -> str:
+    """The repo's config.yaml cut to SURFACE_CUT, logging into
+    ``workdir``, written there; its path."""
     import yaml
 
     with open(os.path.join(REPO, "config.yaml")) as fh:
@@ -2085,6 +2119,14 @@ def launch_surface(workdir: str) -> None:
     path = os.path.join(workdir, "config.yaml")
     with open(path, "w") as fh:
         yaml.safe_dump(doc, fh)
+    return path
+
+
+def launch_surface(workdir: str) -> None:
+    """Phase 12 e: three client registrations through `python -m
+    attackfl_tpu_torch client`, then the server through the same CLI,
+    in this process so that its kernel launches are counted."""
+    path = surface_yaml(workdir)
     for args in ([], ["--attack", "True", "--attack_mode", "LIE", "--attack_round", "1"], []):
         subprocess.run([sys.executable, "-m", "attackfl_tpu_torch", "client", "--config", path,
                         *args], cwd=REPO, check=True, capture_output=True, text=True,
@@ -2148,6 +2190,330 @@ def fused_phase() -> None:
         shutil.rmtree(root)
 
 
+def timed_pipeline(sim: Simulator) -> dict:
+    """Time the Simulator's pipeline dispatch and resolve by the host
+    clock: the milliseconds of each call, by name."""
+    times: dict = {"dispatch": [], "resolve": []}
+    for key in times:
+        name = f"_{key}_pipeline_round"
+        fn = getattr(sim, name)
+
+        def timed(*args, fn=fn, key=key):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(sim, name, timed)
+    return times
+
+
+def pipeline_depth_runs() -> dict:
+    """Phase 13 a: config 4 (cut) through run(pipeline=True) at each of
+    PIPE_DEPTHS under each backend, then the host syncs of a depth-2
+    run, then the device idle share of the PROFILED_DEPTHS under pallas.
+    Returns the kernels' launches over the depth runs."""
+    total = Counter()
+    card = card_line()
+    for backend in ("pallas", "xla"):
+        for depth in PIPE_DEPTHS:
+            cfg = cut_config(pipeline=True, local_backend=backend, pipeline_depth=depth)
+            sim = Simulator(cfg, device="cuda")
+            times = timed_pipeline(sim)
+            state = sim.init_state()
+            reset_launches()
+            t0 = time.perf_counter()
+            state, history = sim.run(state=state, save_checkpoints=False, verbose=False)
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            total.update(launches)
+            label = f"pipeline {backend} depth {depth}"
+            gap = max_param_gap(state["global_params"], MAIN_STATES[backend]["global_params"])
+            seq = [(h["broadcast"], h["ok"]) for h in history]
+            got = [(round(h["roc_auc"], 4), round(h["train_loss"], 4)) for h in history]
+            n = len(history)
+            log(f"[pipeline] {backend} depth {depth}: {n} rounds ok="
+                f"{[h['ok'] for h in history]}; max |d params| from phase 4's run {gap:.3e} "
+                f"(two runs without a stop: {RUN_GAPS[backend]:.3e}); s/round {wall / n:.4f} "
+                f"(wall {wall:.4f} s; between resolves "
+                f"{[round(h['seconds'], 4) for h in history]}); dispatch ms "
+                f"{[round(t, 3) for t in times['dispatch']]}; resolve ms "
+                f"{[round(t, 3) for t in times['resolve']]}; launches {launches} ({card})")
+            if seq != [(h["broadcast"], h["ok"]) for h in MAIN_HISTORY[backend]]:
+                raise AssertionError(f"{label}: broadcasts {seq} differ from phase 4's run")
+            if got != BASELINE_ROUNDS[backend] or gap > RUN_GAPS[backend]:
+                raise AssertionError(f"{label}: rounds {got}, gap {gap:.3e} from phase 4's run")
+            require_kernel(label, cfg, launches, n)
+        sim = Simulator(cut_config(pipeline=True, local_backend=backend, pipeline_depth=2),
+                        device="cuda")
+        state = sim.init_state()
+        (_, history), syncs, sites = count_syncs(lambda: sim.run(
+            state=state, save_checkpoints=False, verbose=False))
+        log(f"[pipeline] {backend} depth 2: {syncs} host syncs over {len(history)} rounds "
+            f"besides the resolves' event waits, at {dict(sites)}")
+        if syncs:
+            raise AssertionError(f"pipeline {backend}: {syncs} host syncs at {dict(sites)}")
+    for depth in PROFILED_DEPTHS:
+        sim = Simulator(cut_config(pipeline=True, local_backend="pallas",
+                                   pipeline_depth=depth), device="cuda")
+        state = sim.init_state()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, history = sim.run(state=state, save_checkpoints=False, verbose=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        device = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+        if not device:
+            raise AssertionError("torch.profiler recorded no device activity in the pipeline")
+        busy = busy_us(device) / 1e6
+        n = len(history)
+        log(f"[pipeline] pallas depth {depth} under torch.profiler: wall {wall / n:.4f} s/round, "
+            f"device busy {busy / n:.4f} s/round, idle share {1 - busy / wall:.3f} ({card})")
+    return dict(total)
+
+
+def pipeline_fault_runs(root: str) -> None:
+    """Phase 13 b: FAULT_PLAN at depth 2 under each backend, with
+    checkpoints; then DEMOTE_PLAN at DEMOTE_DEPTH under pallas against
+    run under the same plan."""
+    plan = parse_fault_plan(FAULT_PLAN)
+    for backend in ("pallas", "xla"):
+        cfg = cut_config(pipeline=True, local_backend=backend, pipeline_depth=2, faults=plan,
+                          checkpoint_dir=os.path.join(root, "plan", backend))
+        sim = Simulator(cfg, device="cuda")
+        state = sim.init_state()
+        reset_launches()
+        state, history = sim.run(state=state, verbose=False)
+        launches = launch_counts()
+        seq = [(h["broadcast"], h["ok"]) for h in history]
+        gap = max_param_gap(state["global_params"], FAULT_STATES[backend]["global_params"])
+        rounds = [e["round"] for e in sim.checkpoints.read_manifest()["entries"]]
+        log(f"[pipeline] {backend} faults at depth 2: broadcasts (number, ok) {seq}; max |d "
+            f"params| from phase 11a's run {gap:.3e}; injected "
+            f"{[(r['fault'], r['round']) for r in sim.fault_injector.records]}; manifest "
+            f"rounds {rounds}; launches {launches}")
+        if seq != [(1, True), (2, False), (3, True), (4, True)] or gap > RUN_GAPS[backend]:
+            raise AssertionError(f"pipeline {backend} faults: broadcasts {seq}, gap {gap:.3e}")
+        if rounds != [1, 2, 3]:
+            raise AssertionError(f"pipeline {backend} faults: manifest rounds {rounds}")
+        require_kernel(f"pipeline {backend} faults", cfg, launches, len(history))
+
+    cfg = cut_config(local_backend="pallas", faults=parse_fault_plan(DEMOTE_PLAN),
+                     pipeline_depth=DEMOTE_DEPTH, pipeline_demote_after=2,
+                     pipeline_repromote_after=2)
+    run_sim = Simulator(cfg, device="cuda")
+    run_state, run_hist = run_sim.run(state=run_sim.init_state(), save_checkpoints=False,
+                                      verbose=False)
+    sim = Simulator(cfg.replace(pipeline=True), device="cuda")
+    state = sim.init_state()
+    out = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(out):
+        state, history = sim.run(state=state, save_checkpoints=False, verbose=False)
+    launches = launch_counts()
+    printed = out.getvalue()
+    demoted = printed.count(f"demoting from depth-{DEMOTE_DEPTH} to synchronous")
+    repromoted = printed.count(f"re-promoted to depth-{DEMOTE_DEPTH} after")
+    seq = [(h["broadcast"], h["ok"], h.get("degraded", False)) for h in history]
+    gap = max_param_gap(state["global_params"], run_state["global_params"])
+    log(f"[pipeline] pallas {DEMOTE_PLAN} at depth {DEMOTE_DEPTH}: (broadcast, ok, degraded) "
+        f"{seq}; run's {[(h['broadcast'], h['ok']) for h in run_hist]}; max |d params| from "
+        f"run {gap:.3e}; demotions {demoted}, re-promotions {repromoted}; launches {launches}")
+    if [s[:2] for s in seq] != [(h["broadcast"], h["ok"]) for h in run_hist]:
+        raise AssertionError("pipeline demotion: the ok sequence differs from run's")
+    if gap > RUN_GAPS["pallas"] or demoted != 1 or repromoted != 1:
+        raise AssertionError(f"pipeline demotion: gap {gap:.3e}, demotions {demoted}, "
+                             f"re-promotions {repromoted}")
+    require_kernel("pipeline demotion", cfg, launches, len(history))
+
+
+def host_state_gap(a: dict, b: dict) -> float:
+    """The largest |difference| of two host states' tensors; inf when a
+    non-tensor value differs."""
+    gap = 0.0
+    for key in a:
+        x, y = a[key], b[key]
+        if isinstance(x, dict):
+            gap = max(gap, max_param_gap(x, y))
+        elif isinstance(x, torch.Tensor):
+            gap = max(gap, float((x.double() - y.double()).abs().max()))
+        elif x != y:
+            return math.inf
+    return gap
+
+
+def entry_states(sim: Simulator) -> dict:
+    """Each manifest entry's host state, by its round."""
+    template = sim.host_state(sim.init_state())
+    return {e["round"]: ckpt.load_state(os.path.join(sim.checkpoints.directory, e["file"]),
+                                        template)
+            for e in sim.checkpoints.read_manifest()["entries"]}
+
+
+def pipeline_checkpoint_runs(root: str) -> None:
+    """Phase 13 c: run saving every round, then the pipeline at depth 2
+    with the synchronous and with the async writer; then 2 rounds and a
+    resumed pipeline for round 3."""
+    run_sim = Simulator(cut_config(local_backend="pallas",
+                                   checkpoint_dir=os.path.join(root, "ckpt", "run")),
+                        device="cuda")
+    run_sim.run(state=run_sim.init_state(), verbose=False)
+    theirs = entry_states(run_sim)
+    wholes = {}
+    for writer in ("sync", "async"):
+        cfg = cut_config(pipeline=True, local_backend="pallas", pipeline_depth=2,
+                          checkpoint_async=writer == "async",
+                          checkpoint_dir=os.path.join(root, "ckpt", writer))
+        sim = Simulator(cfg, device="cuda")
+        state = sim.init_state()
+        reset_launches()
+        (wholes[writer], history), syncs, sites = count_syncs(
+            lambda: sim.run(state=state, verbose=False))
+        launches = launch_counts()
+        sim.close()
+        ours = entry_states(sim)
+        gaps = {r: host_state_gap(ours[r], theirs[r]) for r in ours}
+        log(f"[pipeline] pallas depth 2, {writer} writer: entries {sorted(ours)}, max |d| from "
+            f"run's entry of the round {gaps}; {syncs} host syncs over {len(history)} rounds "
+            f"({syncs / len(history):.2f} a round, the saves' copies to the host) at "
+            f"{dict(sites)}; launches {launches}")
+        if max(ours) != 3 or (writer == "sync" and sorted(ours) != [1, 2, 3]):
+            raise AssertionError(f"pipeline {writer} writer: entries {sorted(ours)}")
+        if max(gaps.values()) > RUN_GAPS["pallas"]:
+            raise AssertionError(f"pipeline {writer} writer: entries differ from run's {gaps}")
+        require_kernel(f"pipeline {writer} writer", cfg, launches, len(history))
+
+    cut_dir = os.path.join(root, "ckpt", "cut")
+    Simulator(cut_config(pipeline=True, local_backend="pallas", pipeline_depth=2,
+                         checkpoint_dir=cut_dir), device="cuda").run(num_rounds=2, verbose=False)
+    resumed_sim = Simulator(cut_config(pipeline=True, local_backend="pallas", pipeline_depth=2,
+                                       checkpoint_dir=cut_dir, resume=True), device="cuda")
+    state = resumed_sim.load_or_init_state()
+    reset_launches()
+    resumed, rest = resumed_sim.run(state=state, verbose=False)
+    launches = launch_counts()
+    gap = max_param_gap(resumed["global_params"], wholes["sync"]["global_params"])
+    seq = [(h["round"], h["broadcast"], h["ok"]) for h in rest]
+    log(f"[pipeline] resume from round {state['completed_rounds']}: (round, broadcast, ok) "
+        f"{seq}; resumed vs uninterrupted max |d params| {gap:.3e}; launches {launches}")
+    if seq != [(3, 3, True)] or gap > RUN_GAPS["pallas"]:
+        raise AssertionError(f"pipeline resume: {seq}, gap {gap:.3e}")
+    require_kernel("pipeline resumed", resumed_sim.cfg, launches, len(rest))
+
+
+def pipeline_hyper_run(workdir: str) -> None:
+    """Phase 13 d: hyper config 2 (cut) under run and the pipeline."""
+    label, config, cut = HYPER_RUNS[0]
+    cfg = Config(**{**config, **cut, "log_path": workdir, "checkpoint_dir": workdir,
+                    "pipeline_depth": 2})
+    run_sim = Simulator(cfg, device="cuda")
+    a, _ = run_sim.run(state=run_sim.init_state(), save_checkpoints=False, verbose=False)
+    sim = Simulator(cfg.replace(pipeline=True), device="cuda")
+    state = sim.init_state()
+    reset_launches()
+    t0 = time.perf_counter()
+    (b, history), syncs, sites = count_syncs(lambda: sim.run(
+        state=state, save_checkpoints=False, verbose=False))
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    same = (torch.equal(a["hnet_params"], b["hnet_params"])
+            and all(torch.equal(a["hyper_opt_state"][k], b["hyper_opt_state"][k])
+                    for k in ("count", "m", "v")))
+    log(f"[pipeline] hyper {label} depth 2: {len(history)} rounds ok="
+        f"{[h['ok'] for h in history]} in {seconds:.3f} s; hypernetwork and Adam state equal "
+        f"run's bit for bit: {same}; {syncs} host syncs ({syncs / len(history):.1f} a round) "
+        f"at {dict(sites)}; launches {launches}")
+    if not same:
+        raise AssertionError("pipeline hyper: the hypernetwork differs from run's")
+    require_kernel("pipeline hyper", cfg, launches, len(history))
+
+
+def pipeline_stop_run(root: str) -> None:
+    """Phase 13 e: depth 2 under pallas, 6 rounds asked, a hook that says
+    "drain" once STOP_ROUNDS rounds are done."""
+    cfg = cut_config(pipeline=True, local_backend="pallas", pipeline_depth=2, num_round=6,
+                      checkpoint_dir=os.path.join(root, "stop"))
+    sim = Simulator(cfg, device="cuda")
+    calls = []
+
+    def stop(done):
+        calls.append(done)
+        return "drain" if done >= STOP_ROUNDS else None
+
+    state = sim.init_state()
+    reset_launches()
+    state, history = sim.run(state=state, verbose=False, stop=stop)
+    launches = launch_counts()
+    rounds = [e["round"] for e in sim.checkpoints.read_manifest()["entries"]]
+    log(f"[pipeline] stop at {STOP_ROUNDS} round(s): rounds {[h['round'] for h in history]} "
+        f"resolved, completed {state['completed_rounds']}, manifest rounds {rounds}, hook "
+        f"called at {calls}, _stop_reason {sim._stop_reason!r}; launches {launches}")
+    expect = list(range(1, STOP_ROUNDS + 3))
+    if [h["round"] for h in history] != expect or rounds != expect[-3:]:
+        raise AssertionError("pipeline stop: the rounds in flight did not resolve and save")
+    if sim._stop_reason != "drain" or calls[-1] != STOP_ROUNDS:
+        raise AssertionError(f"pipeline stop: reason {sim._stop_reason!r}, calls {calls}")
+    require_kernel("pipeline stop", cfg, launches, len(history))
+
+
+def pipeline_cli_run(workdir: str) -> None:
+    """Phase 13 f: the server with --no-wait --pipeline-depth 2 on the
+    cut config.yaml, in this process so that its launches are counted.
+    The pipelined executor writes to app.log only a failed round's
+    warning, as JAX's (its run has no start line and no validation
+    line)."""
+    path = surface_yaml(workdir)
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["server", "--config", path, "--no-wait", "--pipeline-depth", "2",
+                       "--rounds", str(SURFACE_CUT["num-round"])])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(os.path.join(workdir, "app.log")) as fh:
+        lines = [line.split(" - ", 1)[1] for line in fh.read().splitlines()]
+    finished = f"Finished: {SURFACE_CUT['num-round']} successful rounds."
+    log(f"[pipeline] server --no-wait --pipeline-depth 2 --rounds {SURFACE_CUT['num-round']}: "
+        f"exit {rc} in {seconds:.3f} s (construction included); {finished!r} printed: "
+        f"{finished in out.getvalue()}; app.log {lines}; launches {launches}")
+    if rc != 0 or finished not in out.getvalue():
+        raise AssertionError(f"pipeline cli: exit {rc}, output {out.getvalue()[-500:]!r}")
+    if not all(re.fullmatch(r"WARNING - Round \d+ failed \(retry \d+\)", line)
+               for line in lines):
+        raise AssertionError(f"pipeline cli: app.log holds {lines}")
+    require_kernel("pipeline cli", load_config(path), launches,
+                   SURFACE_CUT["num-round"] + len(lines))
+
+
+def pipeline_phase() -> dict:
+    """Phase 13: runs a-f.  Returns the launches of a's depth runs."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    try:
+        marks = [time.perf_counter()]
+        launches = pipeline_depth_runs()
+        marks.append(time.perf_counter())
+        pipeline_fault_runs(root)
+        marks.append(time.perf_counter())
+        pipeline_checkpoint_runs(root)
+        marks.append(time.perf_counter())
+        pipeline_hyper_run(root)
+        marks.append(time.perf_counter())
+        pipeline_stop_run(root)
+        marks.append(time.perf_counter())
+        cli_dir = os.path.join(root, "cli")
+        os.makedirs(cli_dir)
+        pipeline_cli_run(cli_dir)
+        marks.append(time.perf_counter())
+        log("[phase 13] " + ", ".join(f"{k} {b - a:.1f} s" for k, a, b in
+                                      zip("abcdef", marks, marks[1:])))
+    finally:
+        shutil.rmtree(root)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2185,6 +2551,11 @@ def main() -> int:
         t0 = time.perf_counter()
         phase()
         log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pipeline_launches = pipeline_phase()
+    log(f"[pipelined executor] phase done in {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        k["launches"] += pipeline_launches.get(k["name"], 0)
     log(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,6 +14,8 @@ import time
 import pytest
 import torch
 
+from _torch_port_threads import one_torch_thread  # noqa: F401
+
 from attackfl_tpu_torch.config import AttackSpec, Config, MeshConfig
 from attackfl_tpu_torch.faults.plan import parse_fault_plan
 from attackfl_tpu_torch.ops import pytree as pt

@@ -28,6 +28,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from _torch_port_models import JaxDropoutOff, dropout_off
+from _torch_port_threads import one_torch_thread  # noqa: F401
 from attackfl_tpu.data.synthetic import get_dataset as jax_get_dataset
 from attackfl_tpu.eval.validation import evaluate_icu as jax_evaluate_icu
 from attackfl_tpu.models import har as jhar

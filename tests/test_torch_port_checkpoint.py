@@ -14,6 +14,7 @@ import os
 
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from attackfl_tpu.config import AttackSpec as JaxAttackSpec
 from attackfl_tpu.config import Config as JaxConfig

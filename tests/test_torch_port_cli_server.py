@@ -6,7 +6,8 @@ rendezvous of ``attackfl_tpu/cli.py:56-310``) and ``{log_path}/app.log``
 Registrations written by either package's client are read by either
 package's server into the same attack specs; every flag of JAX's
 ``server_main`` sets the Config field JAX's sets, and the engine refuses
-the unported ones, naming their ROADMAP item; a server run from three
+the unported ones, naming their ROADMAP item (``--pipeline`` and
+``--pipeline-depth`` run the pipelined executor); a server run from three
 registrations prints JAX's ``Finished`` line; a 3-broadcast run of each
 package under ``nan_storm@2`` writes the same ``app.log`` lines once the
 timestamps are cut and the numbers masked.
@@ -16,7 +17,7 @@ import os
 import re
 
 import pytest
-import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from attackfl_tpu import cli as jcli
 from attackfl_tpu.config import Config as JaxConfig
@@ -26,6 +27,7 @@ from attackfl_tpu.training.engine import Simulator as JaxSimulator
 from attackfl_tpu_torch import cli
 from attackfl_tpu_torch.config import Config
 from attackfl_tpu_torch.faults.plan import parse_fault_plan
+from attackfl_tpu_torch.training import engine
 from attackfl_tpu_torch.training.engine import Simulator
 
 YAML = ("server: {num-round: 2, clients: 3, data-name: ICU, model: TransformerModel,\n"
@@ -34,17 +36,6 @@ YAML = ("server: {num-round: 2, clients: 3, data-name: ICU, model: TransformerMo
         "learning: {epoch: 1, batch-size: 16}\n"
         "tpu: {local-backend: pallas}\n"
         "log_path: {log}\n")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These rounds are many small tensor ops: on one thread they run as
-    fast as on all cores, and they do not spin the cores that the test
-    workers beside them use.  The thread count is restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _yaml(tmp_path, name="cfg.yaml") -> str:
@@ -112,9 +103,28 @@ def test_coordinator_without_no_wait_exits_1(tmp_path, capsys):
     assert "--coordinator requires --no-wait" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("flags,depth", [(["--pipeline"], 1), (["--pipeline-depth", "2"], 2)])
+def test_pipeline_flags_reach_the_config_and_run(flags, depth, tmp_path, capsys, monkeypatch):
+    """``--pipeline`` and ``--pipeline-depth K`` set ``Config.pipeline``
+    (and its depth) and the run goes through the pipelined executor."""
+    runs = []
+    run = engine.Simulator.run
+
+    def recording(sim, *args, **kwargs):
+        state, history = run(sim, *args, **kwargs)
+        runs.append((sim.cfg, history))
+        return state, history
+
+    monkeypatch.setattr(engine.Simulator, "run", recording)
+    assert cli.main(["server", "--config", _yaml(tmp_path), "--device", "cpu", "--no-wait",
+                     "--rounds", "2", *flags]) == 0
+    (cfg, history), = runs
+    assert cfg.pipeline and cfg.pipeline_depth == depth
+    assert [h["pipelined"] for h in history] == [True, True]
+    assert "\033[92mFinished: 2 successful rounds.\033[0m" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--pipeline"], "item 13"),
-    (["--pipeline-depth", "2"], "item 13"),
     (["--monitor"], "item 16"),
     (["--monitor-port", "0"], "item 16"),
     (["--profile-rounds", "1:2"], "item 16"),

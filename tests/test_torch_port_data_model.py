@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from attackfl_tpu.config import config_from_dict as jax_config_from_dict
 from attackfl_tpu.config import load_config as jax_load_config

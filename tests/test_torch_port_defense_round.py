@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from attackfl_tpu.config import AttackSpec as JaxAttackSpec
 from attackfl_tpu.config import Config as JaxConfig

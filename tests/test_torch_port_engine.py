@@ -4,6 +4,7 @@ import math
 
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from attackfl_tpu_torch import cli
 from attackfl_tpu_torch.config import (
@@ -51,7 +52,7 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("override", [
     {"mesh": MeshConfig(num_devices=2)},
-    {"pipeline": True},
+    {"telemetry": TelemetryConfig(numerics=True)},
     {"telemetry": TelemetryConfig(monitor=True)},
 ])
 def test_outside_the_slice_is_refused(override):
@@ -123,12 +124,16 @@ def test_hyper_refusals_of_the_jax_package_stay(override, match):
 
 
 def test_hyper_takes_bf16_and_faults_and_keeps_the_pipeline_refusal():
-    """Hyper mode takes bf16 and a fault plan as the plain round does;
-    the pipelined executor stays refused (ROADMAP queue 1, item 13)."""
+    """Hyper mode takes bf16, a fault plan and the pipelined executor as
+    the plain round does; the multi-GPU client axis and the monitor stay
+    refused (ROADMAP queue 1, items 14 and 16)."""
     hyper = {**SMALL, "mode": "hyper", "local_backend": "xla"}
     check_slice(Config(**hyper, mesh=MeshConfig(compute_dtype="bfloat16")))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        check_slice(Config(**hyper, pipeline=True))
+    check_slice(Config(**hyper, pipeline=True, pipeline_depth=2))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        check_slice(Config(**hyper, pipeline=True, mesh=MeshConfig(num_devices=2)))
+    with pytest.raises(NotImplementedError, match="item 16"):
+        check_slice(Config(**hyper, pipeline=True, telemetry=TelemetryConfig(monitor=True)))
     cfg = Config(**hyper, faults=parse_fault_plan("nan_storm@2:clients=1;dropout@3"))
     check_slice(cfg)
     assert [s.kind for s in cfg.faults] == ["nan_storm", "dropout"]

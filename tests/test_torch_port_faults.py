@@ -34,6 +34,7 @@ import torch
 from _torch_port_models import (
     JaxDropoutOff, as_t, dropout_off, jax_perms, max_err, seeded_params,
 )
+from _torch_port_threads import one_torch_thread  # noqa: F401
 from attackfl_tpu.config import AttackSpec as JaxAttackSpec
 from attackfl_tpu.config import Config as JaxConfig
 from attackfl_tpu.config import MeshConfig as JaxMeshConfig

@@ -34,6 +34,7 @@ import re
 import numpy as np
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from attackfl_tpu_torch.config import AttackSpec, Config, HyperDetectionConfig, MeshConfig
 from attackfl_tpu_torch.data.partition import draw_round
@@ -51,17 +52,6 @@ SMALL = dict(num_round=3, total_clients=8, mode="fedavg", model="TransformerMode
              train_size=256, test_size=128, attacks=(LIE,))
 # the keys of a synchronous round's entry that are not metrics
 RUN_ONLY = ("round", "broadcast", "seconds", "ok")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These rounds are many small tensor ops: on one thread they run as
-    fast as on all cores, and they do not spin the cores that the test
-    workers beside them use.  The thread count is restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _cfg(tmp_path, **kw) -> Config:

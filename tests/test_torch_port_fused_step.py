@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from attackfl_tpu.models.icu import TransformerModel as JaxTransformerModel
 from attackfl_tpu.ops import fused_step as jfs

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from attackfl_tpu.data.synthetic import get_dataset as jax_get_dataset
 from attackfl_tpu.eval.validation import evaluate_hyper_cifar as jax_evaluate_hyper_cifar

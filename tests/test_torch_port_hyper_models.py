@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from attackfl_tpu.models import icu as jicu
 from attackfl_tpu.models.hyper import make_cnn_hyper as jax_make_cnn_hyper

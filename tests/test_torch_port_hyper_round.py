@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from _torch_port_models import JaxDropoutOff, as_dtype, as_t, dropout_off, jax_perms
 from attackfl_tpu.config import AttackSpec as JaxAttackSpec

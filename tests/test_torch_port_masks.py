@@ -14,6 +14,7 @@ kernel itself is held against the plain version on the card
 
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from attackfl_tpu_torch.models.icu import TransformerModel
 from attackfl_tpu_torch.ops import fused_step as tfs

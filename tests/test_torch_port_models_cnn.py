@@ -32,6 +32,7 @@ the round's keys), so one JAX compile serves both checks.
 
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from _torch_port_icu_suite import (  # noqa: F401  (collected here)
     rounds, train_np,

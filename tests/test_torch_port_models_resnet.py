@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from _torch_port_models import (
     both_rounds, max_err, one_step_both, port_local_update, seeded_params,

@@ -6,6 +6,7 @@ float32 check, which the float32 round already makes.
 """
 
 import pytest
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from _torch_port_icu_suite import (  # noqa: F401  (collected here)
     rounds, train_np,

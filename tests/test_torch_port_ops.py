@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from attackfl_tpu.eval.validation import roc_auc as jax_roc_auc
 from attackfl_tpu.ops import aggregators as jagg

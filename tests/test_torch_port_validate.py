@@ -13,6 +13,7 @@ import shutil
 
 import pytest
 import torch
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 from attackfl_tpu_torch import cli, validate_kernels
 from attackfl_tpu_torch.ops import build, fused_step
