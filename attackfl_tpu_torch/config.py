@@ -63,9 +63,10 @@ def parse_profile_rounds(spec: str) -> tuple[int, int] | None:
 
 @dataclass(frozen=True)
 class TelemetryConfig:
-    """Observability knobs.  The port writes no event log yet; the
-    opt-in features (monitor, numerics, profiling windows) are refused by
-    the engine."""
+    """Observability knobs: the event log (``events.jsonl``), the Chrome
+    trace (``trace.json``), the counters and the cross-run ledger, under
+    ``log_path`` unless a path is given.  The opt-in features (monitor,
+    numerics, profiling windows, hotspots) are refused by the engine."""
 
     enabled: bool = True
     sample_every: int = 1

@@ -127,16 +127,20 @@ class Validation:
     """The reference's ``Validation.test`` surface (src/Validation.py).
     ``logger``: a ``telemetry.Logger``; :meth:`test` writes its metrics
     line to ``app.log`` through it (JAX validation.py:187-190), the hyper
-    and async evaluations write nothing, as JAX's."""
+    and async evaluations write nothing, as JAX's.  ``telemetry``: a
+    failed synchronous validation raises ``validation_failures`` and
+    writes a ``validation`` event (JAX validation.py:172-181); the engine
+    records the async ones when it resolves them."""
 
     def __init__(self, model, data_name: str, test_data: dict[str, np.ndarray],
-                 device: torch.device, logger=None):
+                 device: torch.device, logger=None, telemetry=None):
         if data_name not in EVALUATORS:
             raise ValueError(f"Data name '{data_name}' is not valid.")
         self.data_name = data_name
         self.evaluate = EVALUATORS[data_name]
         self.model = model
         self.logger = logger
+        self.telemetry = telemetry
         self.test_data = {k: torch.as_tensor(v, device=device)
                           for k, v in test_data.items()}
 
@@ -144,7 +148,14 @@ class Validation:
         ok, metrics = self._result(self.evaluate(self.model, params, self.test_data))
         if self.logger:
             self.logger.log_info(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+        self._record(ok, metrics)
         return ok, metrics
+
+    def _record(self, ok: bool, metrics: dict[str, float]) -> None:
+        if self.telemetry is None or not self.telemetry.enabled or ok:
+            return
+        self.telemetry.counters.inc("validation_failures")
+        self.telemetry.events.emit("validation", ok=False, data_name=self.data_name, **metrics)
 
     def test_hyper(self, stacked: Any) -> tuple[bool, dict[str, float]]:
         """Hyper mode: the pooled evaluation of the stacked per-client
@@ -153,8 +164,10 @@ class Validation:
         ``Validation.test_hyper`` does (validation.py:222-224)."""
         if self.data_name not in HYPER_EVALUATORS:
             raise ValueError(f"Not found hyper test function for data name {self.data_name}")
-        return self._result(HYPER_EVALUATORS[self.data_name](self.model, stacked,
-                                                             self.test_data))
+        ok, metrics = self._result(HYPER_EVALUATORS[self.data_name](self.model, stacked,
+                                                                    self.test_data))
+        self._record(ok, metrics)
+        return ok, metrics
 
     def test_async(self, params: Any) -> dict[str, torch.Tensor]:
         """Start the evaluation and return its dict of device tensors

@@ -10,10 +10,9 @@ the device, with no device-to-host sync (JAX inject.py:248-277).
 Host side: :class:`HostFaultInjector` is the one object the checkpoint
 manager, the async writer's wiring and the round loop consult (JAX
 inject.py:297-398).  It owns the consumable state (the remaining
-``ckpt_write_error`` budgets, the fired-once latches).  Where the JAX
-package emits a ``fault`` event, the port, which has no event log yet,
-logs the same fields through its logger and keeps them in
-:attr:`HostFaultInjector.records`.
+``ckpt_write_error`` budgets, the fired-once latches).  Each firing is
+a ``fault`` event with the ``faults_injected`` counter, as in the JAX
+package, and is also logged and kept in :attr:`HostFaultInjector.records`.
 """
 
 from __future__ import annotations
@@ -89,8 +88,9 @@ class HostFaultInjector:
     without those layers (``maybe_stall_monitor`` returns on a missing
     monitor)."""
 
-    def __init__(self, plan: Sequence[FaultSpec]):
+    def __init__(self, plan: Sequence[FaultSpec], telemetry=None):
         self._plan = tuple(plan)
+        self._tel = telemetry
         self._write_errors: dict[int, int] = {}
         for spec in self._plan:
             if spec.kind == "ckpt_write_error":
@@ -106,6 +106,9 @@ class HostFaultInjector:
         record = {"fault": kind, "action": "injected", "round": round_no, **details}
         self.records.append(record)
         log.warning("fault %s", json.dumps(record, sort_keys=True))
+        if self._tel is not None:
+            self._tel.counters.inc("faults_injected")
+            self._tel.events.emit("fault", **record)
 
     def note_round_resolved(self, broadcast_number: int) -> None:
         """Record the device-side injections of a broadcast once its round

@@ -78,10 +78,22 @@ rounds (between chunks under ``run_fast``, before each dispatch in the
 pipeline), a truthy verdict ends the run at that boundary, the rounds in
 flight still resolving and checkpointing, and a string verdict is kept
 as ``_stop_reason``.
+
+Telemetry (JAX engine.py:1066-1356): with ``telemetry.enabled``, the
+default, every executor writes the JAX package's event stream to
+``{log_path}/events.jsonl`` (``ATTACKFL_TELEMETRY_DIR`` overrides the
+directory), its host spans to ``trace.json``, and one record a run to the
+cross-run ledger (``{log_path}/ledger``), which ``pipeline_depth: auto``
+reads.  Only values the host already holds are recorded: a synchronous
+round's phases end in a sync only where JAX's block (``aggregate``,
+``hyper_update``), and the fused and pipelined paths read nothing more.
+A round's ``attacks_active`` and ``phases`` are in its history entry
+whatever the setting, as in JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import math
@@ -100,15 +112,20 @@ from attackfl_tpu_torch.data.synthetic import get_dataset
 from attackfl_tpu_torch.device import resolve_device
 from attackfl_tpu_torch.eval.validation import METRIC_KEYS, Validation
 from attackfl_tpu_torch.faults.inject import HostFaultInjector
+from attackfl_tpu_torch.ledger.record import derive_record, git_revision
+from attackfl_tpu_torch.ledger.store import LedgerStore, resolve_ledger_dir
 from attackfl_tpu_torch.models.hyper import make_hypernetwork
-from attackfl_tpu_torch.ops import defenses
+from attackfl_tpu_torch.ops import build, defenses
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.registry import get_model
 from attackfl_tpu_torch.telemetry.console import Logger, print_with_color
+from attackfl_tpu_torch.telemetry.core import Telemetry
+from attackfl_tpu_torch.telemetry.timing import RoundTimer
 from attackfl_tpu_torch.training.hyper import build_hyper_round, build_hyper_update
 from attackfl_tpu_torch.training.round import (
-    ROOT_SIZE, attacking_groups, build_aggregator, build_attack_groups, build_round_step,
-    leak_size,
+    ROOT_SIZE, active_attack_modes, active_attacker_indices, attacking_groups,
+    build_aggregator, build_attack_groups, build_attribution_fn, build_round_step,
+    describe_attack_groups, leak_size,
 )
 from attackfl_tpu_torch.utils import checkpoint as ckpt
 from attackfl_tpu_torch.utils.fingerprint import config_fingerprint
@@ -188,7 +205,9 @@ def check_slice(cfg: Config) -> None:
     validation, local_backend xla (in float32, bfloat16 or float16) or,
     for TransformerModel, pallas (the config refuses it for the others,
     for hyper and for a compute-dtype other than float32); the
-    synchronous, fused and pipelined executors."""
+    synchronous, fused and pipelined executors; the event log, trace,
+    counters and ledger.  The numerics ring, the monitor and the profiling
+    and hotspot windows are refused."""
     if MODEL_DATA.get(cfg.model) != cfg.data_name:
         raise ValueError(f"model {cfg.model!r} does not run on {cfg.data_name!r}; the "
                          f"models and their datasets: {MODEL_DATA}")
@@ -196,7 +215,7 @@ def check_slice(cfg: Config) -> None:
         _refuse("the multi-GPU client axis", "item 14")
     tel = cfg.telemetry
     if tel.monitor or tel.numerics or tel.profile_rounds or tel.hotspots:
-        _refuse("telemetry (monitor, numerics, profiling windows)", "item 16")
+        _refuse("telemetry (monitor, numerics, profiling windows, hotspots)", "item 16b")
 
 
 def host_filter(mode: str, stacked: dict, attacker_mask: np.ndarray,
@@ -225,6 +244,25 @@ class Simulator:
         self.device = resolve_device(device)
         # opened once the config and the device are accepted
         self.logger = logger or Logger(f"{cfg.log_path}/app.log")
+        # the event log, tracer and counters (JAX engine.py:275-296); inert
+        # with telemetry.enabled false
+        self.telemetry = Telemetry.from_config(cfg)
+        self._header_emitted = False
+        self._header_record: dict[str, Any] | None = None
+        # the cross-run ledger (JAX engine.py:363-386): one record per run,
+        # derived from this run's slice of events.jsonl and of the spans
+        self._ledger = None
+        self._ledger_events_offset = 0
+        self._ledger_trace_offset = 0
+        if self.telemetry.enabled and cfg.telemetry.ledger:
+            self._ledger = LedgerStore(resolve_ledger_dir(cfg.telemetry.ledger_dir or None,
+                                                          base=self.telemetry.base_dir))
+            if self._ledger.swept_orphans:
+                self.telemetry.counters.inc("orphan_tmp_swept", len(self._ledger.swept_orphans))
+            try:
+                self._ledger_events_offset = os.path.getsize(self.telemetry.events.path)
+            except OSError:
+                self._ledger_events_offset = 0
         self.model = get_model(cfg.model)
         data_seed = cfg.data_seed if cfg.data_seed is not None else cfg.random_seed
         train_np = get_dataset(cfg.data_name, "train", cfg.train_size, data_seed)
@@ -246,7 +284,7 @@ class Simulator:
         for grp in self.attack_groups:
             self.attacker_mask[list(grp.indices)] = True
         self.validation = (Validation(self.model, cfg.data_name, test_np, self.device,
-                                      self.logger)
+                                      self.logger, telemetry=self.telemetry)
                            if cfg.validation else None)
         self.num_params = sum(x.numel() for x in self.model.parameters())
         self.is_hyper = cfg.mode == "hyper"
@@ -272,17 +310,28 @@ class Simulator:
             self.round_step = build_round_step(self.model, cfg, self.train_data,
                                                self.attack_groups, self.genuine_idx)
             self.aggregate = build_aggregator(self.model, cfg, self.test_data)
+        # the defense's per-round verdict against the attackers, built only
+        # when its events are recorded (JAX engine.py:470-481); gmm and
+        # fltracer hold their keep mask on the host already
+        self._attribution = None
+        if (not self.is_hyper and self.telemetry.enabled and self.attack_groups
+                and cfg.mode not in ("gmm", "fltracer")):
+            self._attribution = build_attribution_fn(self.model, cfg, self.test_data)
         # the plan's host-side faults (the device-side ones are in round_step)
-        self.fault_injector = HostFaultInjector(cfg.faults) if cfg.faults else None
+        self.fault_injector = (HostFaultInjector(cfg.faults, self.telemetry)
+                               if cfg.faults else None)
         # temp files of killed writes go before any new checkpoint activity
         swept = ckpt.sweep_orphans(cfg.checkpoint_dir)
         if swept:
+            self.telemetry.counters.inc("orphan_tmp_swept", len(swept))
             print(f"[checkpoint] swept {len(swept)} orphaned temp file(s) from "
                   f"{cfg.checkpoint_dir or '.'}", flush=True)
         self.checkpoints = ckpt.CheckpointManager(
             ckpt.checkpoint_path(cfg), fingerprint=config_fingerprint(cfg),
             keep=cfg.checkpoint_keep, fresh=not (cfg.resume or cfg.load_parameters),
-            injector=self.fault_injector)
+            injector=self.fault_injector, telemetry=self.telemetry)
+        # the `resume` event's payload, written after the run header
+        self._resume_info: dict[str, Any] | None = None
         self.checkpoint_writer = None
         if cfg.checkpoint_async:
             self.checkpoint_writer = ckpt.AsyncCheckpointWriter(
@@ -364,19 +413,31 @@ class Simulator:
         """``resume``: the newest valid manifest entry (a torn one falls
         back to the entry before), or None when there is none."""
         result = self.checkpoints.load_latest(self.host_state(self.init_state()))
-        for entry, reason in result.rejected:
-            print(f"[resume] rejected checkpoint {entry.get('file')}: {reason[:200]}",
-                  flush=True)
+        rejected = [{"file": entry.get("file"), "round": entry.get("round"),
+                     "reason": reason[:200]} for entry, reason in result.rejected]
+        if rejected:
+            self.telemetry.counters.inc("checkpoint_fallbacks", len(rejected))
+        for item in rejected:
+            print(f"[resume] rejected checkpoint {item['file']}: {item['reason']}", flush=True)
         if result.state is None:
             print("[resume] no valid checkpoint entry found under "
                   f"{self.checkpoints.directory!r}; starting fresh", flush=True)
+            self._resume_info = None
             return None
         manifest = result.manifest or {}
-        if manifest.get("fingerprint") and manifest["fingerprint"] != self.checkpoints.fingerprint:
+        fingerprint_match = (manifest["fingerprint"] == self.checkpoints.fingerprint
+                             if manifest.get("fingerprint") else None)
+        if fingerprint_match is False:
             log.warning("[resume] config fingerprint mismatch: this checkpoint was written "
                         "under another experiment config; resuming because the state "
                         "structure matched, but verify the config")
         state = self.restore_state(result.state)
+        self._resume_info = {
+            "round": int(state["completed_rounds"]), "broadcast": int(state["broadcasts"]),
+            "path": os.path.join(self.checkpoints.directory,
+                                 str((result.entry or {}).get("file", ""))),
+            "source_run_id": manifest.get("run_id", ""),
+            "fingerprint_match": fingerprint_match, "rejected": rejected}
         print(f"[resume] continuing from round {state['completed_rounds']} "
               f"({(result.entry or {}).get('file')})", flush=True)
         return state
@@ -406,24 +467,38 @@ class Simulator:
         loop, and handed to the writer's thread: True once submitted."""
         meta = {"round": state["completed_rounds"], "broadcast": state["broadcasts"]}
         writer = self.checkpoint_writer
+        tel = self.telemetry
         if self.fault_injector is not None:
             self.fault_injector.maybe_kill_writer(meta["round"], writer)
-        if writer is None:
-            return self.checkpoints.write(self.host_state(state), meta)
-        writer.submit(self.checkpoints.path, ckpt.host_snapshot(self.host_state(state)), meta)
-        return True
+        # the span's `background` says which writer ran (JAX engine.py:1462-1479)
+        with tel.tracer.span("checkpoint", background=writer is not None):
+            if writer is None:
+                written = self.checkpoints.write(self.host_state(state), meta)
+            else:
+                writer.submit(self.checkpoints.path,
+                              ckpt.host_snapshot(self.host_state(state)), meta)
+                tel.counters.inc("checkpoint_submits")
+                written = True
+        tel.events.emit("checkpoint", path=self.checkpoints.path, round=meta["round"],
+                        background=writer is not None)
+        return written
 
     def _on_writer_restart(self, restarts: int) -> None:
         """The writer's supervisor revived a dead thread."""
         log.warning("fault %s", json.dumps({"fault": "writer_death", "action": "recovered",
                                              "restarts": restarts}))
+        self.telemetry.counters.inc("checkpoint_writer_restarts")
+        self.telemetry.events.emit("fault", fault="writer_death", action="recovered",
+                                   restarts=restarts)
 
     def close(self) -> None:
-        """Drain and stop the async checkpoint writer.  Safe to call twice;
-        the Simulator still runs afterwards, saving synchronously."""
+        """Drain and stop the async checkpoint writer and close the event
+        log.  Safe to call twice; the Simulator still runs afterwards,
+        saving synchronously (its telemetry then writes nothing)."""
         if self.checkpoint_writer is not None:
             self.checkpoint_writer.close()
             self.checkpoint_writer = None
+        self.telemetry.close()
 
     def _reload_params(self, state: dict[str, Any]) -> dict[str, Any]:
         """``reload_parameters_per_round`` (reference server.py:578-586):
@@ -439,7 +514,136 @@ class Simulator:
         if self._reload_cache is None or self._reload_cache[0] != key:
             host = ckpt.load_state(path, self.host_state(state), self.device)
             self._reload_cache = (key, host["global_params"])
+            self.telemetry.counters.inc("reload_cache_misses")
+        else:
+            self.telemetry.counters.inc("reload_cache_hits")
         return dict(state, global_params=self._reload_cache[1])
+
+    # ------------------------------------------------------------------
+    # telemetry
+    # ------------------------------------------------------------------
+
+    def _emit_run_header(self) -> None:
+        """The run's first event (JAX ``_emit_run_header``,
+        engine.py:1069-1152): the config, the backend under JAX's names
+        (``gpu`` on the card, ``cpu``), the attackers and the resolved
+        pipeline depth; then the ``resume`` event of a resumed run.
+        Host-known values only."""
+        tel = self.telemetry
+        if self._header_emitted or not tel.enabled:
+            return
+        self._header_emitted = True
+        backend = "gpu" if self.device.type == "cuda" else "cpu"
+        depth = ({"pipeline_depth": int(self._depth_resolved),
+                  "pipeline_depth_configured": str(self.cfg.pipeline_depth)}
+                 if self._depth_resolved is not None else {})
+        self._header_record = tel.events.emit(
+            "run_header", backend=backend, num_devices=1, mode=self.cfg.mode,
+            model=self.cfg.model, data_name=self.cfg.data_name,
+            total_clients=self.cfg.total_clients,
+            attacks=describe_attack_groups(self.attack_groups),
+            torch_version=torch.__version__, platform=backend, git_rev=git_revision(),
+            fault_plan=[spec.describe() for spec in self.cfg.faults],
+            config=dataclasses.asdict(self.cfg), **depth)
+        if self._resume_info is not None:
+            # the boundary the resumed run continues from: its own round
+            # events start at round + 1
+            tel.events.emit("resume", **self._resume_info)
+            self._resume_info = None
+
+    def _emit_attribution(self, metrics: dict[str, Any], global_params: dict, stacked: dict,
+                          sizes: torch.Tensor, weights_mask: torch.Tensor,
+                          broadcast_number: int, have_genuine: bool,
+                          defense_mask: np.ndarray | None, draws, timer: RoundTimer) -> None:
+        """The defense's verdict against the round's attackers, the
+        ``attribution`` event (JAX ``_emit_attribution``,
+        engine.py:1154-1200): gmm's and fltracer's host mask, or the
+        attribution function on this round's own ``draws``.  The per-round
+        path only: a fused chunk is one opaque dispatch."""
+        tel = self.telemetry
+        if not (tel.enabled and self.attack_groups):
+            return
+        if self._attribution is None and defense_mask is None:
+            return
+        with timer.phase("attribution"):
+            if self._attribution is not None:
+                keep, scores = self._attribution(global_params, stacked, sizes, weights_mask,
+                                                 draws)
+                keep, scores = keep.cpu().numpy(), scores.to(torch.float64).cpu().numpy()
+            else:
+                keep = scores = defense_mask
+            keep = np.asarray(keep).astype(bool)
+            scores = np.asarray(scores, dtype=np.float64)
+            reporting = sizes.cpu().numpy() > 0
+        active = active_attacker_indices(self.attack_groups, broadcast_number, have_genuine)
+        removed = [int(i) for i in np.flatnonzero(reporting & ~keep)]
+        metrics["defense_removed"] = len(removed)
+        tel.events.emit(
+            "attribution", round=metrics["round"], broadcast=broadcast_number,
+            mode=self.cfg.mode, attackers=[int(i) for i in active if reporting[i]],
+            kept=[int(i) for i in np.flatnonzero(reporting & keep)], removed=removed,
+            non_reporting=[int(i) for i in np.flatnonzero(~reporting)],
+            scores={str(i): round(float(v), 6) for i, v in enumerate(scores)})
+
+    @staticmethod
+    def _count_nan_clients(stacked: dict) -> int:
+        """How many clients' rows hold a non-finite value: the failure
+        path only (JAX engine.py:1202-1211)."""
+        flat = pt.tree_ravel_stacked(stacked)
+        return int(torch.sum(~torch.all(torch.isfinite(flat), dim=1)))
+
+    def _emit_run_end(self, history: list[dict[str, Any]], t_start: float) -> None:
+        """The counters and ``run_end`` (with the stop hook's reason), then
+        the trace file (JAX ``_emit_run_end``, engine.py:1248-1285)."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        tel.events.emit("counters", counters=tel.counters.snapshot())
+        tel.events.emit("run_end", rounds=len(history),
+                        ok_rounds=sum(1 for h in history if h.get("ok")),
+                        seconds=round(time.perf_counter() - t_start, 6),
+                        **({"stop_reason": self._stop_reason} if self._stop_reason else {}))
+        tel.flush()
+
+    def _append_ledger_record(self) -> None:
+        """Distill this run's slice of ``events.jsonl`` and of the spans
+        into one ledger record and append it (JAX ``_append_ledger_record``,
+        engine.py:1286-1356).  The byte and span offsets taken after the
+        previous append isolate each ``run`` call's slice.  It fails open:
+        a ledger that cannot be written raises ``ledger_append_failures``
+        and prints a yellow line, and the run's result stands."""
+        if self._ledger is None or not self.telemetry.enabled:
+            return
+        try:
+            with open(self.telemetry.events.path, "rb") as fh:
+                fh.seek(self._ledger_events_offset)
+                tail = fh.read().decode("utf-8", errors="replace")
+                self._ledger_events_offset = fh.tell()
+            slice_events = []
+            for line in tail.splitlines():
+                try:
+                    record = json.loads(line)
+                except ValueError:
+                    continue
+                if isinstance(record, dict):
+                    slice_events.append(record)
+            if (self._header_record is not None
+                    and not any(e.get("kind") == "run_header" for e in slice_events)):
+                slice_events.insert(0, self._header_record)
+            spans = self.telemetry.tracer._events
+            trace_events = spans[self._ledger_trace_offset:]
+            self._ledger_trace_offset = len(spans)
+            record = derive_record(slice_events, trace_events=trace_events,
+                                   fingerprint=self.checkpoints.fingerprint)
+            if record is None:
+                return
+            rid = self._ledger.append(record)
+            self.telemetry.counters.inc("ledger_records_appended")
+            self.telemetry.events.emit("ledger", record_id=rid, ledger_path=self._ledger.path)
+        except Exception as e:  # noqa: BLE001 — observability fails open
+            self.telemetry.counters.inc("ledger_append_failures")
+            print_with_color(f"[ledger] append failed (run unaffected): "
+                             f"{type(e).__name__}: {e}", "yellow")
 
     def draw_round(self, gen: torch.Generator, leak_pool: torch.Tensor | None = None):
         """One round's draws; ``leak_pool``: under hyper mode's detector,
@@ -468,8 +672,9 @@ class Simulator:
 
     def _resolve_inflight_validations(self) -> None:
         """Read the async validations in flight and fold each into its
-        round's history entry, with ``validation_ok``; the verdict does
-        not gate the round (JAX engine.py:1358-1373)."""
+        round's history entry, with ``validation_ok``, and into a
+        ``validation`` event; the verdict does not gate the round (JAX
+        engine.py:1358-1373)."""
         while self._inflight_validations:
             entry, round_no, out = self._inflight_validations.pop(0)
             val_ok, val_metrics = self.validation.resolve_async(out)
@@ -477,6 +682,10 @@ class Simulator:
             entry["validation_ok"] = val_ok
             if not val_ok:
                 log.warning("async validation of round %d failed: %s", round_no, val_metrics)
+                self.telemetry.counters.inc("validation_failures")
+            self.telemetry.events.emit("validation", ok=val_ok, round=round_no,
+                                       data_name=self.validation.data_name, background=True,
+                                       **val_metrics)
 
     def run_round(self, state: dict[str, Any]) -> tuple[dict[str, Any], dict[str, Any]]:
         """Broadcast -> train -> attack -> defend and aggregate -> validate.
@@ -484,7 +693,9 @@ class Simulator:
         Returns (new_state, metrics).  On failure (``metrics["ok"]``
         False) the new state keeps the previous global params but advances
         the generator, the broadcast clock and the genuine-leak pool
-        (reference retry path, server.py:546-567)."""
+        (reference retry path, server.py:546-567).  The round runs under a
+        ``round`` span and writes a ``round`` event."""
+        self._emit_run_header()
         # the validations started last round resolve here, after the card
         # had the host's window between rounds to run them
         self._resolve_inflight_validations()
@@ -495,51 +706,91 @@ class Simulator:
         broadcast_number = state["broadcasts"] + 1
         metrics: dict[str, Any] = {"round": state["completed_rounds"] + 1,
                                    "broadcast": broadcast_number}
-        if self.is_hyper:
-            new_state, metrics = self._run_hyper_round(state, broadcast_number, metrics)
-        else:
-            new_state, metrics = self._run_plain_round(state, broadcast_number, metrics)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with self.telemetry.tracer.span("round", round=metrics["round"],
+                                        broadcast=broadcast_number):
+            if self.is_hyper:
+                new_state, metrics = self._run_hyper_round(state, broadcast_number, metrics)
+            else:
+                new_state, metrics = self._run_plain_round(state, broadcast_number, metrics)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         metrics["seconds"] = time.perf_counter() - t0
+        self.telemetry.events.round_event(metrics)
         return new_state, metrics
+
+    def _note_nan_round(self, metrics: dict[str, Any], stacked: dict) -> None:
+        """A train-failed round's counters and its ``nan_clients`` (JAX
+        engine.py:1565-1572): counted on the failure path only."""
+        tel = self.telemetry
+        tel.counters.inc("nan_train_rounds")
+        if tel.enabled:
+            metrics["nan_clients"] = self._count_nan_clients(stacked)
+            tel.counters.inc("nan_clients_detected", metrics["nan_clients"])
 
     def _run_plain_round(self, state: dict[str, Any], broadcast_number: int,
                          metrics: dict[str, Any]) -> tuple[dict[str, Any], dict[str, Any]]:
-        draws = self.draw_round(state["rng"])
-        stacked, sizes, new_genuine, ok, loss = self.round_step(
-            state["global_params"], state["prev_genuine"], state["have_genuine"],
-            draws, broadcast_number)
-        ok = train_ok = bool(ok)
+        """One round of an aggregating mode, its phases timed as JAX's
+        (engine.py:1551-1672): ``train`` ends in the read of ``ok``,
+        ``defense`` is gmm's or fltracer's host filter, ``attribution``
+        the defense's verdict, ``aggregate`` ends in a sync where JAX
+        blocks, ``validate`` in the validation's read."""
+        tel = self.telemetry
+        timer = RoundTimer(tracer=tel.tracer)
+        if self.attack_groups:
+            metrics["attacks_active"] = active_attack_modes(
+                self.attack_groups, broadcast_number, bool(state["have_genuine"]))
+        with timer.phase("train"):
+            draws = self.draw_round(state["rng"])
+            stacked, sizes, new_genuine, ok, loss = self.round_step(
+                state["global_params"], state["prev_genuine"], state["have_genuine"],
+                draws, broadcast_number)
+            ok = train_ok = bool(ok)
         metrics["train_loss"] = float(loss)
+        if not train_ok:
+            self._note_nan_round(metrics, stacked)
 
         weights_mask = torch.ones(self.cfg.total_clients, device=self.device)
+        defense_mask = None
         if ok and self.cfg.mode in ("gmm", "fltracer"):
-            keep, filter_metrics = host_filter(self.cfg.mode, stacked, self.attacker_mask,
-                                               self.cfg.random_seed)
+            with timer.phase("defense"):
+                keep, filter_metrics = host_filter(self.cfg.mode, stacked, self.attacker_mask,
+                                                   self.cfg.random_seed)
+            tel.counters.inc("defense_transfer_bytes", sum(
+                x.numel() * x.element_size() for x in pt.tree_leaves(stacked)))
+            tel.counters.inc("anomalies_removed", self.cfg.total_clients - int(keep.sum()))
             metrics.update(filter_metrics)
             # the round fails when no client survives (server.py:369-372)
             ok = bool(keep.any())
+            defense_mask = keep
             weights_mask = torch.as_tensor(keep, dtype=torch.float32, device=self.device)
         # the defense's survivors that reported: with stragglers a filter can
         # keep only dropped (size-0) clients, and a weighted mean would be 0/0
         weights_mask = weights_mask * (sizes > 0)
         if ok and not bool(torch.any(weights_mask > 0)):
             ok = False
+        if ok:
+            self._emit_attribution(metrics, state["global_params"], stacked, sizes,
+                                   weights_mask, broadcast_number, bool(state["have_genuine"]),
+                                   defense_mask, draws, timer)
         new_global = state["global_params"]
         if ok:
-            new_global = self.aggregate(state["global_params"], stacked, sizes,
-                                        weights_mask, draws)
+            with timer.phase("aggregate"):
+                new_global = self.aggregate(state["global_params"], stacked, sizes,
+                                            weights_mask, draws)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
             if self._validation_due(broadcast_number):
                 if self.cfg.validation_async:
                     self._inflight_validations.append(
                         (metrics, metrics["round"], self.validation.test_async(new_global)))
                 else:
-                    val_ok, val_metrics = self.validation.test(new_global)
+                    with timer.phase("validate"):
+                        val_ok, val_metrics = self.validation.test(new_global)
                     metrics.update(val_metrics)
                     ok = ok and val_ok
 
         metrics["ok"] = ok
+        metrics["phases"] = timer.durations
         new_state = dict(state)
         new_state["broadcasts"] = broadcast_number
         # the leak pool absorbs clean training only (selected inside the
@@ -558,37 +809,77 @@ class Simulator:
         validate (JAX engine.py:1673-1800).  The hypernetwork and its Adam
         state change only when the round is ok; a detector removal rolls
         the round's update back and leaves the removed clients inactive
-        for the rest of the run, and the round stays ok."""
-        leak_pool = None
-        if self.detector is not None:
-            # removed clients leave the leak pool; without the detector none is
-            genuine = torch.as_tensor(self.genuine_idx, dtype=torch.int64)
-            leak_pool = torch.nonzero(state["active_mask"][genuine] > 0)[:, 0].to(self.device)
-        draws = self.draw_round(state["rng"], leak_pool)
-        active_mask = state["active_mask"].to(self.device)
-        stacked, sizes, new_genuine, ok, loss = self.round_step(
-            state["hnet_params"], state["prev_genuine"], state["have_genuine"], active_mask,
-            draws, broadcast_number)
-        ok = train_ok = bool(ok)
+        for the rest of the run, and the round stays ok.  Its phases are
+        JAX's ``train``, ``hyper_update`` (ending in a sync where JAX
+        blocks), ``detect`` and ``validate``; a removal writes a
+        ``rollback`` event and the detector's verdict an ``attribution``
+        event (JAX engine.py:1715-1760)."""
+        tel = self.telemetry
+        timer = RoundTimer(tracer=tel.tracer)
+        if self.attack_groups:
+            metrics["attacks_active"] = active_attack_modes(
+                self.attack_groups, broadcast_number, bool(state["have_genuine"]))
+        with timer.phase("train"):
+            leak_pool = None
+            if self.detector is not None:
+                # removed clients leave the leak pool; without the detector none is
+                genuine = torch.as_tensor(self.genuine_idx, dtype=torch.int64)
+                leak_pool = torch.nonzero(state["active_mask"][genuine] > 0)[:, 0].to(
+                    self.device)
+            draws = self.draw_round(state["rng"], leak_pool)
+            active_mask = state["active_mask"].to(self.device)
+            stacked, sizes, new_genuine, ok, loss = self.round_step(
+                state["hnet_params"], state["prev_genuine"], state["have_genuine"],
+                active_mask, draws, broadcast_number)
+            ok = train_ok = bool(ok)
         metrics["train_loss"] = float(loss)
+        if not train_ok:
+            self._note_nan_round(metrics, stacked)
 
         hnet, opt = state["hnet_params"], state["hyper_opt_state"]
         new_active = state["active_mask"].clone()
         if ok:
-            # dropped clients (size 0) skip their step
-            hnet, opt = self.hyper_update(hnet, opt, stacked, active_mask * (sizes > 0))
+            with timer.phase("hyper_update"):
+                # dropped clients (size 0) skip their step
+                hnet, opt = self.hyper_update(hnet, opt, stacked, active_mask * (sizes > 0))
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
             gen = None
             if self.detector is not None:
-                gen, embeddings = self.hnet.generate_all(hnet)
-                selected = torch.nonzero(new_active > 0)[:, 0].tolist()
-                removals = self.detector.observe(broadcast_number, selected,
-                                                 embeddings[selected].cpu().numpy())
+                with timer.phase("detect"):
+                    gen, embeddings = self.hnet.generate_all(hnet)
+                    selected = torch.nonzero(new_active > 0)[:, 0].tolist()
+                    emb_np = embeddings[selected].cpu().numpy()
+                    removals = self.detector.observe(broadcast_number, selected, emb_np)
+                norms = np.linalg.norm(emb_np, axis=1)
+                if tel.enabled:
+                    metrics["embedding_norms"] = {
+                        cid: round(float(v), 6) for cid, v in zip(selected, norms)}
                 if removals:
                     print(f"Removing anomalies {removals}, rolling back", flush=True)
                     metrics["removed_clients"] = removals
+                    tel.counters.inc("anomalies_removed", len(removals))
+                    tel.events.emit("rollback", removed=list(removals),
+                                    broadcast=broadcast_number)
                     new_active[removals] = 0.0
                     hnet, opt = state["hnet_params"], state["hyper_opt_state"]
                     gen = None
+                if tel.enabled and self.attack_groups:
+                    # the detector's verdict on the round's active clients; a
+                    # round without removals is a negative verdict
+                    active = set(active_attacker_indices(
+                        self.attack_groups, broadcast_number, bool(state["have_genuine"])))
+                    removed = {int(c) for c in removals}
+                    metrics["defense_removed"] = len(removed)
+                    tel.events.emit(
+                        "attribution", round=metrics["round"], broadcast=broadcast_number,
+                        mode=self.cfg.mode, source="hyper_detection",
+                        attackers=[c for c in selected if c in active],
+                        kept=[c for c in selected if c not in removed],
+                        removed=sorted(removed),
+                        non_reporting=[c for c in range(self.cfg.total_clients)
+                                       if c not in set(selected)],
+                        scores={str(c): round(float(v), 6) for c, v in zip(selected, norms)})
             if self._validation_due(broadcast_number):
                 if gen is None:
                     gen, _ = self.hnet.generate_all(hnet)
@@ -598,11 +889,13 @@ class Simulator:
                     self._inflight_validations.append(
                         (metrics, metrics["round"], self.validation.test_hyper_async(taken)))
                 else:
-                    val_ok, val_metrics = self.validation.test_hyper(taken)
+                    with timer.phase("validate"):
+                        val_ok, val_metrics = self.validation.test_hyper(taken)
                     metrics.update(val_metrics)
                     ok = ok and val_ok
 
         metrics["ok"] = ok
+        metrics["phases"] = timer.durations
         new_state = dict(state)
         new_state["broadcasts"] = broadcast_number
         new_state["prev_genuine"] = new_genuine
@@ -651,15 +944,23 @@ class Simulator:
         before each round: a truthy verdict ends the run there."""
         num_rounds = num_rounds if num_rounds is not None else self.cfg.num_round
         state = state if state is not None else self.load_or_init_state()
-        if self.cfg.pipeline if pipeline is None else pipeline:
+        self._stop_reason = None
+        use_pipeline = self.cfg.pipeline if pipeline is None else pipeline
+        depth = None
+        if use_pipeline and self.supports_fused():
+            # resolved before the run header, which records it
+            depth = self.resolve_pipeline_depth(save_checkpoints)
+        self._emit_run_header()
+        if use_pipeline:
             if self.supports_fused():
-                depth = self.resolve_pipeline_depth(save_checkpoints)
                 return self._run_pipelined(num_rounds, state, save_checkpoints, verbose,
                                            stop=stop, depth=depth)
             print_with_color(f"[pipeline] mode '{self.cfg.mode}' needs host-side per-round "
                              "work; falling back to the synchronous path.", "yellow")
+        tel = self.telemetry
         history: list[dict[str, Any]] = []
         retries = 0
+        t_start = time.perf_counter()
         self.logger.log_info("### Application start ###")
         try:
             while state["completed_rounds"] < num_rounds:
@@ -682,6 +983,9 @@ class Simulator:
                               flush=True)
                 else:
                     retries += 1
+                    tel.counters.inc("rounds_failed")
+                    tel.counters.inc("rounds_retried")
+                    tel.events.emit("retry", round=round_no, retries=retries)
                     if verbose:
                         print("Training failed!", flush=True)
                     self.logger.log_warning(f"Round {round_no} failed (retry {retries})")
@@ -690,7 +994,7 @@ class Simulator:
                             f"Round {round_no} failed {retries} times; aborting "
                             "(the reference would retry forever, server.py:546-556)")
         finally:
-            self._finish_run()
+            self._finish_run(history, t_start)
         return state, history
 
     # ------------------------------------------------------------------
@@ -898,9 +1202,18 @@ class Simulator:
         from a resumed state) and ``broadcast``.  ``progress``, if given,
         gets ``ok_rounds`` and ``interim_rounds_per_sec_incl_compile``
         after every chunk.  ``stop`` (see :meth:`run`) is consulted
-        between chunks.  Writes nothing to ``app.log``, as JAX's."""
+        between chunks.  Writes nothing to ``app.log``, as JAX's.
+
+        Each chunk runs under a ``chunk`` span and writes a ``chunk`` event
+        and a ``round`` event per entry (JAX engine.py:2177-2221); its time
+        ends at its one read of the card.  ``includes_compile`` is True
+        for a chunk during which a CUDA kernel library was built or
+        loaded: the port compiles no per-program code."""
         num_rounds = num_rounds if num_rounds is not None else self.cfg.num_round
         state = state if state is not None else self.load_or_init_state()
+        tel = self.telemetry
+        self._stop_reason = None
+        self._emit_run_header()
         history: list[dict[str, Any]] = []
         consecutive_failures = 0
         first_dispatch = True
@@ -919,10 +1232,15 @@ class Simulator:
                 else:
                     n = 1
                 first_dispatch = False
+                libraries = build.load_library.cache_info().currsize
                 t0 = time.perf_counter()
-                state, metrics = self.run_scan(state, n)
-                state, host = self._read_chunk(state, metrics)
+                with tel.tracer.span("chunk", chunk_len=n):
+                    state, metrics = self.run_scan(state, n)
+                    state, host = self._read_chunk(state, metrics)
                 elapsed = time.perf_counter() - t0
+                tel.events.emit("chunk", chunk_len=n, seconds=round(elapsed, 6),
+                                includes_compile=build.load_library.cache_info().currsize
+                                > libraries)
                 for i in range(n):
                     entry = {k: (bool(v[i]) if k == "ok" else float(v[i]))
                              for k, v in host.items()}
@@ -931,9 +1249,14 @@ class Simulator:
                     entry["round"] = round_offset + len(history) + 1
                     entry["broadcast"] = state["broadcasts"] - n + i + 1
                     history.append(entry)
+                    tel.events.round_event(entry)
                     if self.fault_injector is not None:
                         self.fault_injector.note_round_resolved(entry["broadcast"])
-                    consecutive_failures = 0 if entry["ok"] else consecutive_failures + 1
+                    if entry["ok"]:
+                        consecutive_failures = 0
+                    else:
+                        consecutive_failures += 1
+                        tel.counters.inc("rounds_failed")
                 if consecutive_failures > MAX_ROUND_RETRIES:
                     raise RuntimeError(
                         f"round failed {consecutive_failures} times in a row; aborting "
@@ -953,7 +1276,7 @@ class Simulator:
                         f"[fast] {state['completed_rounds']}/{num_rounds} rounds, chunk of {n} "
                         f"in {elapsed:.2f}s ({elapsed / n:.3f}s/round) {msg}", "green")
         finally:
-            self._finish_run()
+            self._finish_run(history, t_start)
         return state, history
 
     # ------------------------------------------------------------------
@@ -963,28 +1286,40 @@ class Simulator:
     def resolve_pipeline_depth(self, save_checkpoints: bool = True) -> int:
         """``cfg.pipeline_depth`` as the depth of this run (JAX
         engine.py:2254-2328).  An int is used as it is.  ``"auto"`` takes
-        :func:`auto_depth_from_records` over the cross-run ledger, which
-        the port does not keep yet (ROADMAP.md queue 1, item 16): with no
-        measurement it is depth 1, said in a yellow line.  The pick is
-        capped by :data:`AUTO_DEPTH_CAP`, and by 2 under a synchronous
-        checkpoint every round (a deeper queue waits behind the write).
-        The depth and how it was found stay in ``_depth_resolved`` and
-        ``_depth_info``."""
+        :func:`auto_depth_from_records` over the cross-run ledger's
+        records (this Simulator's store, else the ledger directory when it
+        exists; a read that fails is kept in ``_depth_info["error"]``):
+        with no measurement it is depth 1, said in a yellow line.  The
+        pick is capped by :data:`AUTO_DEPTH_CAP`, and by 2 under a
+        synchronous checkpoint every round (a deeper queue waits behind
+        the write).  The depth and how it was found stay in
+        ``_depth_resolved`` and ``_depth_info``."""
         configured = self.cfg.pipeline_depth
         if isinstance(configured, int):
             self._depth_resolved = configured
             self._depth_info = {"source": "config", "depth": configured}
             return configured
         info: dict[str, Any] = {"source": "auto"}
-        records: list[dict[str, Any]] = []
-        k, measured = auto_depth_from_records(records, self.checkpoints.fingerprint)
-        info.update(measured)
+        k: int | None = None
+        try:
+            if self._ledger is not None:
+                records, _ = self._ledger.load()
+            else:
+                directory = resolve_ledger_dir(self.cfg.telemetry.ledger_dir or None,
+                                               base=self.telemetry.base_dir)
+                # never create a ledger directory to find it empty
+                records = (LedgerStore(directory).load()[0] if os.path.isdir(directory)
+                           else [])
+            k, measured = auto_depth_from_records(records, self.checkpoints.fingerprint)
+            info.update(measured)
+        except Exception as e:  # noqa: BLE001 — auto must never fail the run
+            info["error"] = f"{type(e).__name__}: {e}"[:200]
         if k is None:
             k = 1
             print_with_color(
                 "[pipeline] depth auto: no ledger measurement for this config yet — "
-                "defaulting to depth-1 (the port keeps no ledger yet: ROADMAP.md queue 1, "
-                "item 16)", "yellow")
+                "defaulting to depth-1 (a run with telemetry.ledger on feeds the "
+                "auto-tuner)", "yellow")
         cap = AUTO_DEPTH_CAP
         if save_checkpoints and not self.cfg.checkpoint_async:
             cap = min(cap, 2)
@@ -1102,12 +1437,20 @@ class Simulator:
         before each dispatch; once it says stop, nothing more is
         dispatched and the rounds in flight resolve and checkpoint.
         Returns the state as ``run`` returns it (the round count and the
-        leak flag host values) and the history."""
+        leak flag host values) and the history.
+
+        Each dispatch and each resolve runs under its span; a round's
+        ``round`` event and a failed round's ``retry`` are written when it
+        resolves, and each demotion and re-promotion writes a ``degrade``
+        event (JAX engine.py:2498-2610).  Nothing is read on the dispatch
+        side."""
         cfg = self.cfg
+        tel = self.telemetry
         if depth is None:
             depth = self.resolve_pipeline_depth(save_checkpoints)
         self._require_fused(state)
         history: list[dict[str, Any]] = []
+        t_start = time.perf_counter()
         include_eval = self.validation is not None and not cfg.validation_async
         body = self._fused_body(include_eval)
         carry = self._fused_state(state)
@@ -1133,7 +1476,10 @@ class Simulator:
                     break
                 want_more = completed + len(queue) < num_rounds and not stopping
                 if want_more and len(queue) <= overlap():
-                    carry, slot = self._dispatch_pipeline_round(body, carry, save_checkpoints)
+                    with tel.tracer.span("dispatch", round=completed + len(queue) + 1,
+                                         broadcast=carry["broadcasts"] + 1):
+                        carry, slot = self._dispatch_pipeline_round(body, carry,
+                                                                    save_checkpoints)
                     queue.append(slot)
                     want_more = completed + len(queue) < num_rounds and not stopping
                 # resolve the oldest round once the queue is past its
@@ -1141,13 +1487,15 @@ class Simulator:
                 if queue and (len(queue) > overlap() or not want_more):
                     pending = queue.popleft()
                     round_no = completed + 1
-                    entry, have_genuine = self._resolve_pipeline_round(pending, round_no)
+                    with tel.tracer.span("resolve", round=round_no):
+                        entry, have_genuine = self._resolve_pipeline_round(pending, round_no)
                     now = time.perf_counter()
                     entry["seconds"] = now - last_resolve
                     last_resolve = now
                     if degraded:
                         entry["degraded"] = True
                     history.append(entry)
+                    tel.events.round_event(entry)
                     if self.fault_injector is not None:
                         self.fault_injector.note_round_resolved(pending["broadcast"])
                     if entry["ok"]:
@@ -1161,6 +1509,10 @@ class Simulator:
                             if clean_streak >= cfg.pipeline_repromote_after:
                                 degraded = False
                                 clean_streak = 0
+                                tel.counters.inc("executor_repromotions")
+                                tel.events.emit("degrade", state="repromoted", round=round_no,
+                                                depth=depth,
+                                                clean_rounds=cfg.pipeline_repromote_after)
                                 print_with_color(
                                     f"[pipeline] re-promoted to depth-{depth} after "
                                     f"{cfg.pipeline_repromote_after} clean rounds", "cyan")
@@ -1173,11 +1525,18 @@ class Simulator:
                     else:
                         consecutive_failures += 1
                         clean_streak = 0
+                        tel.counters.inc("rounds_failed")
+                        tel.counters.inc("rounds_retried")
+                        tel.events.emit("retry", round=round_no, retries=consecutive_failures)
                         print_with_color("Training failed!", "yellow")
                         self.logger.log_warning(
                             f"Round {round_no} failed (retry {consecutive_failures})")
                         if not degraded and consecutive_failures >= cfg.pipeline_demote_after:
                             degraded = True
+                            tel.counters.inc("executor_demotions")
+                            tel.events.emit("degrade", state="demoted", round=round_no,
+                                            consecutive_failures=consecutive_failures, depth=0,
+                                            configured_depth=depth, in_flight=len(queue))
                             print_with_color(
                                 f"[pipeline] {consecutive_failures} consecutive rollbacks — "
                                 f"demoting from depth-{depth} to synchronous (depth-0) "
@@ -1188,19 +1547,31 @@ class Simulator:
                                 "aborting (the reference would retry forever, "
                                 "server.py:546-556)")
         finally:
-            self._finish_run()
+            self._finish_run(history, t_start)
         out = dict(carry, completed_rounds=completed, have_genuine=have_genuine)
         if active_mask is not None:
             out["active_mask"] = active_mask
         return out, history
 
-    def _finish_run(self) -> None:
+    def _finish_run(self, history: list[dict[str, Any]], t_start: float) -> None:
         """The end of every run (JAX engine.py:1213-1246): resolve the
-        validations in flight, then drain the async writer, so the last
-        submitted state is on disk when ``run`` returns or raises.  A
-        drain error is raised after the rest is done."""
+        validations in flight, drain the async writer, so the last
+        submitted state is on disk when ``run`` returns or raises, then
+        write the counters, ``run_end`` and the trace and append the
+        ledger record, a crashing run's included.  A drain error is raised
+        after the rest is done."""
+        drain_error: BaseException | None = None
         try:
             self._resolve_inflight_validations()
         finally:
             if self.checkpoint_writer is not None:
-                self.checkpoint_writer.drain()
+                try:
+                    self.checkpoint_writer.drain()
+                except BaseException as e:  # noqa: BLE001 — raised below
+                    drain_error = e
+            try:
+                self._emit_run_end(history, t_start)
+                self._append_ledger_record()
+            finally:
+                if drain_error is not None:
+                    raise drain_error

@@ -101,6 +101,34 @@ def attacking_groups(groups: Sequence[AttackGroup]) -> list[AttackGroup]:
     return [g for g in groups if g.mode != NONE_ATTACK]
 
 
+def describe_attack_groups(groups: Sequence[AttackGroup]) -> list[dict[str, Any]]:
+    """The attacker geometry for the run header (JAX round.py:134-145)."""
+    return [{"mode": g.mode, "num_clients": len(g.indices), "indices": list(g.indices),
+             "attack_round": g.attack_round, "args": list(g.args)} for g in groups]
+
+
+def active_attack_modes(groups: Sequence[AttackGroup], broadcast_number: int,
+                        have_genuine: bool) -> list[str]:
+    """The attack modes firing at this broadcast, the host's mirror of the
+    round step's gate: nothing fires before a genuine set exists (JAX
+    round.py:148-157)."""
+    if not have_genuine:
+        return []
+    return sorted({g.mode for g in groups
+                   if broadcast_number >= g.attack_round and g.mode != NONE_ATTACK})
+
+
+def active_attacker_indices(groups: Sequence[AttackGroup], broadcast_number: int,
+                            have_genuine: bool) -> list[int]:
+    """The clients that attack at this broadcast, the attribution's ground
+    truth (JAX round.py:160-170)."""
+    if not have_genuine:
+        return []
+    return sorted({cid for g in groups
+                   if broadcast_number >= g.attack_round and g.mode != NONE_ATTACK
+                   for cid in g.indices})
+
+
 def leak_size(cfg: Config, num_genuine: int) -> int:
     """Genuine models leaked to each attacker (reference server.py:599-600)."""
     return min(max(int(cfg.genuine_rate * num_genuine), 1), num_genuine)
@@ -329,3 +357,88 @@ def build_aggregator(model, cfg: Config,
     else:
         raise ValueError(f"Server mode '{mode}' is not valid.")
     return aggregate
+
+
+def build_attribution_fn(model, cfg: Config,
+                         test_data: dict[str, torch.Tensor] | None = None) -> Callable | None:
+    """The defense's per-client verdict (JAX ``build_attribution_fn``,
+    round.py:534-641): ``attribution(global_params, stacked, sizes,
+    weights_mask, draws) -> (keep [C] bool, scores [C] float)``, device
+    tensors.
+
+    It recomputes the decision the aggregate applies, from the same
+    round's ``draws`` (ScionFL's ``uniform``, FLTrust's ``root_perms`` and
+    ``root_seed``): it draws nothing, so the rounds after it see the same
+    generator.  Krum keeps its selected client, ShieldFL the clients
+    weighted at least half an average share, ScionFL and byzantine the
+    clients of positive weight, FLTrust those of positive trust.
+    Trimmed-mean and median keep a client whose share of coordinates
+    inside the kept window (its survival fraction) is at least half the
+    nominal share.  None for modes with no such decision (fedavg, and
+    gmm and fltracer, whose host filter is the decision)."""
+    mode = cfg.mode
+    n = cfg.total_clients
+    geo = cfg.client_dropout_rate > 0.0
+
+    if mode == "krum":
+        def attribution(global_params, stacked, sizes, weights_mask, draws):
+            sel = aggregators.krum_select(stacked, cfg.krum_f, weights_mask if geo else None)
+            keep = torch.zeros(n, dtype=torch.bool, device=sizes.device)
+            keep[sel] = True
+            return keep, keep.to(torch.float32)
+    elif mode in ("trimmed_mean", "median"):
+        ratio = cfg.trim_ratio
+
+        def attribution(global_params, stacked, sizes, weights_mask, draws):
+            flat = pt.tree_ravel_stacked(stacked)
+            mask = weights_mask if geo else torch.ones(n, dtype=flat.dtype, device=flat.device)
+            valid = mask > 0
+            v = torch.sum(mask).to(torch.int64)
+            if mode == "median":
+                lo = torch.div(v - 1, 2, rounding_mode="floor")
+                hi = lo + 1
+            else:
+                kd = torch.floor(v.to(torch.float32) * ratio).to(torch.int64)
+                lo, hi = kd, v - kd
+            # each client's rank per coordinate, masked rows sorted last as
+            # the aggregator's +inf sentinel sorts them
+            order = torch.argsort(torch.where(valid[:, None], flat, torch.inf), dim=0,
+                                  stable=True)
+            ranks = torch.argsort(order, dim=0, stable=True)
+            frac = torch.mean(((ranks >= lo) & (ranks < hi)).to(torch.float32), dim=1)
+            nominal = (hi - lo).to(torch.float32) / torch.clamp(v, min=1).to(torch.float32)
+            return (frac >= 0.5 * nominal) & valid, frac
+    elif mode == "shieldfl":
+        def attribution(global_params, stacked, sizes, weights_mask, draws):
+            weights = aggregators.shieldfl_weights(stacked, mask=weights_mask if geo else None)
+            valid = (weights_mask > 0 if geo
+                     else torch.ones(n, dtype=torch.bool, device=weights.device))
+            mean_w = torch.sum(weights * valid) / torch.clamp(torch.sum(valid), min=1)
+            return (weights >= 0.5 * mean_w) & valid, weights
+    elif mode == "scionfl":
+        def attribution(global_params, stacked, sizes, weights_mask, draws):
+            weights = aggregators.scionfl_weights(
+                stacked, sizes.to(torch.float32) * weights_mask, draws.uniform)
+            return weights > 0, weights
+    elif mode == "byzantine":
+        def attribution(global_params, stacked, sizes, weights_mask, draws):
+            keep = aggregators.byzantine_keep(stacked, cfg.byzantine_threshold,
+                                              weights_mask if geo else None)
+            return keep > 0, keep
+    elif mode == "FLTrust":
+        if test_data is None:
+            return None
+        root = {k: v[:ROOT_SIZE] for k, v in test_data.items()}
+        root_update = local.build_root_update(
+            model, cfg.data_name, root, epochs=cfg.epochs, batch_size=ROOT_BATCH, lr=cfg.lr,
+            clip_grad_norm=cfg.clip_grad_norm)
+
+        def attribution(global_params, stacked, sizes, weights_mask, draws):
+            root_params = root_update(global_params, draws.root_perms, draws.root_seed)
+            root_delta = pt.tree_map(torch.sub, root_params, global_params)
+            deltas = pt.tree_map(lambda s, g: s - g.unsqueeze(0), stacked, global_params)
+            trust = aggregators.fltrust_trust(deltas, root_delta)
+            return trust > 0, trust
+    else:
+        return None
+    return attribution

@@ -161,7 +161,7 @@ class CheckpointManager:
 
     def __init__(self, path: str, *, fingerprint: str = "", keep: int = 3,
                  retries: int = 3, backoff: float = 0.05, fresh: bool = True,
-                 injector=None):
+                 injector=None, telemetry=None):
         self.path = path
         self.directory = os.path.dirname(path) or "."
         stem = os.path.basename(path)
@@ -173,6 +173,7 @@ class CheckpointManager:
         self._entries: list[dict[str, Any]] | None = None
         self._fresh = fresh
         self._injector = injector
+        self._tel = telemetry
         self.write_failures = 0
 
     @property
@@ -238,10 +239,21 @@ class CheckpointManager:
                     log.warning("checkpoint %s (round %d) not written after %d "
                                 "attempts: %s: %s; the previous entry stays",
                                 entry_path, round_no, attempt, type(e).__name__, e)
+                    if self._tel is not None:
+                        self._tel.counters.inc("checkpoint_write_failures")
+                        self._tel.events.emit("checkpoint", path=entry_path, round=round_no,
+                                              durable=False,
+                                              error=f"{type(e).__name__}: {e}"[:300])
                     sweep_orphans(self.directory)
                     return False
                 log.warning("checkpoint write attempt %d failed (%s: %s); retrying "
                             "in %.3f s", attempt, type(e).__name__, e, delay)
+                if self._tel is not None:
+                    self._tel.counters.inc("checkpoint_write_retries")
+                    self._tel.events.emit("retry", round=round_no, retries=attempt,
+                                          reason="checkpoint_write",
+                                          error=f"{type(e).__name__}: {e}"[:300],
+                                          backoff_seconds=round(delay, 6))
                 time.sleep(delay)
                 delay *= 2
         self._publish_alias(entry_path, data)
@@ -250,6 +262,8 @@ class CheckpointManager:
             # a torn entry is torn after it was recorded: the manifest
             # keeps the honest hash, which the load checks against
             self._injector.after_checkpoint_write(round_no, entry_path)
+        if self._tel is not None:
+            self._tel.counters.inc("checkpoint_writes")
         return True
 
     def _publish_alias(self, entry_path: str, data: bytes) -> None:

@@ -51,9 +51,13 @@ no result line):
                  torch.profiler; every round ok, the benign runs above
                  chance, K3 once per minibatch step (never under ResNet18);
                  one minibatch step of each on the card against the CPU
-                 (the same masks, gradients within 1e-4 of the largest);
-                 config 1's round at full depth; ResNet18's per-client
-                 gradients by vmap against a loop over clients;
+                 (the same masks, gradients within 1e-4 of the largest,
+                 or, where the two float32 steps fall on either side of
+                 a ReLU's kink, within 1e-4 of float64 on the card's
+                 side); config 5's step also from its initial state,
+                 which takes that branch; config 1's round at full
+                 depth; ResNet18's per-client gradients by vmap against
+                 a loop over clients;
  10. hyper    -- hyper mode under xla, each model at its full width and
                  cut in depth: BASELINE config 2 (ICU RNNModel, 3 clients,
                  HyperNetwork, sequential), CNNModel under CNNHyper with
@@ -123,10 +127,30 @@ no result line):
                  in flight resolve and checkpoint, the verdict is kept;
                  f. `server --no-wait --pipeline-depth 2` on phase 12e's
                  cut of config.yaml: exit 0, K3 launched, app.log as the
-                 pipelined executor writes it.
-Each of phases 4-13 resets the kernel launch counts before each run and
+                 pipelined executor writes it;
+ 14. telemetry and ledger -- a. config 4 (cut) through run, run_fast
+                 (one chunk of 3) and run(pipeline=True) at depth 2 under
+                 each backend, with telemetry off, on, on and off in
+                 turns: every event
+                 valid, the kinds in the JAX package's order, the params
+                 equal bit for bit, the host syncs equal (a chunk 1, the
+                 pipeline 0), telemetry off writing no file, s/round on
+                 and off, and the run's end (the counters, run_end and
+                 trace, the ledger append) timed on its own; a pallas
+                 run of 20 rounds in the same turns; b. phase 11a's fault plan under run and its
+                 resume: the fault, retry, checkpoint and resume events;
+                 phase 13b's demotion plan: one demoted and one
+                 repromoted degrade event; c. two rounds under each
+                 defense with a verdict: the attacking round's
+                 attribution event names its 25 attackers; d. a's
+                 pipelined config under pipeline_depth auto, reading a's
+                 ledger: the depth, the record's round_device_time and
+                 host_resolution_latency beside the profiler's
+                 device-busy s/round.
+Each of phases 4-14 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.  The kernels record's
-launches are phase 4's main path's and phase 13a's pipelined runs'.
+launches are phase 4's main path's, phase 13a's pipelined runs' and
+phase 14a's runs with telemetry on.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
 toolkit, imports nothing of JAX, and fails when run outside the repository.
@@ -146,11 +170,13 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 import warnings
 from collections import Counter
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -158,7 +184,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from attackfl_tpu_torch import cli, validate_kernels  # noqa: E402
 from attackfl_tpu_torch.config import (  # noqa: E402
-    AttackSpec, Config, HyperDetectionConfig, MeshConfig, load_config,
+    AttackSpec, Config, HyperDetectionConfig, MeshConfig, TelemetryConfig, load_config,
 )
 from attackfl_tpu_torch.faults.plan import parse_fault_plan  # noqa: E402
 from attackfl_tpu_torch.data.partition import random_permutations  # noqa: E402
@@ -169,10 +195,12 @@ from attackfl_tpu_torch.models.hyper import make_hypernetwork  # noqa: E402
 from attackfl_tpu_torch.models.icu import T_HEAD, TransformerModel  # noqa: E402
 from attackfl_tpu_torch.ops import aggregators, attacks, build, defenses  # noqa: E402
 from attackfl_tpu_torch.ops import fused_step as tfs  # noqa: E402
+from attackfl_tpu_torch.ledger.store import LedgerStore  # noqa: E402
 from attackfl_tpu_torch.ops.pytree import (  # noqa: E402
     tree_broadcast, tree_items, tree_leaves, tree_map, tree_ravel_stacked, tree_take, unraveler,
 )
 from attackfl_tpu_torch.profile_round import CONFIG4, DEPTH, self_device_us  # noqa: E402
+from attackfl_tpu_torch.telemetry.events import validate_event  # noqa: E402
 from attackfl_tpu_torch.training import local  # noqa: E402
 from attackfl_tpu_torch.training import engine  # noqa: E402
 from attackfl_tpu_torch.training.hyper import build_hyper_update  # noqa: E402
@@ -264,6 +292,11 @@ CHANCE = {"config 1": 0.5, "RNNModel": 0.5, "HAR": 1.0 / 6.0, "config 5": None,
 # where float32's spacing is 1.9e-6); (clients, batch) of the step where
 # it is not the run's (the CPU's HAR step at B=128 takes minutes)
 STEP_GRAD_RTOL, STEP_LOSS_TOL = 1e-4, 1e-5
+# where the two float32 steps part at a ReLU's kink: the ReLU inputs whose
+# sign on the card differs from float64's lie within this share of their
+# tensor's largest |input| (float32 rounding of a normalised activation
+# is ~1e-6 of it)
+KINK_RTOL = 1e-4
 STEP_SHAPE = {"HAR": (3, 16), "config 5": (2, 8)}
 
 # phase 10, hyper mode under xla (hyper_lr 0.001), each model at its full
@@ -336,6 +369,16 @@ SURFACE_CUT = {"clients": 3, "num-data-range": [256, 512], "num-round": 2}
 PIPE_DEPTHS, PROFILED_DEPTHS = (0, 1, 2, 4), (0, 2)
 DEMOTE_PLAN, DEMOTE_DEPTH = "nan_storm@2;nan_storm@3;nan_storm@4", 3
 STOP_ROUNDS = 1
+# phase 14.  a: each executor of config 4 (cut) with telemetry on, the
+# pipeline at this depth; c: the modes whose rounds write an attribution
+# event (the defense's verdict), each run for ATTRIBUTION_ROUNDS rounds,
+# the last attacking
+TELEMETRY_EXECUTORS, TELEMETRY_DEPTH = ("run", "run_fast", "pipeline"), 2
+# a's longer run under pallas, which spreads the run's end over more rounds
+TELEMETRY_LONG_ROUNDS = 20
+ATTRIBUTION_MODES = ("median", "trimmed_mean", "krum", "shieldfl", "byzantine", "scionfl",
+                     "FLTrust", "gmm", "fltracer")
+ATTRIBUTION_ROUNDS = 2
 # filled by main_path (each backend's run history) and checkpoint_phase
 # (the gap between two config-4 runs without a stop, per backend), and by
 # fault_run (the faulted run's final state, per backend)
@@ -1080,7 +1123,10 @@ def defense_run(mode: str, backend: str, rate: float) -> tuple[Simulator, tuple]
     aggregated = len(agg_events)
     ms = [round(s.elapsed_time(e), 3) for s, e, _ in agg_events]
     nb = -(-cfg.num_data_range[1] // cfg.batch_size)
-    root_steps = aggregated * cfg.epochs * -(-tround.ROOT_SIZE // tround.ROOT_BATCH)
+    # the root set trains for each aggregate and, with telemetry on, once
+    # more for the round's attribution event (JAX round.py:621-633)
+    root_trainings = aggregated * (2 if sim._attribution is not None else 1)
+    root_steps = root_trainings * cfg.epochs * -(-tround.ROOT_SIZE // tround.ROOT_BATCH)
     clients = ({"fused_step": len(history) * cfg.epochs, "dropout_mask": 0}
                if backend == "pallas" else
                {"fused_step": 0, "dropout_mask": len(history) * cfg.epochs * nb})
@@ -1092,7 +1138,8 @@ def defense_run(mode: str, backend: str, rate: float) -> tuple[Simulator, tuple]
                              f"rounds, expected {expect}")
     extra = ""
     if mode == "FLTrust":
-        extra = f"; K3 launches of the root training {root_steps} (2 steps an epoch)"
+        extra = (f"; K3 launches of the root training {root_steps} (2 steps an epoch, "
+                 f"{root_trainings} trainings: the aggregates' and the attribution's)")
     if filter_host:
         nbytes = [a[0].nbytes for _, a in filter_only]
         extra = (f"; host filter (copy to the host and {fn}) "
@@ -1232,45 +1279,157 @@ def round_profile(sim: Simulator, state: dict) -> tuple[dict, dict, dict]:
     return state, metrics, {"wall_s": wall, "busy_s": busy_us(device) / 1e6, "k3_us": k3}
 
 
-def step_on_card_and_cpu(label: str, sim: Simulator, params: dict, C: int, B: int) -> None:
-    """One minibatch step of C clients from the same params (``params``,
-    nudged per client by a seeded 1e-3), batch and K3 masks on the card
-    and on the CPU: the masks equal, per-client gradients within
-    STEP_GRAD_RTOL of the largest |g|, losses within STEP_LOSS_TOL of
-    max(1, |loss|)."""
+def step_args(sim: Simulator, params: dict, C: int, B: int, dev: str,
+              dtype: torch.dtype = torch.float32) -> tuple[dict, tuple]:
+    """The inputs of one minibatch step of C clients on ``dev`` in
+    ``dtype``: (the params' tree as a template, the step's arguments:
+    ``params`` nudged per client by a seeded 1e-3 [C, P], a seeded batch,
+    its labels, a mask of ones and K3's masks of a fixed key).  The same
+    values on every device."""
     model, data_name = sim.model, sim.cfg.data_name
     names = local.INPUTS[data_name]
     gen = torch.Generator().manual_seed(13)
     n = sim.train_data["label"].shape[0]
     idx = torch.randint(0, n, (C, B), generator=gen)
-    template = tree_map(lambda x: x.cpu(), params)
-    flat = tree_ravel_stacked(tree_broadcast(template, C))
-    flat = flat + 1e-3 * torch.randn(flat.shape, generator=gen)
+    template = tree_map(lambda x: x.cpu().to(dtype), params)
+    flat = tree_ravel_stacked(tree_broadcast(tree_map(lambda x: x.cpu(), params), C))
+    flat = (flat + 1e-3 * torch.randn(flat.shape, generator=gen)).to(dtype)
     keys = tfs.client_keys(17, 3, torch.arange(C))
     specs = model.mask_specs([(B,) + tuple(sim.train_data[k].shape[1:]) for k in names],
                              model.dropout_rates)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        data = {k: v.to(dev) for k, v in sim.train_data.items()}
-        labels = local.labels_of(data, data_name)
-        rows = idx.to(dev)
-        masks = local.step_masks(keys.to(dev), specs)
-        step = local.build_step_grad(model, data_name, template)
-        grads, loss = step(flat.to(dev), tuple(data[k][rows] for k in names), labels[rows],
-                           torch.ones((C, B), device=dev),
-                           *(() if masks is None else (masks,)))
-        out[dev] = (grads.cpu(), loss.cpu(), None if masks is None else [m.cpu() for m in masks])
-    (g_card, l_card, m_card), (g_cpu, l_cpu, m_cpu) = out["cuda"], out["cpu"]
+    data = {k: v.to(dev) for k, v in sim.train_data.items()}
+    labels = local.labels_of(data, data_name)
+    rows = idx.to(dev)
+    masks = local.step_masks(keys.to(dev), specs)
+    inputs = tuple(data[k][rows].to(dtype) if data[k].is_floating_point() else data[k][rows]
+                   for k in names)
+    return template, (flat.to(dev), inputs, labels[rows],
+                      torch.ones((C, B), device=dev, dtype=dtype), masks)
+
+
+def one_step(sim: Simulator, params: dict, C: int, B: int, dev: str,
+             dtype: torch.dtype = torch.float32):
+    """One minibatch step (``step_args``) through the port's
+    ``local.build_step_grad``: (grads [C, P], losses [C], masks), on the
+    CPU in float64."""
+    template, args = step_args(sim, params, C, B, dev, dtype)
+    step = local.build_step_grad(sim.model, sim.cfg.data_name, template)
+    grads, loss = step(*args[:4], *(() if args[4] is None else (args[4],)))
+    return (grads.cpu().to(torch.float64), loss.cpu().to(torch.float64),
+            None if args[4] is None else [m.cpu() for m in args[4]])
+
+
+def relu_inputs(sim: Simulator, template: dict, args: tuple) -> tuple[list, torch.Tensor]:
+    """The step's forward (``step_args``), vmapped over clients as the
+    step's is: (the input of every ``F.relu`` call [C, ...], in call
+    order, on the CPU; the losses [C])."""
+    loss_fn, unravel = local.make_loss_fn(sim.model, sim.cfg.data_name), unraveler(template)
+    relu = F.relu
+
+    def forward(row, inputs, label, mask, *masks):
+        seen = []
+
+        def tap(x, inplace=False):
+            seen.append(x)
+            return relu(x)
+
+        with unittest.mock.patch.object(F, "relu", tap):
+            loss = loss_fn(unravel(row), inputs, label, mask, *masks)
+        return tuple(seen), loss
+
+    with torch.no_grad():
+        acts, loss = torch.func.vmap(forward)(*args[:4], *args[4:] if args[4] is not None else ())
+    return [a.cpu() for a in acts], loss.cpu()
+
+
+def step_on_pattern(sim: Simulator, template: dict, args: tuple, pattern: list) -> torch.Tensor:
+    """The step's per-client gradients [C, P] (``step_args``) with every
+    ``F.relu`` call's derivative fixed: the i-th call is ``x *
+    pattern[i]``, a 0/1 tensor [C, ...]: the same piece of the
+    piecewise-linear network in any precision."""
+    loss_fn, unravel = local.make_loss_fn(sim.model, sim.cfg.data_name), unraveler(template)
+
+    def loss_of_row(row, inputs, label, mask, pats, *masks):
+        it = iter(pats)
+        with unittest.mock.patch.object(F, "relu", lambda x, inplace=False: x * next(it)):
+            return loss_fn(unravel(row), inputs, label, mask, *masks)
+
+    grads, _ = torch.func.vmap(torch.func.grad_and_value(loss_of_row))(
+        *args[:4], tuple(pattern), *args[4:] if args[4] is not None else ())
+    return grads.cpu().to(torch.float64)
+
+
+def step_on_card_and_cpu(label: str, sim: Simulator, params: dict, C: int, B: int) -> None:
+    """One minibatch step of C clients from the same params (``params``,
+    nudged per client by a seeded 1e-3), batch and K3 masks on the card
+    and on the CPU: the masks equal, losses within STEP_LOSS_TOL of
+    max(1, |loss|), and per-client gradients within STEP_GRAD_RTOL of the
+    largest |g|, either of the CPU's step or, where the two float32 steps
+    fall on either side of a ReLU's kink, of the same piece of the
+    network in float64 (``kink_gate``).  A failing state's params are
+    saved to the temporary directory."""
+    g_card, l_card, m_card = one_step(sim, params, C, B, "cuda")
+    g_cpu, l_cpu, m_cpu = one_step(sim, params, C, B, "cpu")
     same_masks = m_card is None or all(torch.equal(a, b) for a, b in zip(m_card, m_cpu))
     scale = float(g_cpu.abs().max())
     g_err, l_err = float((g_card - g_cpu).abs().max()), float((l_card - l_cpu).abs().max())
     l_tol = STEP_LOSS_TOL * max(1.0, float(l_cpu.abs().max()))
+    n_masks = 0 if m_card is None else len(m_card)
     log(f"[models] {label}: one step C={C} B={B} card vs CPU: K3 masks equal to the CPU's "
-        f"{same_masks} ({len(specs)} tensors), max |d grad| {g_err:.3e} = {g_err / scale:.3e} of "
+        f"{same_masks} ({n_masks} tensors), max |d grad| {g_err:.3e} = {g_err / scale:.3e} of "
         f"max |g| {scale:.3e} (tol {STEP_GRAD_RTOL}), max |d loss| {l_err:.3e} of losses up to "
         f"{float(l_cpu.abs().max()):.4f} (tol {l_tol:.3e})")
-    if not (same_masks and g_err <= STEP_GRAD_RTOL * scale and l_err <= l_tol):
-        raise AssertionError(f"{label}: the card's step differs from the CPU's")
+    ok = same_masks and l_err <= l_tol
+    if ok and g_err > STEP_GRAD_RTOL * scale:
+        ok = kink_gate(label, sim, params, C, B, g_card, l_card)
+    if not ok:
+        path = os.path.join(tempfile.gettempdir(), f"chip_smoke_{label.replace(' ', '_')}.pt")
+        torch.save(tree_map(lambda x: x.cpu(), params), path)
+        raise AssertionError(f"{label}: the card's step differs from the CPU's (params in "
+                             f"{path})")
+
+
+def kink_gate(label: str, sim: Simulator, params: dict, C: int, B: int, g_card: torch.Tensor,
+              l_card: torch.Tensor) -> bool:
+    """Where the card's float32 step and the CPU's part by more than
+    STEP_GRAD_RTOL: a ReLU network's gradient jumps where a ReLU's input
+    crosses zero, and a float32 forward's rounding decides the side of an
+    input within its rounding error of zero.  True if every ReLU input
+    whose sign on the card differs from float64's on the CPU lies within
+    KINK_RTOL of its tensor's largest |input|, and the card's step is
+    within STEP_GRAD_RTOL of the same piece of the network (the card's
+    ReLU pattern) in float64 on the CPU.  Prints the CPU's float32 step on
+    that piece against float64 too, the jump between the two pieces in
+    float64, and the card's float64 step against the CPU's."""
+    template, card_args = step_args(sim, params, C, B, "cuda")
+    card_acts, card_loss = relu_inputs(sim, template, card_args)
+    template64, cpu64_args = step_args(sim, params, C, B, "cpu", torch.float64)
+    cpu64_acts, _ = relu_inputs(sim, template64, cpu64_args)
+    flips, worst = 0, 0.0
+    for a, b in zip(card_acts, cpu64_acts):
+        differ = (a > 0) != (b > 0)
+        flips += int(differ.sum())
+        if differ.any():
+            worst = max(worst, float(b[differ].abs().max() / b.abs().max()))
+    pattern = [(a > 0).to(torch.float64) for a in card_acts]
+    g64 = step_on_pattern(sim, template64, cpu64_args, pattern)
+    template32, cpu32_args = step_args(sim, params, C, B, "cpu")
+    g32 = step_on_pattern(sim, template32, cpu32_args, [p.float() for p in pattern])
+    g64_own, _, _ = one_step(sim, params, C, B, "cpu", torch.float64)
+    g64_card, _, _ = one_step(sim, params, C, B, "cuda", torch.float64)
+    scale = float(g64.abs().max())
+    card_err = float((g_card - g64).abs().max()) / scale
+    ok = worst <= KINK_RTOL and card_err <= STEP_GRAD_RTOL
+    log(f"[models] {label}: the float32 steps part at a ReLU kink: {flips} of "
+        f"{sum(a.numel() for a in card_acts)} ReLU inputs on the other side of zero on the card "
+        f"than in float64, the farthest {worst:.3e} of its tensor's largest |input| (tol "
+        f"{KINK_RTOL}); the step's forward equal to the gradient step's "
+        f"{torch.equal(card_loss, l_card.float())}; on the card's piece, shares of max |g| "
+        f"{scale:.4e} from float64 on the CPU: card {card_err:.3e} (tol {STEP_GRAD_RTOL}), CPU "
+        f"float32 {float((g32 - g64).abs().max()) / scale:.3e}; float64 across the kink "
+        f"{float((g64_own - g64).abs().max()) / scale:.3e}; the card's float64 step from the "
+        f"CPU's {float((g64_card - g64_own).abs().max()) / scale:.3e}; ok={ok}")
+    return ok
 
 
 def resnet_vmap_vs_loop(sim: Simulator, params: dict) -> None:
@@ -1371,17 +1530,25 @@ def full_depth_round(config: dict, card: str) -> None:
 
 def models_phase(card: str) -> None:
     """Phase 9: each run of MODEL_RUNS, its step on the card against the
-    CPU from the run's last params (at its init ResNet18's gradients are
-    ill-conditioned in float32: on the CPU alone float32 and float64 part
-    by 5.9e-4 of the largest |g|, in the convs' kernels), config 1's round
-    at full depth, and config 5's vmap-vs-loop step; each part's
-    seconds."""
+    CPU from the run's last params (config 5's also from its initial
+    params), config 1's round at full depth, and config 5's vmap-vs-loop
+    step; each part's seconds.
+
+    Config 5's float32 steps at its initial state fall on either side of
+    a ReLU's kink on the card and on the CPU (the card's step is ~1.6e-3
+    of the largest |g| from the CPU's), as some of its later states do:
+    the gate there holds the card to float64 on the card's side of the
+    kink (``kink_gate``), and this state takes that branch in every
+    call."""
     for label, config, cut in MODEL_RUNS:
         t0 = time.perf_counter()
         sim, state = model_run(label, config, cut, card)
         t1 = time.perf_counter()
         C, B = STEP_SHAPE.get(label, (config["total_clients"], config["batch_size"]))
         step_on_card_and_cpu(label, sim, state["global_params"], C, B)
+        if config["model"] == "ResNet18":
+            step_on_card_and_cpu(f"{label} initial state", sim,
+                                 sim.init_state()["global_params"], C, B)
         t2 = time.perf_counter()
         if config["model"] == "ResNet18":
             resnet_vmap_vs_loop(sim, state["global_params"])
@@ -2514,6 +2681,252 @@ def pipeline_phase() -> dict:
     return launches
 
 
+def read_events(directory: str) -> list:
+    """A run's ``events.jsonl``, every event held to ``validate_event``."""
+    with open(os.path.join(directory, "events.jsonl")) as fh:
+        events = [json.loads(line) for line in fh if line.strip()]
+    bad = [(e.get("kind"), validate_event(e)) for e in events if validate_event(e)]
+    if bad:
+        raise AssertionError(f"{directory}: events fail the schema: {bad[:3]}")
+    return events
+
+
+def telemetry_run(backend: str, how: str, root: str, enabled: bool, turn: int,
+                  rounds: int | None = None):
+    """Phase 14 a's run of config 4 (cut; ``rounds`` rounds if given)
+    through ``how`` with telemetry ``enabled``, under ``count_syncs``:
+    (Simulator, state, history, wall seconds, launches, host syncs, their
+    sites, the seconds of the run's end: ``_emit_run_end``, which writes
+    the counters, ``run_end`` and the trace, and ``_append_ledger_record``)."""
+    directory = os.path.join(root, f"{backend}-{how}-{turn}-{'on' if enabled else 'off'}")
+    cfg = cut_config(local_backend=backend, log_path=directory, checkpoint_dir=directory,
+                     pipeline=how == "pipeline", pipeline_depth=TELEMETRY_DEPTH,
+                     telemetry=TelemetryConfig(enabled=enabled,
+                                               ledger_dir=os.path.join(root, "ledger")),
+                     **({} if rounds is None else {"num_round": rounds}))
+    sim = Simulator(cfg, device="cuda")
+    state = sim.init_state()
+    end = {}
+    for name in ("_emit_run_end", "_append_ledger_record"):
+        def timed(*args, _real=getattr(sim, name), _name=name):
+            t = time.perf_counter()
+            try:
+                return _real(*args)
+            finally:
+                end[_name] = time.perf_counter() - t
+        setattr(sim, name, timed)
+    if how == "run_fast":
+        def go():
+            return sim.run_fast(state=state, chunk_size=cfg.num_round, save_checkpoints=False,
+                                verbose=False)
+    else:
+        def go():
+            return sim.run(state=state, save_checkpoints=False, verbose=False)
+    reset_launches()
+    t0 = time.perf_counter()
+    (state, history), syncs, sites = count_syncs(go)
+    wall = time.perf_counter() - t0
+    return sim, state, history, wall, launch_counts(), syncs, sites, end
+
+
+def telemetry_executor_runs(root: str) -> dict:
+    """Phase 14 a: each executor under each backend with telemetry off,
+    on, on and off, in that order (the runs' s/round in turns).  Gates on
+    the first run with it on and the first with it off: every event
+    valid, the kinds in JAX's order, the params bit for bit, the host
+    syncs of phases 12-13 (a chunk SYNCS_PER_CHUNK, a pipelined run none
+    besides its event waits) equal on and off, nothing written off, the
+    kernel launched.  Then a pallas ``run`` of TELEMETRY_LONG_ROUNDS in
+    the same turns, and each run's end with telemetry on, timed on its
+    own.  Returns the launches of the gated run with telemetry on."""
+    total = Counter()
+    card = card_line()
+    for backend in ("pallas", "xla"):
+        for how in TELEMETRY_EXECUTORS:
+            off_sim, off, _, wall_off, _, syncs_off, _, _ = telemetry_run(
+                backend, how, root, False, 0)
+            sim, on, history, wall_on, launches, syncs, sites, end = telemetry_run(
+                backend, how, root, True, 0)
+            wall_on2, end2 = telemetry_run(backend, how, root, True, 1)[3::4]
+            wall_off2 = telemetry_run(backend, how, root, False, 1)[3]
+            written = [name for name in ("events.jsonl", "trace.json", "ledger")
+                       if os.path.exists(os.path.join(off_sim.cfg.log_path, name))]
+            total.update(launches)
+            label = f"telemetry {backend} {how}"
+            n = len(history)
+            events = read_events(sim.cfg.log_path)
+            kinds = [e["kind"] for e in events]
+            middle = (["chunk"] if how == "run_fast" else []) + ["round"] * n
+            expect = ["run_header"] + middle + ["counters", "run_end", "ledger"]
+            gap = max_param_gap(on["global_params"], off["global_params"])
+            equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(on["global_params"]),
+                                                          tree_leaves(off["global_params"])))
+            log(f"[telemetry] {backend} {how}: {len(events)} events, kinds {kinds}; s/round "
+                f"in turns off, on, on, off: {wall_off / n:.4f}, {wall_on / n:.4f}, "
+                f"{wall_on2 / n:.4f}, {wall_off2 / n:.4f}; {run_end_line(end, end2, n)}; "
+                f"params on vs off "
+                f"max |d| {gap:.3e}; host syncs on {syncs} (at {dict(sites)}), off "
+                f"{syncs_off}; launches {launches} ({card})")
+            if kinds != expect:
+                raise AssertionError(f"{label}: kinds {kinds}, expected {expect}")
+            if not equal:
+                raise AssertionError(f"{label}: telemetry changed the params")
+            if written:
+                raise AssertionError(f"{label}: telemetry off wrote {written}")
+            if (how == "run_fast" and syncs != SYNCS_PER_CHUNK) or (how == "pipeline" and syncs):
+                raise AssertionError(f"{label}: {syncs} host syncs at {dict(sites)}")
+            if syncs != syncs_off:
+                raise AssertionError(f"{label}: telemetry changed the host syncs, {syncs} "
+                                     f"against {syncs_off}")
+            require_kernel(label, sim.cfg, launches, n)
+    long_runs = [telemetry_run("pallas", "run", root, enabled, turn, TELEMETRY_LONG_ROUNDS)
+                 for turn, enabled in enumerate((False, True, True, False))]
+    walls = ", ".join(f"{r[3] / TELEMETRY_LONG_ROUNDS:.4f}" for r in long_runs)
+    log(f"[telemetry] pallas run of {TELEMETRY_LONG_ROUNDS} rounds: s/round in turns off, on, "
+        f"on, off: {walls}; {run_end_line(long_runs[1][7], long_runs[2][7], TELEMETRY_LONG_ROUNDS)}"
+        f" ({card})")
+    return dict(total)
+
+
+def run_end_line(end: dict, end2: dict, n: int) -> str:
+    """The run's end with telemetry on, in the two runs with it on: the
+    counters, ``run_end`` and the trace, the ledger append, and what the
+    two cost a round of an n-round run."""
+    parts = [(end[k], end2[k]) for k in ("_emit_run_end", "_append_ledger_record")]
+    return (f"the run's end with it on: counters, run_end and trace {1e3 * parts[0][0]:.2f} and "
+            f"{1e3 * parts[0][1]:.2f} ms, ledger append {1e3 * parts[1][0]:.2f} and "
+            f"{1e3 * parts[1][1]:.2f} ms, {1e3 * sum(map(sum, parts)) / 2 / n:.2f} ms a round")
+
+
+def telemetry_fault_runs(root: str) -> None:
+    """Phase 14 b: phase 11a's fault plan under run (pallas) with
+    checkpoints, then a resume past its torn entry; phase 13b's demotion
+    plan under the pipeline.  Gates: their fault, retry, checkpoint,
+    resume and degrade events."""
+    plan = parse_fault_plan(FAULT_PLAN)
+    whole, cut = os.path.join(root, "faults", "whole"), os.path.join(root, "faults", "cut")
+    sim = Simulator(cut_config(local_backend="pallas", log_path=whole, checkpoint_dir=whole,
+                               faults=plan), device="cuda")
+    sim.run(state=sim.init_state(), verbose=False)
+    Simulator(cut_config(local_backend="pallas", log_path=cut, checkpoint_dir=cut, faults=plan),
+              device="cuda").run(num_rounds=2, verbose=False)
+    resumed = Simulator(cut_config(local_backend="pallas", log_path=cut, checkpoint_dir=cut,
+                                   faults=plan, resume=True), device="cuda")
+    resumed.run(verbose=False)
+    events = read_events(whole)
+    faults = [(e["fault"], e["round"]) for e in events if e["kind"] == "fault"]
+    retries = [(e["round"], e["retries"], e.get("reason", "round")) for e in events
+               if e["kind"] == "retry"]
+    checkpoints = [e["round"] for e in events if e["kind"] == "checkpoint"]
+    # the cut directory's log holds the 2-round run, then the resumed one
+    resumes = [(e["round"], len(e["rejected"])) for e in read_events(cut)
+               if e["kind"] == "resume"]
+    log(f"[telemetry] pallas fault plan under run: fault events {faults}; retry events "
+        f"{retries}; checkpoint events for rounds {checkpoints}; resume events (round, "
+        f"rejected entries) {resumes}")
+    if faults.count(("ckpt_write_error", 1)) != 2 or ("nan_storm", 2) not in faults:
+        raise AssertionError(f"telemetry faults: fault events {faults}")
+    if (2, 1, "round") not in retries or checkpoints != [1, 2, 3] or resumes != [(1, 1)]:
+        raise AssertionError(f"telemetry faults: retries {retries}, checkpoints "
+                             f"{checkpoints}, resumes {resumes}")
+
+    demote = os.path.join(root, "demote")
+    sim = Simulator(cut_config(local_backend="pallas", log_path=demote,
+                               faults=parse_fault_plan(DEMOTE_PLAN), pipeline=True,
+                               pipeline_depth=DEMOTE_DEPTH, pipeline_demote_after=2,
+                               pipeline_repromote_after=2), device="cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        sim.run(state=sim.init_state(), save_checkpoints=False, verbose=False)
+    degrades = [(e["state"], e["round"], e.get("configured_depth", e.get("depth")))
+                for e in read_events(demote) if e["kind"] == "degrade"]
+    counters = sim.telemetry.counters.snapshot() if sim.telemetry.enabled else {}
+    log(f"[telemetry] pallas {DEMOTE_PLAN} at depth {DEMOTE_DEPTH}: degrade events (state, "
+        f"round, depth) {degrades}")
+    if [d[0] for d in degrades] != ["demoted", "repromoted"]:
+        raise AssertionError(f"telemetry demotion: degrade events {degrades} {counters}")
+
+
+def attribution_runs(root: str) -> None:
+    """Phase 14 c: ATTRIBUTION_ROUNDS rounds of config 4 (cut, pallas)
+    under each of ATTRIBUTION_MODES; the attacking round's attribution
+    event names the round's active attackers (the 25 LIE clients)."""
+    for mode in ATTRIBUTION_MODES:
+        directory = os.path.join(root, "attribution", mode)
+        sim = Simulator(cut_config(local_backend="pallas", mode=mode, log_path=directory,
+                                   num_round=ATTRIBUTION_ROUNDS), device="cuda")
+        _, history = sim.run(state=sim.init_state(), save_checkpoints=False, verbose=False)
+        events = [e for e in read_events(directory) if e["kind"] == "attribution"]
+        attackers = sorted(i for g in sim.attack_groups for i in g.indices)
+        last = events[-1] if events else {}
+        log(f"[telemetry] {mode}: {len(events)} attribution events; the attacking round's "
+            f"attackers {len(last.get('attackers', []))}, kept {len(last.get('kept', []))}, "
+            f"removed {len(last.get('removed', []))} (of them attackers "
+            f"{len(set(last.get('removed', [])) & set(attackers))}); rounds ok "
+            f"{[h['ok'] for h in history]}")
+        if len(events) != ATTRIBUTION_ROUNDS or events[0]["attackers"] \
+                or last["attackers"] != attackers:
+            raise AssertionError(f"attribution {mode}: events {[e['attackers'] for e in events]}"
+                                 f", expected the attackers {attackers} in the last round only")
+
+
+def ledger_auto_run(root: str) -> None:
+    """Phase 14 d: a's pipelined config (pallas) again under
+    ``pipeline_depth: auto``, under torch.profiler: the depth it reads
+    from a's ledger records against ``auto_depth_from_records``, the
+    records' round_device_time and host_resolution_latency, and the run's
+    device-busy seconds a round."""
+    ledger = os.path.join(root, "ledger")
+    directory = os.path.join(root, "auto")
+    cfg = cut_config(local_backend="pallas", log_path=directory, pipeline=True,
+                     pipeline_depth="auto", telemetry=TelemetryConfig(ledger_dir=ledger))
+    sim = Simulator(cfg, device="cuda")
+    records = LedgerStore(ledger).records(fingerprint=sim.checkpoints.fingerprint)
+    expect, info = engine.auto_depth_from_records(records, sim.checkpoints.fingerprint)
+    state = sim.init_state()
+    torch.cuda.synchronize()
+    with contextlib.redirect_stdout(io.StringIO()):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, history = sim.run(state=state, save_checkpoints=False, verbose=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    device = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    busy = busy_us(device) / 1e6 / len(history)
+    pipelined = [r for r in records if r["executor"] == "pipelined"]
+    if not pipelined:
+        raise AssertionError(f"auto depth: no pipelined record among {len(records)} in {ledger}")
+    log(f"[telemetry] pallas pipeline_depth auto: depth {sim._depth_resolved} from "
+        f"{len(records)} ledger records of the fingerprint (executors "
+        f"{[r['executor'] for r in records]}; auto_depth_from_records {expect}, {info}); "
+        f"the pipelined record's round_device_time {pipelined[-1]['round_device_time']} s, "
+        f"host_resolution_latency {pipelined[-1]['host_resolution_latency']} s; this run "
+        f"under torch.profiler: wall {wall / len(history):.4f} s/round, device busy "
+        f"{busy:.4f} s/round ({card_line()})")
+    if sim._depth_resolved != min(expect or 1, engine.AUTO_DEPTH_CAP):
+        raise AssertionError(f"auto depth {sim._depth_resolved}, expected {expect}")
+
+
+def telemetry_phase() -> dict:
+    """Phase 14: runs a-d.  Returns the launches of a's runs with
+    telemetry on."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    try:
+        marks = [time.perf_counter()]
+        launches = telemetry_executor_runs(root)
+        marks.append(time.perf_counter())
+        telemetry_fault_runs(root)
+        marks.append(time.perf_counter())
+        attribution_runs(root)
+        marks.append(time.perf_counter())
+        ledger_auto_run(root)
+        marks.append(time.perf_counter())
+        log("[phase 14] " + ", ".join(f"{k} {b - a:.1f} s" for k, a, b in
+                                      zip("abcd", marks, marks[1:])))
+    finally:
+        shutil.rmtree(root)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2554,8 +2967,12 @@ def main() -> int:
     t0 = time.perf_counter()
     pipeline_launches = pipeline_phase()
     log(f"[pipelined executor] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    telemetry_launches = telemetry_phase()
+    log(f"[telemetry and ledger] phase done in {time.perf_counter() - t0:.1f} s")
     for k in kernels:
-        k["launches"] += pipeline_launches.get(k["name"], 0)
+        k["launches"] += (pipeline_launches.get(k["name"], 0)
+                          + telemetry_launches.get(k["name"], 0))
     log(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -50,8 +50,12 @@ LIE = AttackSpec(mode="LIE", num_clients=2, attack_round=2)
 SMALL = dict(num_round=3, total_clients=8, mode="fedavg", model="TransformerModel",
              data_name="ICU", num_data_range=(24, 32), epochs=2, batch_size=16,
              train_size=256, test_size=128, attacks=(LIE,))
-# the keys of a synchronous round's entry that are not metrics
-RUN_ONLY = ("round", "broadcast", "seconds", "ok")
+# the keys of a synchronous round's entry that are not metrics (the
+# attack modes, the phases' times, a failed round's NaN clients and the
+# defense's removals are the per-round path's, as in JAX's
+# engine.py:1555-1572,1642,1186)
+RUN_ONLY = ("round", "broadcast", "seconds", "ok", "attacks_active", "phases",
+            "nan_clients", "defense_removed")
 
 
 def _cfg(tmp_path, **kw) -> Config:

@@ -38,7 +38,7 @@ from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.training import engine
 from attackfl_tpu_torch.training.engine import Simulator
 from attackfl_tpu_torch.utils import checkpoint as ckpt
-from test_torch_port_fused_rounds import RUN_PLAN, SMALL, _assert_same_state, _cfg
+from test_torch_port_fused_rounds import RUN_ONLY, RUN_PLAN, SMALL, _assert_same_state, _cfg
 
 # the stop hook of the stop-seam cases: stop once two rounds are done
 STOP_AT = 2
@@ -111,7 +111,7 @@ def test_pipeline_equals_run_bit_for_bit(name, backend, tmp_path, reference):
         shared = [k for k in r if k in p and k != "seconds"]
         assert all(_same_value(r[k], p[k]) for k in shared), (r, p)
         if r["ok"]:
-            assert set(r) - {"seconds"} <= set(p), (r, p)
+            assert set(r) - {"seconds", *RUN_ONLY} <= set(p), (r, p)
     if name == "plan":
         assert [h["ok"] for h in hist] == [True, False, True, False, True]
     if name == "validation-every-2":
@@ -306,7 +306,10 @@ def test_auto_depth_from_records_equals_jaxs():
 def test_resolve_pipeline_depth(tmp_path, monkeypatch, capsys):
     """An int is used as it is; ``"auto"`` with no ledger is depth 1 with
     JAX's yellow line; a pick is capped at 2 under a synchronous
-    checkpoint every round, and at ``AUTO_DEPTH_CAP``."""
+    checkpoint every round, and at ``AUTO_DEPTH_CAP``.  The ledger is this
+    test's own: the suite's shared one holds the records of earlier runs
+    of this config."""
+    monkeypatch.setenv("ATTACKFL_LEDGER_DIR", str(tmp_path / "ledger"))
     sim = Simulator(_cfg(tmp_path, pipeline=True, pipeline_depth=3), device="cpu")
     assert sim.resolve_pipeline_depth() == 3
     assert sim._depth_info == {"source": "config", "depth": 3}
