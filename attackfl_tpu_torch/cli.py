@@ -11,6 +11,9 @@ the attacking ones into the run's attackers, and runs the federation on
 the card.  ``server --no-wait``, and ``run``, which is the same, skip the
 rendezvous and take the attackers from the config's ``attack-clients``
 section.
+
+``metrics`` summarizes a run's ``events.jsonl`` and ``watch`` polls a
+live run's monitor (``--monitor``), as the JAX package's commands do.
 """
 
 from __future__ import annotations
@@ -35,13 +38,16 @@ commands:
            --device cuda|cpu, --no-wait, --rounds N, --pipeline,
            --pipeline-depth K|auto, --resume, --checkpoint-async,
            --inject-faults PLAN, --validation-every K, --validation-async,
-           --compile-cache DIR; not ported yet, each refused with its
-           ROADMAP item: --monitor, --monitor-port N, --profile-rounds A:B,
-           --hotspots A:B, --numerics, --coordinator HOST:PORT with
-           --num-processes and --process-id)
+           --compile-cache DIR, --monitor, --monitor-port N, --numerics;
+           not ported yet, each refused with its ROADMAP item:
+           --profile-rounds A:B, --hotspots A:B, --coordinator HOST:PORT
+           with --num-processes and --process-id)
   client   register one client for the server (--config PATH, --attack
            [True], --attack_mode MODE, --attack_round N, --attack_args X..)
   run      server --no-wait: attackers from the config's attack-clients
+  metrics  summarize a run's events.jsonl (PATH, --run-id ID, --all,
+           --json, --forensics, --numerics)
+  watch    poll a live run's monitor (URL, --interval S, --once)
 """
 
 
@@ -269,7 +275,177 @@ def run_main(argv=None) -> int:
     return server_main(["--no-wait", *args])
 
 
-_SUBCOMMANDS = {"run": run_main, "server": server_main, "client": client_main}
+def metrics_main(argv=None) -> int:
+    """``metrics``: summarize a run's events.jsonl (``--forensics`` for
+    the defense's TPR/FPR, ``--numerics`` for the device-side round
+    metrics; JAX cli.py:320-326)."""
+    from attackfl_tpu_torch.telemetry.summary import main as summary_main
+
+    return summary_main(list(sys.argv[1:] if argv is None else argv))
+
+
+def _http_get_json(url: str, timeout: float = 5.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.status, json.loads(resp.read().decode() or "{}")
+
+
+def _http_get_text(url: str, timeout: float = 5.0) -> tuple[int, str]:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.status, resp.read().decode()
+
+
+def _parse_prom(text: str) -> dict:
+    """Minimal Prometheus text-exposition parser: ``{name{labels} ->
+    float}`` with the raw label string kept as part of the key (enough
+    to read back the gauges our own ``metrics_text`` writes)."""
+    gauges: dict = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        try:
+            gauges[name] = float(value)
+        except ValueError:
+            continue
+    return gauges
+
+
+def _watch_backoff(failures: int, interval: float, cap: float = 60.0) -> float:
+    """Capped exponential backoff for unreachable monitors: the normal
+    poll period for the first miss, doubling per consecutive miss, never
+    above ``cap``.  A service restart (seconds of connection-refused)
+    costs a few quick retries instead of a crash or a minute-long gap."""
+    return min(interval * (2 ** max(failures - 1, 0)), cap)
+
+
+def watch_main(argv=None) -> int:
+    """``watch``: thin poller of a live run's monitor endpoint
+    (``--monitor`` on run/server; JAX cli.py:474-637): prints each new
+    round as it completes, with its numerics gauges and pipeline depth,
+    and shouts when ``/healthz`` flips to stalled or degraded.
+
+    Connection-refused / connection-reset (a monitor rebinding) is
+    survived with capped exponential backoff: the poller retries rather
+    than crashing mid-watch.  The round line's mesh, utilization and
+    host-bound fields of JAX's come with the port's mesh (ROADMAP item
+    14) and its cost model and profiling windows (item 16c);
+    ``--schedule`` and ``--fleet`` watch the run service, which the port
+    does not have yet (item 18)."""
+    import http.client
+    import urllib.error
+
+    parser = argparse.ArgumentParser(
+        prog="python -m attackfl_tpu_torch watch",
+        description="Poll a running simulation's monitor endpoint.")
+    parser.add_argument("url", nargs="?", default="http://127.0.0.1:8780",
+                        help="monitor base URL (printed at run start)")
+    parser.add_argument("--interval", type=float, default=5.0,
+                        help="poll period in seconds (default 5)")
+    parser.add_argument("--max-backoff", type=float, default=60.0,
+                        help="cap for the unreachable-retry backoff "
+                             "(default 60s)")
+    parser.add_argument("--once", action="store_true",
+                        help="single poll: exit 0 healthy, 1 stalled, "
+                             "2 unreachable")
+    parser.add_argument("--schedule", action="store_true",
+                        help="watch a run service's /schedule endpoint "
+                             "(not ported yet, ROADMAP item 18)")
+    parser.add_argument("--fleet", action="store_true",
+                        help="watch a run service's fleet gauges "
+                             "(not ported yet, ROADMAP item 18)")
+    args = parser.parse_args(argv)
+    base = args.url.rstrip("/")
+    if args.schedule or args.fleet:
+        print("watch --schedule and --fleet poll the run service, which is not "
+              "ported yet (ROADMAP.md queue 1, item 18)", file=sys.stderr)
+        return 2
+
+    seen_round = object()
+    stalled = False
+    degraded = False
+    failures = 0
+    while True:
+        try:
+            code, health = _http_get_json(base + "/healthz")
+        except urllib.error.HTTPError as e:
+            code, health = e.code, {"status": f"http {e.code}"}
+        except (urllib.error.URLError, http.client.HTTPException, OSError,
+                ValueError) as e:
+            # connection refused/reset — the service is restarting or the
+            # monitor is rebinding; back off (capped) and keep polling
+            failures += 1
+            delay = _watch_backoff(failures, args.interval,
+                                   args.max_backoff)
+            print(f"[watch] {base} unreachable: {e} "
+                  f"(retry {failures} in {delay:.1f}s)", file=sys.stderr)
+            if args.once:
+                return 2
+            time.sleep(delay)
+            continue
+        failures = 0
+        try:
+            _, last = _http_get_json(base + "/last-round")
+        except Exception:  # noqa: BLE001 — health is the primary signal
+            last = {}
+        if code == 503:
+            if not stalled:
+                print_with_color(f"[watch] STALL detected: {health}", "red")
+            stalled = True
+        else:
+            stalled = False
+        # degraded ≠ stalled ≠ healthy: the pipelined executor demoted to
+        # depth-0 after consecutive rollbacks — progressing, but flagged
+        depth = last.get("pipeline_depth")
+        depth_text = (f" (depth {depth}"
+                      + (f", configured {health['configured_depth']}"
+                         if isinstance(health.get("configured_depth"), int)
+                         else "") + ")") \
+            if isinstance(depth, int) else ""
+        if health.get("status") == "degraded":
+            if not degraded:
+                print_with_color(
+                    f"[watch] executor DEGRADED{depth_text}: {health}",
+                    "yellow")
+            degraded = True
+        elif degraded and code != 503:
+            print_with_color(
+                f"[watch] executor re-promoted (healthy{depth_text})",
+                "cyan")
+            degraded = False
+        rnd = last.get("round")
+        if last and rnd != seen_round:
+            seen_round = rnd
+            keys = [k for k in ("roc_auc", "accuracy", "nll", "train_loss")
+                    if isinstance(last.get(k), (int, float))]
+            msg = " ".join(f"{k}={last[k]:.4f}" for k in keys)
+            # latest drained numerics gauges (--numerics runs): shown next
+            # to the round line so a drifting p95 / a non-finite count / a
+            # collapsing attack margin is visible live
+            numerics = last.get("numerics") or {}
+            gauges = [(short, numerics[key]) for short, key in
+                      (("unorm_p95", "update_norm_all_p95"),
+                       ("nonfinite", "nonfinite_count"),
+                       ("sep", "sep_margin"))
+                      if isinstance(numerics.get(key), (int, float))]
+            if gauges:
+                msg += ("  [" + " ".join(f"{k}={v:.4g}" for k, v in gauges)
+                        + "]")
+            if isinstance(depth, int):
+                msg += f" depth={depth}"
+            print(f"[watch] round {rnd} ok={last.get('ok')} "
+                  f"{msg}".rstrip(), flush=True)
+        if args.once:
+            return 1 if stalled else 0
+        time.sleep(args.interval)
+
+
+_SUBCOMMANDS = {"run": run_main, "server": server_main, "client": client_main,
+               "metrics": metrics_main, "watch": watch_main}
 
 
 def main(argv=None) -> int:

@@ -65,8 +65,11 @@ def parse_profile_rounds(spec: str) -> tuple[int, int] | None:
 class TelemetryConfig:
     """Observability knobs: the event log (``events.jsonl``), the Chrome
     trace (``trace.json``), the counters and the cross-run ledger, under
-    ``log_path`` unless a path is given.  The opt-in features (monitor,
-    numerics, profiling windows, hotspots) are refused by the engine."""
+    ``log_path`` unless a path is given; the opt-in numerics ring and live
+    monitor.  The profiling windows and hotspots are refused by the engine
+    (ROADMAP item 16c).  ``costmodel`` is accepted and has no effect yet:
+    the port writes no ``program_profile`` event (item 16c), where the JAX
+    package writes them by default (unless ``ATTACKFL_COSTMODEL=0``)."""
 
     enabled: bool = True
     sample_every: int = 1

@@ -83,10 +83,10 @@ class HostFaultInjector:
     ``ckpt_write_error``, which fails ``count`` consecutive attempts at or
     after its round.  The async writer's thread calls the checkpoint
     seams; the round loop never calls them at the same time.
-    ``monitor_stall`` and the service and scheduler kinds act on layers
-    the port does not have, so nothing fires them, as in a JAX run
-    without those layers (``maybe_stall_monitor`` returns on a missing
-    monitor)."""
+    ``monitor_stall`` fires through :meth:`maybe_stall_monitor` once a
+    round resolves, and is a no-op without a monitor.  The service and
+    scheduler kinds act on layers the port does not have, so nothing
+    fires them, as in a JAX run without those layers."""
 
     def __init__(self, plan: Sequence[FaultSpec], telemetry=None):
         self._plan = tuple(plan)
@@ -163,3 +163,17 @@ class HostFaultInjector:
             self._fired.add(key)
             writer.inject_thread_death()
             self._emit("writer_death", round_no)
+
+    # ---- monitor seam -----------------------------------------------
+    def maybe_stall_monitor(self, round_no: int, monitor) -> None:
+        """Rewind the watchdog heartbeat past its threshold so the stall
+        path (503 /healthz, ``stall`` event) fires deterministically."""
+        if monitor is None:
+            return
+        for _spec in self._specs("monitor_stall", round_no):
+            key = ("monitor_stall", round_no)
+            if key in self._fired:
+                continue
+            self._fired.add(key)
+            seconds = monitor.simulate_hang()
+            self._emit("monitor_stall", round_no, rewound_seconds=seconds)

@@ -28,6 +28,7 @@ import subprocess
 from typing import Any
 
 from attackfl_tpu_torch.telemetry.forensics import forensics_summary
+from attackfl_tpu_torch.telemetry.numerics import numerics_summary
 from attackfl_tpu_torch.telemetry.summary import summarize
 from attackfl_tpu_torch.utils.fingerprint import fingerprint_from_dict
 
@@ -164,11 +165,12 @@ def derive_record(events: list[dict[str, Any]],
     """Distill one run's event slice (+ optional trace spans) into a
     ledger record.  Returns None for an empty slice (nothing ran).
 
-    The cost-model (``programs``, ``utilization``), hotspot and numerics
-    joins read ``program_profile``, ``hotspot`` and numerics ``metric``
-    events, which the port does not write yet: those fields are None, as
-    the JAX package's ``derive_record`` leaves them when the events are
-    absent."""
+    The ``numerics`` join reads the numerics ``metric`` events
+    (``telemetry.numerics``).  The cost-model (``programs``,
+    ``utilization``) and hotspot joins read ``program_profile`` and
+    ``hotspot`` events, which the port does not write yet (ROADMAP item
+    16c): those fields are None, as the JAX package's ``derive_record``
+    leaves them when the events are absent."""
     if not events:
         return None
     summary = summarize(events)
@@ -218,6 +220,19 @@ def derive_record(events: list[dict[str, Any]],
             if isinstance(seconds, (int, float)):
                 compile_info["seconds"] = round(
                     compile_info["seconds"] + float(seconds), 6)
+
+    numerics = numerics_summary(events)
+    numerics_out = None
+    if numerics is not None:
+        numerics_out = {
+            "rounds": numerics.get("rounds"),
+            "nonfinite_total": numerics.get("nonfinite_total"),
+            **(numerics.get("final") or {}),
+        }
+        separation = numerics.get("separation")
+        if separation:
+            numerics_out["sep_margin_mean"] = separation.get("margin_mean")
+            numerics_out["sep_margin_min"] = separation.get("margin_min")
 
     forensics = forensics_summary(events)
     forensics_out = None
@@ -314,7 +329,7 @@ def derive_record(events: list[dict[str, Any]],
         "programs": None,
         "utilization": None,
         "hotspots": None,
-        "numerics": None,
+        "numerics": numerics_out,
         "forensics": forensics_out,
         "counts": counts,
         "final": summary.get("final") or {},

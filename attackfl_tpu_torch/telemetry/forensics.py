@@ -134,3 +134,46 @@ def forensics_by_defense(events: list[dict[str, Any]]
                            if e.get("kind") == "attribution"})
     overall["by_defense"] = defenses
     return overall
+
+
+def format_forensics(summary: dict[str, Any],
+                     run_id: str | None = None) -> str:
+    def fmt(value: float | None) -> str:
+        return "n/a" if value is None else f"{value:.4f}"
+
+    lines = [
+        f"defense forensics — mode={summary['mode']}"
+        + (f" [{summary['source']}]" if summary.get("source") else "")
+        + (f" run {run_id}" if run_id else ""),
+        f"rounds with attribution: {summary['rounds']} "
+        f"({summary['attack_rounds']} under active attack)",
+        f"confusion (micro): tp={summary['tp']} fp={summary['fp']} "
+        f"fn={summary['fn']} tn={summary['tn']}",
+        f"TPR={fmt(summary['tpr'])} FPR={fmt(summary['fpr'])} "
+        f"precision={fmt(summary['precision'])}",
+    ]
+    if summary.get("rollbacks"):
+        lines.append(f"rollbacks: {summary['rollbacks']} round(s) rolled "
+                     "back by detection removals")
+    by_defense = summary.get("by_defense") or {}
+    if by_defense:
+        lines.append(
+            f"per-defense breakdown ({summary.get('runs', '?')} "
+            f"stream(s)):")
+        lines.append(f"  {'defense':<14}{'rounds':>7}{'attack':>7}"
+                     f"{'TPR':>8}{'FPR':>8}{'prec':>8}")
+        for mode, row in by_defense.items():
+            lines.append(
+                f"  {mode:<14}{row['rounds']:>7}{row['attack_rounds']:>7}"
+                f"{fmt(row['tpr']):>8}{fmt(row['fpr']):>8}"
+                f"{fmt(row['precision']):>8}")
+    flagged = [r for r in summary["per_round"] if r["attackers"]]
+    if flagged:
+        lines.append(f"{'round':<8}{'attackers':>10}{'removed':>9}"
+                     f"{'tp':>5}{'fp':>5}{'TPR':>8}{'FPR':>8}")
+        for row in flagged:
+            lines.append(
+                f"{row['round']:<8}{row['attackers']:>10}{row['removed']:>9}"
+                f"{row['tp']:>5}{row['fp']:>5}"
+                f"{fmt(row['tpr']):>8}{fmt(row['fpr']):>8}")
+    return "\n".join(lines)

@@ -89,6 +89,18 @@ round's phases end in a sync only where JAX's block (``aggregate``,
 ``hyper_update``), and the fused and pipelined paths read nothing more.
 A round's ``attacks_active`` and ``phases`` are in its history entry
 whatever the setting, as in JAX.
+
+With ``telemetry.numerics`` every executor computes the JAX package's
+numerics row on the card each round (``ops/metrics.py``, a ``numerics``
+phase on the synchronous path, inside the body on the fused and
+pipelined ones) and writes it into a ring carried in the state; the
+drainer (``telemetry/numerics.py``) turns the rows into ``metric`` events
+late, on the paths' existing reads or one ring copy every
+``numerics_window`` synchronous rounds (JAX engine.py:483-534).  With
+``telemetry.monitor`` the run serves ``/healthz``, ``/metrics`` and
+``/last-round`` and its watchdog writes a ``stall`` event when no round
+completes in time (``telemetry/monitor.py``, JAX engine.py:333-348).
+Neither changes the params.
 """
 
 from __future__ import annotations
@@ -117,9 +129,12 @@ from attackfl_tpu_torch.ledger.store import LedgerStore, resolve_ledger_dir
 from attackfl_tpu_torch.models.hyper import make_hypernetwork
 from attackfl_tpu_torch.ops import build, defenses
 from attackfl_tpu_torch.ops import pytree as pt
+from attackfl_tpu_torch.ops.metrics import Numerics, build_layout
 from attackfl_tpu_torch.registry import get_model
 from attackfl_tpu_torch.telemetry.console import Logger, print_with_color
 from attackfl_tpu_torch.telemetry.core import Telemetry
+from attackfl_tpu_torch.telemetry.monitor import RunMonitor
+from attackfl_tpu_torch.telemetry.numerics import NumericsDrainer
 from attackfl_tpu_torch.telemetry.timing import RoundTimer
 from attackfl_tpu_torch.training.hyper import build_hyper_round, build_hyper_update
 from attackfl_tpu_torch.training.round import (
@@ -206,16 +221,16 @@ def check_slice(cfg: Config) -> None:
     for TransformerModel, pallas (the config refuses it for the others,
     for hyper and for a compute-dtype other than float32); the
     synchronous, fused and pipelined executors; the event log, trace,
-    counters and ledger.  The numerics ring, the monitor and the profiling
-    and hotspot windows are refused."""
+    counters and ledger, the numerics ring and the live monitor.  The
+    profiling and hotspot windows are refused (item 16c)."""
     if MODEL_DATA.get(cfg.model) != cfg.data_name:
         raise ValueError(f"model {cfg.model!r} does not run on {cfg.data_name!r}; the "
                          f"models and their datasets: {MODEL_DATA}")
     if cfg.mesh.num_devices > 1:
         _refuse("the multi-GPU client axis", "item 14")
     tel = cfg.telemetry
-    if tel.monitor or tel.numerics or tel.profile_rounds or tel.hotspots:
-        _refuse("telemetry (monitor, numerics, profiling windows, hotspots)", "item 16b")
+    if tel.profile_rounds or tel.hotspots:
+        _refuse("telemetry's profiling and hotspot windows", "item 16c")
 
 
 def host_filter(mode: str, stacked: dict, attacker_mask: np.ndarray,
@@ -247,6 +262,13 @@ class Simulator:
         # the event log, tracer and counters (JAX engine.py:275-296); inert
         # with telemetry.enabled false
         self.telemetry = Telemetry.from_config(cfg)
+        # the live monitor (JAX engine.py:333-348): never built with
+        # telemetry off; bound at the run's start
+        self.monitor = None
+        if self.telemetry.enabled and cfg.telemetry.monitor:
+            self.monitor = RunMonitor(self.telemetry, port=cfg.telemetry.monitor_port,
+                                      stall_factor=cfg.telemetry.stall_factor,
+                                      stall_grace_seconds=cfg.telemetry.stall_grace_seconds)
         self._header_emitted = False
         self._header_record: dict[str, Any] | None = None
         # the cross-run ledger (JAX engine.py:363-386): one record per run,
@@ -259,6 +281,8 @@ class Simulator:
                                                           base=self.telemetry.base_dir))
             if self._ledger.swept_orphans:
                 self.telemetry.counters.inc("orphan_tmp_swept", len(self._ledger.swept_orphans))
+            if self.monitor is not None:
+                self.monitor.set_ledger(self._ledger)
             try:
                 self._ledger_events_offset = os.path.getsize(self.telemetry.events.path)
             except OSError:
@@ -317,6 +341,20 @@ class Simulator:
         if (not self.is_hyper and self.telemetry.enabled and self.attack_groups
                 and cfg.mode not in ("gmm", "fltracer")):
             self._attribution = build_attribution_fn(self.model, cfg, self.test_data)
+        # the numerics ring (JAX engine.py:483-534): the layout from the
+        # client params' leaves, or the target model's in hyper mode; the
+        # step draws nothing and writes no tensor it is given
+        self._numerics = None
+        self._numerics_drainer = None
+        if self.telemetry.enabled and cfg.telemetry.numerics:
+            template = (self.target_template if self.is_hyper else
+                        self.model.init(torch.Generator().manual_seed(cfg.random_seed)))
+            layout = build_layout(template, bool(self.attack_groups))
+            self._numerics = Numerics(layout, ~self.attacker_mask, self.attacker_mask,
+                                      window=cfg.telemetry.numerics_window, device=self.device)
+            self._numerics_drainer = NumericsDrainer(
+                layout, self.telemetry, cfg.telemetry.numerics_window,
+                on_gauges=self.monitor.update_numerics if self.monitor is not None else None)
         # the plan's host-side faults (the device-side ones are in round_step)
         self.fault_injector = (HostFaultInjector(cfg.faults, self.telemetry)
                                if cfg.faults else None)
@@ -385,8 +423,11 @@ class Simulator:
         """``state`` as a checkpoint holds it: the generator as its
         ``get_state()`` (a CPU uint8 tensor); in hyper mode the
         hypernetwork and Adam's moments as flax-named trees, so a
-        checkpoint of the other class fails the structure check."""
-        host = {**state, "rng": state["rng"].get_state()}
+        checkpoint of the other class fails the structure check.  The
+        numerics ring is observability state and never checkpointed (JAX
+        engine.py:1031-1042, 1463-1466): a resumed run starts a fresh one."""
+        host = {k: v for k, v in state.items() if k != "numerics"}
+        host["rng"] = state["rng"].get_state()
         if self.is_hyper:
             opt = state["hyper_opt_state"]
             host["hnet_params"] = self.hnet.tree(state["hnet_params"])
@@ -460,6 +501,26 @@ class Simulator:
                 pass
         return state
 
+    def _ensure_numerics_state(self, state: dict[str, Any]) -> dict[str, Any]:
+        """Attach a fresh numerics ring to a state that lacks one (a fresh
+        init, a resume, a state built with numerics off; JAX
+        engine.py:894-903)."""
+        if self._numerics is not None and "numerics" not in state:
+            state = dict(state, numerics=self._numerics.init_state())
+        return state
+
+    def _numerics_step(self, num_state: dict, old_ref, new_ref, stacked: dict,
+                       sizes: torch.Tensor, loss, ok, broadcast: int):
+        """The numerics step of a round (JAX engine.py:513-534): the client
+        updates measured against the global params ``old_ref``, or in
+        hyper mode against the params the hypernetwork ``old_ref``
+        generates for each client this broadcast.  ``new_ref`` is the
+        round's accepted outcome."""
+        with torch.no_grad():
+            base = self.hnet.generate_all(old_ref)[0] if self.is_hyper else old_ref
+            return self._numerics.step(num_state, base, old_ref, new_ref, stacked, sizes,
+                                       loss, ok, broadcast)
+
     def save_checkpoint(self, state: dict[str, Any]) -> bool:
         """Persist ``state`` as a round-stamped entry, the alias and the
         manifest record; False when the write failed open.  With
@@ -492,9 +553,12 @@ class Simulator:
                                    restarts=restarts)
 
     def close(self) -> None:
-        """Drain and stop the async checkpoint writer and close the event
-        log.  Safe to call twice; the Simulator still runs afterwards,
-        saving synchronously (its telemetry then writes nothing)."""
+        """Stop the monitor's threads, drain and stop the async checkpoint
+        writer and close the event log.  Safe to call twice; the
+        Simulator still runs afterwards, saving synchronously (its
+        telemetry then writes nothing)."""
+        if self.monitor is not None:
+            self.monitor.stop()
         if self.checkpoint_writer is not None:
             self.checkpoint_writer.close()
             self.checkpoint_writer = None
@@ -533,6 +597,18 @@ class Simulator:
         if self._header_emitted or not tel.enabled:
             return
         self._header_emitted = True
+        # bound before the header goes out, which records the ACTUAL port
+        # (`monitor-port: 0` binds an ephemeral one)
+        self._start_monitor()
+        programs = {}
+        if self._numerics is not None:
+            programs["numerics"] = {
+                "program": "numerics_step",
+                "slots": self._numerics.layout.size,
+                "window": self._numerics.window,
+                "metrics": list(self._numerics.layout.names),
+                "leaf_names": list(self._numerics.layout.leaf_names),
+            }
         backend = "gpu" if self.device.type == "cuda" else "cpu"
         depth = ({"pipeline_depth": int(self._depth_resolved),
                   "pipeline_depth_configured": str(self.cfg.pipeline_depth)}
@@ -541,15 +617,39 @@ class Simulator:
             "run_header", backend=backend, num_devices=1, mode=self.cfg.mode,
             model=self.cfg.model, data_name=self.cfg.data_name,
             total_clients=self.cfg.total_clients,
-            attacks=describe_attack_groups(self.attack_groups),
+            attacks=describe_attack_groups(self.attack_groups), programs=programs,
             torch_version=torch.__version__, platform=backend, git_rev=git_revision(),
             fault_plan=[spec.describe() for spec in self.cfg.faults],
-            config=dataclasses.asdict(self.cfg), **depth)
+            config=dataclasses.asdict(self.cfg),
+            **({"monitor_port": int(self.monitor.port)}
+               if self.monitor is not None and self.monitor.port is not None else {}),
+            **depth)
         if self._resume_info is not None:
             # the boundary the resumed run continues from: its own round
             # events start at round + 1
             tel.events.emit("resume", **self._resume_info)
             self._resume_info = None
+
+    def _start_monitor(self) -> None:
+        """Bind the health endpoint (idempotent) and arm the watchdog for
+        this run (JAX engine.py:1375-1390)."""
+        if self.monitor is None:
+            return
+        first = self.monitor.port is None
+        self.monitor.start().run_started()
+        if first:
+            print_with_color(f"[monitor] http://localhost:{self.monitor.port} "
+                             "(/healthz /metrics /last-round — poll with "
+                             "`python -m attackfl_tpu_torch watch`)", "cyan")
+
+    def _note_round_faults(self, round_no: int, broadcast: int) -> None:
+        """A resolved round's host-side fault bookkeeping (JAX
+        engine.py:1431-1439): the plan's device-side injections of its
+        broadcast, then any armed monitor stall."""
+        if self.fault_injector is None:
+            return
+        self.fault_injector.note_round_resolved(broadcast)
+        self.fault_injector.maybe_stall_monitor(round_no, self.monitor)
 
     def _emit_attribution(self, metrics: dict[str, Any], global_params: dict, stacked: dict,
                           sizes: torch.Tensor, weights_mask: torch.Tensor,
@@ -598,6 +698,8 @@ class Simulator:
         tel = self.telemetry
         if not tel.enabled:
             return
+        if self.monitor is not None:
+            self.monitor.run_ended()
         tel.events.emit("counters", counters=tel.counters.snapshot())
         tel.events.emit("run_end", rounds=len(history),
                         ok_rounds=sum(1 for h in history if h.get("ok")),
@@ -801,6 +903,16 @@ class Simulator:
         if ok:
             new_state["global_params"] = new_global
             new_state["completed_rounds"] = state["completed_rounds"] + 1
+        if self._numerics is not None:
+            with timer.phase("numerics"):
+                # dispatch only: the row lands in the ring; a failed round
+                # is measured against the params it kept (zero drift)
+                accepted = new_global if ok else state["global_params"]
+                new_state["numerics"], _ = self._numerics_step(
+                    state["numerics"], state["global_params"], accepted, stacked, sizes, loss,
+                    ok, broadcast_number)
+            self._numerics_drainer.note_round(metrics["round"], broadcast_number)
+            self._numerics_drainer.maybe_drain(new_state["numerics"])
         return new_state, metrics
 
     def _run_hyper_round(self, state: dict[str, Any], broadcast_number: int,
@@ -906,6 +1018,16 @@ class Simulator:
             new_state["hnet_params"] = hnet
             new_state["hyper_opt_state"] = opt
             new_state["completed_rounds"] = state["completed_rounds"] + 1
+        if self._numerics is not None:
+            with timer.phase("numerics"):
+                # `hnet` already reflects a rollback (zero drift); a failed
+                # round keeps the old hypernetwork
+                accepted = hnet if ok else state["hnet_params"]
+                new_state["numerics"], _ = self._numerics_step(
+                    state["numerics"], state["hnet_params"], accepted, stacked, sizes, loss,
+                    ok, broadcast_number)
+            self._numerics_drainer.note_round(metrics["round"], broadcast_number)
+            self._numerics_drainer.maybe_drain(new_state["numerics"])
         return new_state, metrics
 
     # ------------------------------------------------------------------
@@ -943,7 +1065,8 @@ class Simulator:
         ``stop``, if given, is called with the completed-round count
         before each round: a truthy verdict ends the run there."""
         num_rounds = num_rounds if num_rounds is not None else self.cfg.num_round
-        state = state if state is not None else self.load_or_init_state()
+        state = self._ensure_numerics_state(
+            state if state is not None else self.load_or_init_state())
         self._stop_reason = None
         use_pipeline = self.cfg.pipeline if pipeline is None else pipeline
         depth = None
@@ -962,6 +1085,7 @@ class Simulator:
         retries = 0
         t_start = time.perf_counter()
         self.logger.log_info("### Application start ###")
+        self._start_monitor()
         try:
             while state["completed_rounds"] < num_rounds:
                 if self._consult_stop(stop, state["completed_rounds"]):
@@ -969,8 +1093,9 @@ class Simulator:
                 round_no = state["completed_rounds"] + 1
                 state, metrics = self.run_round(state)
                 history.append(metrics)
-                if self.fault_injector is not None:
-                    self.fault_injector.note_round_resolved(metrics["broadcast"])
+                self._note_round_faults(round_no, metrics["broadcast"])
+                if self.monitor is not None:
+                    self.monitor.record_round(metrics)
                 if metrics["ok"]:
                     retries = 0
                     if save_checkpoints:
@@ -994,7 +1119,7 @@ class Simulator:
                             f"Round {round_no} failed {retries} times; aborting "
                             "(the reference would retry forever, server.py:546-556)")
         finally:
-            self._finish_run(history, t_start)
+            self._finish_run(history, t_start, state)
         return state, history
 
     # ------------------------------------------------------------------
@@ -1033,12 +1158,18 @@ class Simulator:
         it); with ``validation_every > 1`` a skipped broadcast reports NaN
         metrics and carries no gate.  Validation gates the round here
         even under ``validation_async``, as JAX's fused chunk does.  The
-        broadcast clock is a host int: it advances by one a broadcast."""
+        broadcast clock is a host int: it advances by one a broadcast.
+        With numerics on, the metrics hold the round's ``numerics_row``
+        (JAX engine.py:1925-1981)."""
         cfg = self.cfg
         validation = self.validation if include_eval else None
         val_every = cfg.validation_every
         metric_keys = METRIC_KEYS[cfg.data_name] if validation is not None else ()
         nan = torch.full((), float("nan"), device=self.device)
+        # the numerics row is computed in the body, carried in the state's
+        # ring and returned as metrics["numerics_row"], which the chunk's
+        # and the pipelined round's existing copies bring to the host
+        numerics = self._numerics is not None
 
         def accept(flag, new, old):
             return pt.tree_map(lambda n, o: torch.where(flag, n, o), new, old)
@@ -1080,6 +1211,10 @@ class Simulator:
                     prev_genuine=new_gen, have_genuine=state["have_genuine"] | train_ok,
                     completed_rounds=state["completed_rounds"] + ok.to(torch.int64),
                     broadcasts=b)
+                if numerics:
+                    new_state["numerics"], metrics["numerics_row"] = self._numerics_step(
+                        state["numerics"], hnet, new_state["hnet_params"], stacked, sizes, loss,
+                        ok, b)
                 return new_state, metrics
         else:
             weights = torch.ones(cfg.total_clients, device=self.device)
@@ -1101,6 +1236,12 @@ class Simulator:
                     have_genuine=state["have_genuine"] | train_ok,
                     completed_rounds=state["completed_rounds"] + ok.to(torch.int64),
                     broadcasts=b)
+                if numerics:
+                    # measured against the ACCEPTED params, as the
+                    # synchronous round
+                    new_state["numerics"], metrics["numerics_row"] = self._numerics_step(
+                        state["numerics"], params, new_state["global_params"], stacked, sizes,
+                        loss, ok, b)
                 return new_state, metrics
         return body
 
@@ -1142,6 +1283,9 @@ class Simulator:
         out["broadcasts"] = int(state["broadcasts"])
         if "active_mask" in out:
             out["active_mask"] = state["active_mask"].to(self.device)
+        if self._numerics is None:
+            # a state from a Simulator with numerics on
+            out.pop("numerics", None)
         return out
 
     def run_scan(self, state: dict[str, Any], num_broadcasts: int
@@ -1167,18 +1311,21 @@ class Simulator:
     @staticmethod
     def _read_chunk(state: dict[str, Any], metrics: dict[str, torch.Tensor]
                     ) -> tuple[dict[str, Any], dict[str, np.ndarray]]:
-        """The chunk's one read of the card: its metrics, the
-        completed-round count and the leak flag in one float64 copy to the
-        host (every value is exact in float64).  Returns the state with
-        those two as host values, as :meth:`run` keeps them, and the
-        metrics as host arrays."""
+        """The chunk's one read of the card: its metrics (the numerics
+        rows among them), the completed-round count and the leak flag in
+        one float64 copy to the host (every value is exact in float64).
+        Returns the state with those two as host values, as :meth:`run`
+        keeps them, and the metrics as host arrays of their shapes."""
         keys = list(metrics)
-        packed = torch.cat([torch.stack([metrics[k].to(torch.float64) for k in keys]).reshape(-1),
-                            torch.stack([state["completed_rounds"].to(torch.float64),
-                                         state["have_genuine"].to(torch.float64)])]).cpu()
+        packed = torch.cat([metrics[k].to(torch.float64).reshape(-1) for k in keys]
+                           + [torch.stack([state["completed_rounds"].to(torch.float64),
+                                           state["have_genuine"].to(torch.float64)])]).cpu()
         values = packed.numpy()
-        n = metrics[keys[0]].shape[0]
-        host = {k: values[i * n:(i + 1) * n] for i, k in enumerate(keys)}
+        host, at = {}, 0
+        for k in keys:
+            size = metrics[k].numel()
+            host[k] = values[at:at + size].reshape(tuple(metrics[k].shape))
+            at += size
         state = dict(state, completed_rounds=int(values[-2]), have_genuine=bool(values[-1]))
         return state, host
 
@@ -1210,7 +1357,8 @@ class Simulator:
         for a chunk during which a CUDA kernel library was built or
         loaded: the port compiles no per-program code."""
         num_rounds = num_rounds if num_rounds is not None else self.cfg.num_round
-        state = state if state is not None else self.load_or_init_state()
+        state = self._ensure_numerics_state(
+            state if state is not None else self.load_or_init_state())
         tel = self.telemetry
         self._stop_reason = None
         self._emit_run_header()
@@ -1219,6 +1367,7 @@ class Simulator:
         first_dispatch = True
         round_offset = int(state["completed_rounds"])
         t_start = time.perf_counter()
+        self._start_monitor()
         try:
             while int(state["completed_rounds"]) < num_rounds:
                 if self._consult_stop(stop, state["completed_rounds"]):
@@ -1241,6 +1390,9 @@ class Simulator:
                 tel.events.emit("chunk", chunk_len=n, seconds=round(elapsed, 6),
                                 includes_compile=build.load_library.cache_info().currsize
                                 > libraries)
+                # one numerics row a round, host values already (the
+                # chunk's one read brought them)
+                numerics_rows = host.pop("numerics_row", None)
                 for i in range(n):
                     entry = {k: (bool(v[i]) if k == "ok" else float(v[i]))
                              for k, v in host.items()}
@@ -1248,10 +1400,16 @@ class Simulator:
                     entry["chunk_len"] = n
                     entry["round"] = round_offset + len(history) + 1
                     entry["broadcast"] = state["broadcasts"] - n + i + 1
+                    if numerics_rows is not None:
+                        self._numerics_drainer.push_host_row(entry["round"], entry["broadcast"],
+                                                             numerics_rows[i])
                     history.append(entry)
                     tel.events.round_event(entry)
-                    if self.fault_injector is not None:
-                        self.fault_injector.note_round_resolved(entry["broadcast"])
+                    self._note_round_faults(entry["round"], entry["broadcast"])
+                    if self.monitor is not None:
+                        # the chunk is one dispatch: its amortized per-round
+                        # time feeds the stall median
+                        self.monitor.record_round(entry, duration=elapsed / n)
                     if entry["ok"]:
                         consecutive_failures = 0
                     else:
@@ -1276,7 +1434,7 @@ class Simulator:
                         f"[fast] {state['completed_rounds']}/{num_rounds} rounds, chunk of {n} "
                         f"in {elapsed:.2f}s ({elapsed / n:.3f}s/round) {msg}", "green")
         finally:
-            self._finish_run(history, t_start)
+            self._finish_run(history, t_start, state)
         return state, history
 
     # ------------------------------------------------------------------
@@ -1290,9 +1448,10 @@ class Simulator:
         records (this Simulator's store, else the ledger directory when it
         exists; a read that fails is kept in ``_depth_info["error"]``):
         with no measurement it is depth 1, said in a yellow line.  The
-        pick is capped by :data:`AUTO_DEPTH_CAP`, and by 2 under a
-        synchronous checkpoint every round (a deeper queue waits behind
-        the write).  The depth and how it was found stay in
+        pick is capped by :data:`AUTO_DEPTH_CAP`, by ``numerics_window``
+        with numerics on (the rows resolve up to k rounds late), and by 2
+        under a synchronous checkpoint every round (a deeper queue waits
+        behind the write).  The depth and how it was found stay in
         ``_depth_resolved`` and ``_depth_info``."""
         configured = self.cfg.pipeline_depth
         if isinstance(configured, int):
@@ -1321,6 +1480,8 @@ class Simulator:
                 "defaulting to depth-1 (a run with telemetry.ledger on feeds the "
                 "auto-tuner)", "yellow")
         cap = AUTO_DEPTH_CAP
+        if self._numerics is not None:
+            cap = min(cap, self.cfg.telemetry.numerics_window)
         if save_checkpoints and not self.cfg.checkpoint_async:
             cap = min(cap, 2)
         if k > cap:
@@ -1341,8 +1502,8 @@ class Simulator:
                                  keep_state: bool) -> tuple[dict[str, Any], dict[str, Any]]:
         """Issue one round (``body`` on ``carry``) and, under
         ``validation_async`` on a due broadcast, its evaluation; then
-        copy the round's metrics, the evaluation's and the leak flag into
-        host memory behind an event, without waiting.  Returns the new
+        copy the round's metrics, the evaluation's, the leak flag and the
+        numerics row into host memory behind an event, without waiting.  Returns the new
         carry and the queue slot.  With ``keep_state`` the slot keeps the
         round's state for its checkpoint: the body writes no tensor of
         the state it is given, and the generator, which it advances in
@@ -1357,9 +1518,12 @@ class Simulator:
                 val = self.validation.test_hyper_async(gen)
             else:
                 val = self.validation.test_async(carry["global_params"])
+        row = metrics.pop("numerics_row", None)
         keys, val_keys = sorted(metrics), sorted(val)
         packed = torch.stack([t.to(torch.float64) for t in (
             [metrics[k] for k in keys] + [val[k] for k in val_keys] + [carry["have_genuine"]])])
+        if row is not None:
+            packed = torch.cat([packed, row.to(torch.float64)])
         # a blocking read would wait for every round queued after this one
         # as well: the copy goes to pinned memory and the resolve waits on
         # this round's event alone (on the CPU the copy is done at once)
@@ -1380,9 +1544,9 @@ class Simulator:
         """One round's history entry, and its leak flag, once its copy has
         landed (JAX ``_resolve_pipeline_round``, engine.py:2380-2404): the
         metrics (``ok`` a bool, the rest floats), ``round``,
-        ``broadcast``, ``pipelined``; an async validation is folded in
-        through ``_inflight_validations``, its verdict not gating the
-        round."""
+        ``broadcast``, ``pipelined``; the numerics row goes to the drainer
+        from the same copy; an async validation is folded in through
+        ``_inflight_validations``, its verdict not gating the round."""
         if pending["event"] is not None:
             pending["event"].synchronize()
         values = pending["host"].tolist()
@@ -1392,11 +1556,15 @@ class Simulator:
         entry["round"] = round_no
         entry["broadcast"] = pending["broadcast"]
         entry["pipelined"] = True
+        n = len(keys) + len(val_keys)
+        if len(values) > n + 1:
+            self._numerics_drainer.push_host_row(round_no, pending["broadcast"],
+                                                 np.asarray(values[n + 1:]))
         if val_keys:
-            out = dict(zip(val_keys, values[len(keys):len(keys) + len(val_keys)]))
+            out = dict(zip(val_keys, values[len(keys):n]))
             self._inflight_validations.append((entry, round_no, out))
             self._resolve_inflight_validations()
-        return entry, bool(values[-1])
+        return entry, bool(values[n])
 
     def _checkpoint_slot(self, slot_state: dict[str, Any], completed: int,
                          have_genuine: bool, active_mask) -> None:
@@ -1463,6 +1631,9 @@ class Simulator:
         degraded = False
         clean_streak = 0
         last_resolve = time.perf_counter()
+        self._start_monitor()
+        if self.monitor is not None:
+            self.monitor.set_pipeline_depth(depth)
 
         def overlap() -> int:
             """Rounds allowed in flight beyond the resolving one."""
@@ -1496,8 +1667,9 @@ class Simulator:
                         entry["degraded"] = True
                     history.append(entry)
                     tel.events.round_event(entry)
-                    if self.fault_injector is not None:
-                        self.fault_injector.note_round_resolved(pending["broadcast"])
+                    self._note_round_faults(round_no, pending["broadcast"])
+                    if self.monitor is not None:
+                        self.monitor.record_round(entry)
                     if entry["ok"]:
                         completed += 1
                         consecutive_failures = 0
@@ -1513,6 +1685,9 @@ class Simulator:
                                 tel.events.emit("degrade", state="repromoted", round=round_no,
                                                 depth=depth,
                                                 clean_rounds=cfg.pipeline_repromote_after)
+                                if self.monitor is not None:
+                                    self.monitor.set_degraded(None)
+                                    self.monitor.set_pipeline_depth(depth)
                                 print_with_color(
                                     f"[pipeline] re-promoted to depth-{depth} after "
                                     f"{cfg.pipeline_repromote_after} clean rounds", "cyan")
@@ -1533,10 +1708,14 @@ class Simulator:
                             f"Round {round_no} failed (retry {consecutive_failures})")
                         if not degraded and consecutive_failures >= cfg.pipeline_demote_after:
                             degraded = True
+                            info = {"round": round_no,
+                                    "consecutive_failures": consecutive_failures, "depth": 0,
+                                    "configured_depth": depth, "in_flight": len(queue)}
                             tel.counters.inc("executor_demotions")
-                            tel.events.emit("degrade", state="demoted", round=round_no,
-                                            consecutive_failures=consecutive_failures, depth=0,
-                                            configured_depth=depth, in_flight=len(queue))
+                            tel.events.emit("degrade", state="demoted", **info)
+                            if self.monitor is not None:
+                                self.monitor.set_degraded(info)
+                                self.monitor.set_pipeline_depth(0)
                             print_with_color(
                                 f"[pipeline] {consecutive_failures} consecutive rollbacks — "
                                 f"demoting from depth-{depth} to synchronous (depth-0) "
@@ -1547,22 +1726,28 @@ class Simulator:
                                 "aborting (the reference would retry forever, "
                                 "server.py:546-556)")
         finally:
-            self._finish_run(history, t_start)
+            if self.monitor is not None and degraded:
+                self.monitor.set_degraded(None)
+            self._finish_run(history, t_start, carry)
         out = dict(carry, completed_rounds=completed, have_genuine=have_genuine)
         if active_mask is not None:
             out["active_mask"] = active_mask
         return out, history
 
-    def _finish_run(self, history: list[dict[str, Any]], t_start: float) -> None:
+    def _finish_run(self, history: list[dict[str, Any]], t_start: float,
+                    state: dict[str, Any] | None = None) -> None:
         """The end of every run (JAX engine.py:1213-1246): resolve the
-        validations in flight, drain the async writer, so the last
-        submitted state is on disk when ``run`` returns or raises, then
-        write the counters, ``run_end`` and the trace and append the
-        ledger record, a crashing run's included.  A drain error is raised
-        after the rest is done."""
+        validations in flight, drain the numerics rows still in
+        ``state``'s ring (the synchronous path's), drain the async writer,
+        so the last submitted state is on disk when ``run`` returns or
+        raises, then write the counters, ``run_end`` and the trace and
+        append the ledger record, a crashing run's included.  A drain
+        error is raised after the rest is done."""
         drain_error: BaseException | None = None
         try:
             self._resolve_inflight_validations()
+            if self._numerics_drainer is not None and state is not None:
+                self._numerics_drainer.drain(state.get("numerics"))
         finally:
             if self.checkpoint_writer is not None:
                 try:

@@ -146,11 +146,33 @@ no result line):
                  pipelined config under pipeline_depth auto, reading a's
                  ledger: the depth, the record's round_device_time and
                  host_resolution_latency beside the profiler's
-                 device-busy s/round.
-Each of phases 4-14 resets the kernel launch counts before each run and
+                 device-busy s/round;
+ 15. numerics and monitor -- a. config 4 (cut) through run, run_fast
+                 (one chunk of 3) and run(pipeline=True) at depth 2 under
+                 each backend, with numerics off, on, on and off in turns
+                 (the ring's window 2): the params equal bit for bit, one
+                 valid numerics metric event a round in round order, the
+                 host syncs (a chunk 1, the pipeline 0, run one more a
+                 drain), s/round on and off, the drain's ms; the numerics
+                 step's launches, device-busy ms and host ms on a round's
+                 inputs; b. that round's row on the card against
+                 compute_row on the CPU from the same inputs (gauges within
+                 NUMERICS_RTOL relative, the histogram equal unless a norm
+                 lies within NUMERICS_RTOL of an edge); c. phase 11a's plan
+                 with monitor_stall@3 and the monitor on: the storm round's
+                 non-finite clients and first layer, /healthz 503 right
+                 after the stall with one stall event, 200 after the next
+                 round; d. phase 13b's demotion plan with the monitor on:
+                 /metrics' attackfl_pipeline_depth 3, 0, 3, /last-round's
+                 numerics gauges, `python -m attackfl_tpu_torch watch
+                 --once` and `metrics --numerics` on a's events; the
+                 monitor's host ms a round; e. hyper config 2 (cut) with
+                 numerics on and off: one row a round, the hypernetwork
+                 and Adam state bit for bit.
+Each of phases 4-15 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.  The kernels record's
-launches are phase 4's main path's, phase 13a's pipelined runs' and
-phase 14a's runs with telemetry on.
+launches are phase 4's main path's, phase 13a's pipelined runs', phase
+14a's runs with telemetry on and phase 15a's runs with numerics on.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
 toolkit, imports nothing of JAX, and fails when run outside the repository.
@@ -171,6 +193,8 @@ import sys
 import tempfile
 import time
 import unittest.mock
+import urllib.error
+import urllib.request
 import warnings
 from collections import Counter
 
@@ -195,6 +219,7 @@ from attackfl_tpu_torch.models.hyper import make_hypernetwork  # noqa: E402
 from attackfl_tpu_torch.models.icu import T_HEAD, TransformerModel  # noqa: E402
 from attackfl_tpu_torch.ops import aggregators, attacks, build, defenses  # noqa: E402
 from attackfl_tpu_torch.ops import fused_step as tfs  # noqa: E402
+from attackfl_tpu_torch.ops import metrics as tmetrics  # noqa: E402
 from attackfl_tpu_torch.ledger.store import LedgerStore  # noqa: E402
 from attackfl_tpu_torch.ops.pytree import (  # noqa: E402
     tree_broadcast, tree_items, tree_leaves, tree_map, tree_ravel_stacked, tree_take, unraveler,
@@ -379,6 +404,13 @@ TELEMETRY_LONG_ROUNDS = 20
 ATTRIBUTION_MODES = ("median", "trimmed_mean", "krum", "shieldfl", "byzantine", "scionfl",
                      "FLTrust", "gmm", "fltracer")
 ATTRIBUTION_ROUNDS = 2
+# phase 15.  a: config 4 (cut) through each of TELEMETRY_EXECUTORS with the
+# numerics ring of this window (run's 3 rounds drain at round 2 and at the
+# end); b: the card's row against the CPU's within this relative tolerance
+# (and the histogram's edges within it); c: phase 11a's plan with the
+# monitor stalled at STALL_ROUND, over STALL_RUN_ROUNDS rounds
+NUMERICS_WINDOW, NUMERICS_RTOL = 2, 1e-5
+STALL_ROUND, STALL_RUN_ROUNDS = 3, 4
 # filled by main_path (each backend's run history) and checkpoint_phase
 # (the gap between two config-4 runs without a stop, per backend), and by
 # fault_run (the faulted run's final state, per backend)
@@ -2927,6 +2959,361 @@ def telemetry_phase() -> dict:
     return launches
 
 
+def health_code(port: int) -> int:
+    """``/healthz``'s status code (a 503 arrives as HTTPError)."""
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5) as resp:
+            return resp.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def numerics_rows(events: list) -> list:
+    return [e for e in events if e["kind"] == "metric" and e.get("metric") == "numerics"]
+
+
+def numerics_run(backend: str, how: str, root: str, on: bool, turn: int):
+    """Phase 15 a's run of config 4 (cut) through ``how`` with numerics
+    ``on`` (window NUMERICS_WINDOW), under ``count_syncs``: (Simulator,
+    state, history, wall seconds, launches, host syncs, their sites, the
+    drains as (rows read, host ms))."""
+    directory = os.path.join(root, f"{backend}-{how}-{turn}-{'on' if on else 'off'}")
+    cfg = cut_config(local_backend=backend, log_path=directory, checkpoint_dir=directory,
+                     pipeline=how == "pipeline", pipeline_depth=TELEMETRY_DEPTH,
+                     telemetry=TelemetryConfig(numerics=on, numerics_window=NUMERICS_WINDOW,
+                                               ledger_dir=os.path.join(root, "ledger")))
+    sim = Simulator(cfg, device="cuda")
+    state = sim.init_state()
+    drains = []
+    if on:
+        def timed_drain(num_state, _real=sim._numerics_drainer.drain):
+            t = time.perf_counter()
+            rows = _real(num_state)
+            drains.append((rows, 1e3 * (time.perf_counter() - t)))
+            return rows
+        sim._numerics_drainer.drain = timed_drain
+    if how == "run_fast":
+        def go():
+            return sim.run_fast(state=state, chunk_size=cfg.num_round, save_checkpoints=False,
+                                verbose=False)
+    else:
+        def go():
+            return sim.run(state=state, save_checkpoints=False, verbose=False)
+    reset_launches()
+    t0 = time.perf_counter()
+    (state, history), syncs, sites = count_syncs(go)
+    wall = time.perf_counter() - t0
+    return sim, state, history, wall, launch_counts(), syncs, sites, drains
+
+
+def numerics_step_inputs(sim: Simulator, params: dict, broadcast: int) -> tuple:
+    """One attacked round's inputs to the numerics step on the card: the
+    round step's client rows, sizes and loss, and the aggregate."""
+    draws = sim.draw_round(torch.Generator(device=sim.device).manual_seed(broadcast))
+    stacked, sizes, _, ok, loss = sim.round_step(params, sim.init_state()["prev_genuine"],
+                                                 True, draws, broadcast)
+    weights = torch.ones(sim.cfg.total_clients, device=sim.device) * (sizes > 0)
+    new_global = sim.aggregate(params, stacked, sizes, weights, draws)
+    torch.cuda.synchronize()
+    return stacked, sizes, loss, bool(ok), new_global
+
+
+def numerics_step_cost(sim: Simulator, params: dict, label: str) -> dict:
+    """Phase 15 a: the numerics step on one round's inputs: its device
+    launches and device-busy ms (torch.profiler), the host's ms issuing
+    it, and the step's ms by CUDA events around it."""
+    stacked, sizes, loss, ok, new_global = numerics_step_inputs(sim, params, 3)
+    ring = sim._numerics.init_state()
+
+    def step():
+        return sim._numerics_step(ring, params, new_global, stacked, sizes, loss, ok, 3)
+
+    step_ms = time_ms(step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    if not device:
+        raise AssertionError(f"numerics {label}: torch.profiler recorded no device activity")
+    return {"launches": len(device), "busy_ms": busy_us(device) / 1e3, "host_ms": host_ms,
+            "events_ms": step_ms}
+
+
+def numerics_card_vs_cpu(sim: Simulator, params: dict) -> None:
+    """Phase 15 b: one attacked round's row on the card against
+    ``compute_row`` on the CPU from the same inputs copied to the host."""
+    stacked, sizes, loss, ok, new_global = numerics_step_inputs(sim, params, 3)
+    prev_loss = torch.full((), 0.5, device=sim.device)
+    card = sim._numerics.compute_row(params, params, new_global, stacked, sizes, prev_loss,
+                                     loss, ok, 3).cpu().numpy()
+    cpu = tmetrics.Numerics(sim._numerics.layout, ~sim.attacker_mask, sim.attacker_mask,
+                            NUMERICS_WINDOW, device="cpu")
+    def to_cpu(tree):
+        return tree_map(lambda x: x.cpu(), tree)
+
+    host = cpu.compute_row(to_cpu(params), to_cpu(params), to_cpu(new_global),
+                           to_cpu(stacked), sizes.cpu(), prev_loss.cpu(), loss.cpu(), ok,
+                           3).numpy()
+    names = sim._numerics.layout.names
+    k = len(names)
+    errs = {}
+    for name, a, b in zip(names, card[:k], host[:k]):
+        if np.isnan(a) and np.isnan(b):
+            continue
+        errs[name] = abs(float(a) - float(b)) / abs(float(b)) if b else abs(float(a))
+    worst = max(errs, key=errs.get)
+    norms = torch.sqrt(sum(torch.sum(torch.square((x - p).float()).reshape(x.shape[0], -1), 1)
+                           for x, p in zip(tree_leaves(stacked), tree_leaves(params))))
+    edges = torch.tensor(tmetrics.HIST_EDGES, device=norms.device)
+    near = norms[(torch.abs(norms[:, None] - edges[None, :]) <= NUMERICS_RTOL * edges).any(1)]
+    same_hist = bool(np.array_equal(card[k:], host[k:]))
+    gaps = ", ".join(f"{n}: {e:.1e}" for n, e in errs.items())
+    log(f"[numerics] pallas broadcast 3's row, card against CPU: {k} gauges, worst relative "
+        f"gap {errs[worst]:.3e} ({worst}: card {card[names.index(worst)]!r}, CPU "
+        f"{host[names.index(worst)]!r}); gaps {{{gaps}}}; "
+        f"histogram {card[k:].astype(int).tolist()} equal {same_hist}; norms within "
+        f"{NUMERICS_RTOL:g} of an edge: {near.tolist()}")
+    if errs[worst] > NUMERICS_RTOL:
+        raise AssertionError(f"numerics card vs CPU: {worst} apart by {errs[worst]:.3e}")
+    if not same_hist and not len(near):
+        raise AssertionError(f"numerics card vs CPU: histograms {card[k:]} and {host[k:]}")
+
+
+def numerics_executor_runs(root: str) -> tuple[dict, str]:
+    """Phase 15 a and b: each executor under each backend with numerics
+    off, on, on and off.  Gates on the first run on and the first off:
+    the params bit for bit, one valid row a round in round order, the
+    host syncs (a chunk SYNCS_PER_CHUNK, the pipeline none, run's
+    on-run one more a drain), the kernel launched.  Returns the launches
+    of the gated runs with numerics on, and the directory of the pallas
+    run's events."""
+    total = Counter()
+    card = card_line()
+    events_dir = None
+    for backend in ("pallas", "xla"):
+        for how in TELEMETRY_EXECUTORS:
+            _, off, _, wall_off, _, syncs_off, _, _ = numerics_run(backend, how, root, False, 0)
+            sim, on, history, wall_on, launches, syncs, sites, drains = numerics_run(
+                backend, how, root, True, 0)
+            wall_on2 = numerics_run(backend, how, root, True, 1)[3]
+            wall_off2 = numerics_run(backend, how, root, False, 1)[3]
+            total.update(launches)
+            label = f"numerics {backend} {how}"
+            n = len(history)
+            rows = numerics_rows(read_events(sim.cfg.log_path))
+            equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(on["global_params"]),
+                                                          tree_leaves(off["global_params"])))
+            reads = sum(1 for r, _ in drains if r)
+            log(f"[numerics] {backend} {how}: rows (round, broadcast, ok) "
+                f"{[(e['round'], e['broadcast'], e['numerics']['ok']) for e in rows]}; s/round "
+                f"in turns off, on, on, off: {wall_off / n:.4f}, {wall_on / n:.4f}, "
+                f"{wall_on2 / n:.4f}, {wall_off2 / n:.4f}; params on vs off equal {equal}; "
+                f"host syncs on {syncs} (at {dict(sites)}), off {syncs_off}; drains (rows, "
+                f"ms) {[(r, round(ms, 3)) for r, ms in drains]}; launches {launches} ({card})")
+            if [(e["round"], e["broadcast"]) for e in rows] != \
+                    [(h["round"], h["broadcast"]) for h in history]:
+                raise AssertionError(f"{label}: rows {rows}")
+            if not equal:
+                raise AssertionError(f"{label}: numerics changed the params")
+            if (how == "run_fast" and syncs != SYNCS_PER_CHUNK) or (how == "pipeline" and syncs):
+                raise AssertionError(f"{label}: {syncs} host syncs at {dict(sites)}")
+            if syncs != syncs_off + (reads if how == "run" else 0):
+                raise AssertionError(f"{label}: {syncs} host syncs on against {syncs_off} off "
+                                     f"and {reads} drains")
+            if how == "run" and [r for r, _ in drains] != [2, 1]:
+                raise AssertionError(f"{label}: drains {drains}")
+            require_kernel(label, sim.cfg, launches, n)
+            if how == "run":
+                cost = numerics_step_cost(sim, on["global_params"], label)
+                log(f"[numerics] {backend} the numerics step on a round's inputs: "
+                    f"{cost['launches']} device launches, device busy {cost['busy_ms']:.4f} ms, "
+                    f"host issue {cost['host_ms']:.3f} ms, {cost['events_ms']:.4f} ms by CUDA "
+                    f"events ({card})")
+                if backend == "pallas":
+                    events_dir = sim.cfg.log_path
+                    numerics_card_vs_cpu(sim, on["global_params"])
+    return dict(total), events_dir
+
+
+def monitor_stall_run(root: str) -> None:
+    """Phase 15 c: phase 11a's plan and monitor_stall@STALL_ROUND under
+    run (pallas) with checkpoints, numerics on and the monitor on an
+    ephemeral port."""
+    directory = os.path.join(root, "stall")
+    cfg = cut_config(local_backend="pallas", log_path=directory, checkpoint_dir=directory,
+                     num_round=STALL_RUN_ROUNDS,
+                     faults=parse_fault_plan(f"{FAULT_PLAN};monitor_stall@{STALL_ROUND}"),
+                     telemetry=TelemetryConfig(numerics=True, monitor=True, monitor_port=0))
+    sim = Simulator(cfg, device="cuda")
+    fired, before, beats = [], [], []
+    real_stall = sim.fault_injector.maybe_stall_monitor
+    real_beat = sim.monitor.record_round
+
+    def stall(round_no, monitor):
+        real_stall(round_no, monitor)
+        fired.append((round_no, health_code(monitor.port)))
+
+    def beat(metrics, duration=None):
+        t = time.perf_counter()
+        real_beat(metrics, duration)
+        beats.append(1e3 * (time.perf_counter() - t))
+
+    def look(done):
+        """The stop hook, consulted before each round: never stops."""
+        before.append((done + 1, health_code(sim.monitor.port)))
+        return False
+
+    sim.fault_injector.maybe_stall_monitor = stall
+    sim.monitor.record_round = beat
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, history = sim.run(state=sim.init_state(), verbose=False, stop=look)
+        final = health_code(sim.monitor.port)
+        counters = sim.telemetry.counters.snapshot()
+    finally:
+        sim.close()
+    events = read_events(directory)
+    stalls = [e for e in events if e["kind"] == "stall"]
+    storm = [e for e in numerics_rows(events) if e["numerics"]["nonfinite_count"]]
+    leaf_names = sim._numerics.layout.leaf_names
+    first = [leaf_names[int(e["numerics"]["first_nonfinite_leaf"])] for e in storm]
+    storm_rows = [(e["broadcast"], e["numerics"]["nonfinite_clients"],
+                   e["numerics"]["nonfinite_count"], f) for e, f in zip(storm, first)]
+    log(f"[monitor] pallas fault plan + monitor_stall@{STALL_ROUND}: ok "
+        f"{[h['ok'] for h in history]}; /healthz right after each round's fault seam "
+        f"{fired}, before each round {before}, after the run {final}; stall events "
+        f"{[(e['rounds_completed'], e['threshold_seconds']) for e in stalls]}, stalls_detected "
+        f"{counters.get('stalls_detected')}; the storm's rows (broadcast, non-finite clients, "
+        f"blocks, first layer) {storm_rows}; "
+        f"record_round {min(beats):.3f}-{max(beats):.3f} ms ({card_line()})")
+    if [e["broadcast"] for e in storm] != [2] or \
+            storm[0]["numerics"]["nonfinite_clients"] != len(FAULT_STORM) or \
+            first != [leaf_names[0]]:
+        raise AssertionError(f"monitor stall run: storm rows {storm}")
+    if dict(fired).get(STALL_ROUND) != 503 or len(stalls) != 1 \
+            or counters.get("stalls_detected") != 1:
+        raise AssertionError(f"monitor stall run: /healthz {fired}, stalls {stalls}")
+    if dict(before).get(STALL_ROUND + 1) != 200 or final != 200:
+        raise AssertionError(f"monitor stall run: /healthz before rounds {before}, after {final}")
+
+
+def monitor_demotion_run(root: str, events_dir: str) -> None:
+    """Phase 15 d: phase 13b's demotion plan at DEMOTE_DEPTH with the
+    monitor and numerics on: /metrics' depth gauge at each heartbeat,
+    /last-round's numerics gauges, then ``watch --once`` and ``metrics
+    --numerics`` (on a's pallas run) as their own processes."""
+    directory = os.path.join(root, "demote")
+    cfg = cut_config(local_backend="pallas", log_path=directory,
+                     faults=parse_fault_plan(DEMOTE_PLAN), pipeline=True,
+                     pipeline_depth=DEMOTE_DEPTH, pipeline_demote_after=2,
+                     pipeline_repromote_after=2,
+                     telemetry=TelemetryConfig(numerics=True, monitor=True, monitor_port=0))
+    sim = Simulator(cfg, device="cuda")
+    depths, beats = [], []
+    real_beat = sim.monitor.record_round
+
+    def beat(metrics, duration=None):
+        t = time.perf_counter()
+        real_beat(metrics, duration)
+        beats.append(1e3 * (time.perf_counter() - t))
+        _, text = cli._http_get_text(f"http://127.0.0.1:{sim.monitor.port}/metrics")
+        depths.append(int(cli._parse_prom(text)["attackfl_pipeline_depth"]))
+
+    sim.monitor.record_round = beat
+    try:
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, history = sim.run(state=sim.init_state(), save_checkpoints=False, verbose=False)
+        launches = launch_counts()
+        url = f"http://127.0.0.1:{sim.monitor.port}"
+        # the last heartbeat precedes the re-promotion it completes
+        _, text = cli._http_get_text(url + "/metrics")
+        depths.append(int(cli._parse_prom(text)["attackfl_pipeline_depth"]))
+        _, last = cli._http_get_json(url + "/last-round")
+        watch = subprocess.run([sys.executable, "-m", "attackfl_tpu_torch", "watch", url,
+                                "--once"], cwd=REPO, capture_output=True, text=True,
+                               timeout=120)
+    finally:
+        sim.close()
+    report = subprocess.run([sys.executable, "-m", "attackfl_tpu_torch", "metrics", events_dir,
+                             "--numerics"], cwd=REPO, capture_output=True, text=True,
+                            timeout=120)
+    transitions = [d for i, d in enumerate(depths) if i == 0 or d != depths[i - 1]]
+    gauges = last.get("numerics") or {}
+    log(f"[monitor] pallas {DEMOTE_PLAN} at depth {DEMOTE_DEPTH}: ok {[h['ok'] for h in history]};"
+        f" attackfl_pipeline_depth at each heartbeat and after the run {depths}; /last-round "
+        f"numerics "
+        f"{len(gauges)} gauges (update_norm_all_p95 {gauges.get('update_norm_all_p95')}); "
+        f"record_round {min(beats):.3f}-{max(beats):.3f} ms; launches {launches}; watch --once "
+        f"exit {watch.returncode}: {watch.stdout.strip()!r}; metrics --numerics exit "
+        f"{report.returncode}, {len(report.stdout.splitlines())} lines ({card_line()})")
+    if transitions != [DEMOTE_DEPTH, 0, DEMOTE_DEPTH]:
+        raise AssertionError(f"monitor demotion: depth gauge {depths}")
+    if "update_norm_all_p95" not in gauges or last.get("pipeline_depth") != DEMOTE_DEPTH:
+        raise AssertionError(f"monitor demotion: /last-round {last}")
+    if watch.returncode != 0 or "unorm_p95=" not in watch.stdout \
+            or f"depth={DEMOTE_DEPTH}" not in watch.stdout:
+        raise AssertionError(f"watch --once: exit {watch.returncode} {watch.stdout!r} "
+                             f"{watch.stderr[-2000:]!r}")
+    if report.returncode != 0 or "rounds with numerics: 3" not in report.stdout:
+        raise AssertionError(f"metrics --numerics: exit {report.returncode} {report.stdout!r} "
+                             f"{report.stderr[-2000:]!r}")
+    require_kernel("monitor demotion", sim.cfg, launches, len(history))
+
+
+def numerics_hyper_run(root: str) -> None:
+    """Phase 15 e: hyper config 2 (cut) under run with numerics on and
+    off."""
+    label, config, cut = HYPER_RUNS[0]
+    states, rows = [], []
+    for on in (True, False):
+        directory = os.path.join(root, f"hyper-{on}")
+        sim = Simulator(Config(**{**config, **cut, "log_path": directory,
+                                  "telemetry": TelemetryConfig(numerics=on)}), device="cuda")
+        reset_launches()
+        state, history = sim.run(state=sim.init_state(), save_checkpoints=False, verbose=False)
+        launches = launch_counts()
+        states.append(state)
+        if on:
+            rows = numerics_rows(read_events(directory))
+    a, b = states
+    same = (torch.equal(a["hnet_params"], b["hnet_params"])
+            and all(torch.equal(a["hyper_opt_state"][k], b["hyper_opt_state"][k])
+                    for k in ("count", "m", "v")))
+    gauges = [(e["round"], e["numerics"]["update_norm_all_p95"], e["numerics"]["global_drift"])
+              for e in rows]
+    log(f"[numerics] hyper {label}: rows (round, update_norm_all_p95, global_drift) {gauges}"
+        f"; hypernetwork and Adam state with numerics on and off equal bit for bit: {same}; "
+        f"launches {launches}")
+    if [e["round"] for e in rows] != [h["round"] for h in history] or not same:
+        raise AssertionError(f"numerics hyper: rows {rows}, equal {same}")
+    require_kernel("numerics hyper", sim.cfg, launches, len(history))
+
+
+def numerics_phase() -> dict:
+    """Phase 15: runs a-e.  Returns the launches of a's runs with
+    numerics on."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_numerics_")
+    try:
+        marks = [time.perf_counter()]
+        launches, events_dir = numerics_executor_runs(root)
+        marks.append(time.perf_counter())
+        monitor_stall_run(root)
+        marks.append(time.perf_counter())
+        monitor_demotion_run(root, events_dir)
+        marks.append(time.perf_counter())
+        numerics_hyper_run(root)
+        marks.append(time.perf_counter())
+        log("[phase 15] " + ", ".join(f"{k} {b - a:.1f} s" for k, a, b in
+                                      zip(("a+b", "c", "d", "e"), marks, marks[1:])))
+    finally:
+        shutil.rmtree(root)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2970,9 +3357,13 @@ def main() -> int:
     t0 = time.perf_counter()
     telemetry_launches = telemetry_phase()
     log(f"[telemetry and ledger] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    numerics_launches = numerics_phase()
+    log(f"[numerics and monitor] phase done in {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] += (pipeline_launches.get(k["name"], 0)
-                          + telemetry_launches.get(k["name"], 0))
+                          + telemetry_launches.get(k["name"], 0)
+                          + numerics_launches.get(k["name"], 0))
     log(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

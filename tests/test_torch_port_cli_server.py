@@ -125,11 +125,11 @@ def test_pipeline_flags_reach_the_config_and_run(flags, depth, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--monitor"], "item 16"),
-    (["--monitor-port", "0"], "item 16"),
-    (["--profile-rounds", "1:2"], "item 16"),
-    (["--hotspots", "1:2"], "item 16"),
-    (["--numerics"], "item 16"),
+    (["--monitor", "--profile-rounds", "1:2"], "item 16c"),
+    (["--monitor-port", "0", "--hotspots", "2"], "item 16c"),
+    (["--profile-rounds", "1:2"], "item 16c"),
+    (["--hotspots", "1:2"], "item 16c"),
+    (["--numerics", "--hotspots", "1:2"], "item 16c"),
     (["--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "1"],
      "item 14"),
 ])

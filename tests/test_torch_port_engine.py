@@ -50,13 +50,13 @@ def test_default_device_without_cuda_raises(monkeypatch):
         Simulator(Config(**SMALL))
 
 
-@pytest.mark.parametrize("override", [
-    {"mesh": MeshConfig(num_devices=2)},
-    {"telemetry": TelemetryConfig(numerics=True)},
-    {"telemetry": TelemetryConfig(monitor=True)},
+@pytest.mark.parametrize("override, item", [
+    ({"mesh": MeshConfig(num_devices=2)}, "item 14"),
+    ({"telemetry": TelemetryConfig(profile_rounds="1:2")}, "item 16c"),
+    ({"telemetry": TelemetryConfig(hotspots="1:2")}, "item 16c"),
 ])
-def test_outside_the_slice_is_refused(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_outside_the_slice_is_refused(override, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         Simulator(Config(**{**SMALL, **override}), device="cpu")
 
 
@@ -125,15 +125,15 @@ def test_hyper_refusals_of_the_jax_package_stay(override, match):
 
 def test_hyper_takes_bf16_and_faults_and_keeps_the_pipeline_refusal():
     """Hyper mode takes bf16, a fault plan and the pipelined executor as
-    the plain round does; the multi-GPU client axis and the monitor stay
-    refused (ROADMAP queue 1, items 14 and 16)."""
+    the plain round does; the multi-GPU client axis and the hotspot
+    windows stay refused (ROADMAP queue 1, items 14 and 16c)."""
     hyper = {**SMALL, "mode": "hyper", "local_backend": "xla"}
     check_slice(Config(**hyper, mesh=MeshConfig(compute_dtype="bfloat16")))
     check_slice(Config(**hyper, pipeline=True, pipeline_depth=2))
     with pytest.raises(NotImplementedError, match="item 14"):
         check_slice(Config(**hyper, pipeline=True, mesh=MeshConfig(num_devices=2)))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        check_slice(Config(**hyper, pipeline=True, telemetry=TelemetryConfig(monitor=True)))
+    with pytest.raises(NotImplementedError, match="item 16c"):
+        check_slice(Config(**hyper, pipeline=True, telemetry=TelemetryConfig(hotspots="1:2")))
     cfg = Config(**hyper, faults=parse_fault_plan("nan_storm@2:clients=1;dropout@3"))
     check_slice(cfg)
     assert [s.kind for s in cfg.faults] == ["nan_storm", "dropout"]
