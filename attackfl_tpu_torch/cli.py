@@ -12,8 +12,10 @@ the card.  ``server --no-wait``, and ``run``, which is the same, skip the
 rendezvous and take the attackers from the config's ``attack-clients``
 section.
 
-``metrics`` summarizes a run's ``events.jsonl`` and ``watch`` polls a
-live run's monitor (``--monitor``), as the JAX package's commands do.
+``metrics`` summarizes a run's ``events.jsonl``, ``watch`` polls a live
+run's monitor (``--monitor``), ``hotspots`` mines a run's profiling
+windows and ``cost`` prices a config from the ledger, as the JAX
+package's commands do.
 """
 
 from __future__ import annotations
@@ -38,16 +40,22 @@ commands:
            --device cuda|cpu, --no-wait, --rounds N, --pipeline,
            --pipeline-depth K|auto, --resume, --checkpoint-async,
            --inject-faults PLAN, --validation-every K, --validation-async,
-           --compile-cache DIR, --monitor, --monitor-port N, --numerics;
-           not ported yet, each refused with its ROADMAP item:
-           --profile-rounds A:B, --hotspots A:B, --coordinator HOST:PORT
-           with --num-processes and --process-id)
+           --compile-cache DIR, --monitor, --monitor-port N, --numerics,
+           --hotspots A:B (a torch.profiler window over rounds A..B, traces
+           under <log_path>/profile), --profile-rounds A:B; not ported yet,
+           refused with its ROADMAP item: --coordinator HOST:PORT with
+           --num-processes and --process-id)
   client   register one client for the server (--config PATH, --attack
            [True], --attack_mode MODE, --attack_round N, --attack_args X..)
   run      server --no-wait: attackers from the config's attack-clients
   metrics  summarize a run's events.jsonl (PATH, --run-id ID, --all,
-           --json, --forensics, --numerics)
+           --json, --forensics, --numerics, --programs)
   watch    poll a live run's monitor (URL, --interval S, --once)
+  hotspots mine a run's profiling windows: show [DIR] [--json] [--top K],
+           diff A B [--json] [--hostbound-rise X] [--share-drift X]
+  cost     the cost model: estimate --config PATH [--rounds N] [--dir D]
+           [--device cuda|cpu] [--no-compile] [--json]; validate [--dir D]
+           [--window N] [--max-median-factor X] [--json]
 """
 
 
@@ -331,11 +339,11 @@ def watch_main(argv=None) -> int:
 
     Connection-refused / connection-reset (a monitor rebinding) is
     survived with capped exponential backoff: the poller retries rather
-    than crashing mid-watch.  The round line's mesh, utilization and
-    host-bound fields of JAX's come with the port's mesh (ROADMAP item
-    14) and its cost model and profiling windows (item 16c);
-    ``--schedule`` and ``--fleet`` watch the run service, which the port
-    does not have yet (item 18)."""
+    than crashing mid-watch.  The round line carries the cost model's
+    live utilization (``/programs``) and the latest window's host-bound
+    fraction (``/hotspots``); its mesh field of JAX's comes with the
+    port's mesh (ROADMAP item 14); ``--schedule`` and ``--fleet`` watch the
+    run service, which the port does not have yet (item 18)."""
     import http.client
     import urllib.error
 
@@ -392,6 +400,18 @@ def watch_main(argv=None) -> int:
             _, last = _http_get_json(base + "/last-round")
         except Exception:  # noqa: BLE001 — health is the primary signal
             last = {}
+        # the cost model's live roofline estimate and the latest mined
+        # window, printed on the round line (JAX cli.py:550-566)
+        try:
+            _, cost = _http_get_json(base + "/programs")
+        except Exception:  # noqa: BLE001 — optional endpoint
+            cost = {}
+        utilization = cost.get("utilization") or {}
+        try:
+            _, hot = _http_get_json(base + "/hotspots")
+        except Exception:  # noqa: BLE001 — optional endpoint
+            hot = {}
+        hot_windows = hot.get("windows") or {}
         if code == 503:
             if not stalled:
                 print_with_color(f"[watch] STALL detected: {health}", "red")
@@ -437,6 +457,17 @@ def watch_main(argv=None) -> int:
                         + "]")
             if isinstance(depth, int):
                 msg += f" depth={depth}"
+            fraction = utilization.get("utilization_flops")
+            achieved = utilization.get("achieved_flops_per_sec")
+            if isinstance(fraction, (int, float)):
+                msg += f" util={100 * fraction:.1f}%"
+            elif isinstance(achieved, (int, float)):
+                # no peak spec for this device kind (CPU): achieved-only
+                msg += f" flops/s={achieved:.3g}"
+            hostbound = [w.get("host_bound_fraction") for w in hot_windows.values()
+                         if isinstance(w.get("host_bound_fraction"), (int, float))]
+            if hostbound:
+                msg += f" hostbound={max(hostbound):.3f}"
             print(f"[watch] round {rnd} ok={last.get('ok')} "
                   f"{msg}".rstrip(), flush=True)
         if args.once:
@@ -444,8 +475,27 @@ def watch_main(argv=None) -> int:
         time.sleep(args.interval)
 
 
+def hotspots_main(argv=None) -> int:
+    """``hotspots``: mine profiling windows into op-level device-time
+    attribution (show) or gate drift between two profile dirs (diff)
+    (JAX cli.py:741-748)."""
+    from attackfl_tpu_torch.profiler.cli import main as _hotspots_main
+
+    return _hotspots_main(list(sys.argv[1:] if argv is None else argv))
+
+
+def cost_main(argv=None) -> int:
+    """``cost``: price a config without running it (``estimate``) and
+    replay the predictor over a ledger corpus (``validate``) (JAX
+    cli.py:686-694)."""
+    from attackfl_tpu_torch.costmodel.cli import main as _cost_main
+
+    return _cost_main(list(sys.argv[1:] if argv is None else argv))
+
+
 _SUBCOMMANDS = {"run": run_main, "server": server_main, "client": client_main,
-               "metrics": metrics_main, "watch": watch_main}
+               "metrics": metrics_main, "watch": watch_main, "hotspots": hotspots_main,
+               "cost": cost_main}
 
 
 def main(argv=None) -> int:

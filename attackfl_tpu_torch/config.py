@@ -66,10 +66,10 @@ class TelemetryConfig:
     """Observability knobs: the event log (``events.jsonl``), the Chrome
     trace (``trace.json``), the counters and the cross-run ledger, under
     ``log_path`` unless a path is given; the opt-in numerics ring and live
-    monitor.  The profiling windows and hotspots are refused by the engine
-    (ROADMAP item 16c).  ``costmodel`` is accepted and has no effect yet:
-    the port writes no ``program_profile`` event (item 16c), where the JAX
-    package writes them by default (unless ``ATTACKFL_COSTMODEL=0``)."""
+    monitor; ``hotspots`` (or ``profile_rounds``), an ``A:B`` round window
+    profiled by ``torch.profiler``; ``costmodel``, each program's counted
+    profile as a ``program_profile`` event, on by default as in the JAX
+    package (``ATTACKFL_COSTMODEL=0`` switches it off)."""
 
     enabled: bool = True
     sample_every: int = 1

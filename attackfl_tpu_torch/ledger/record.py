@@ -18,7 +18,10 @@ it adds no host sync and never touches the round loop.
 ``checkpoint_overlapped_s`` the async writer's submits, and
 ``host_resolution_s`` the remainder of the run's wall time.  The two
 per-round derivatives ``round_device_time`` and
-``host_resolution_latency`` are what ``pipeline_depth: auto`` reads.
+``host_resolution_latency`` are what ``pipeline_depth: auto`` reads.  The
+cost model's bookkeeping during a counted dispatch is taken out of every
+span (``Tracer.discount``), so it is in none of these buckets but the
+remainder; the counted dispatch's own work stays in its round's spans.
 """
 
 from __future__ import annotations
@@ -27,6 +30,10 @@ import os
 import subprocess
 from typing import Any
 
+from attackfl_tpu_torch.costmodel.estimate import predict_device_time, prediction_error_factor
+from attackfl_tpu_torch.costmodel.report import profiles_from_events
+from attackfl_tpu_torch.costmodel.roofline import utilization_summary
+from attackfl_tpu_torch.profiler.mine import hotspots_from_events
 from attackfl_tpu_torch.telemetry.forensics import forensics_summary
 from attackfl_tpu_torch.telemetry.numerics import numerics_summary
 from attackfl_tpu_torch.telemetry.summary import summarize
@@ -161,16 +168,24 @@ def mine_attribution(events: list[dict[str, Any]],
 
 def derive_record(events: list[dict[str, Any]],
                   trace_events: list[dict[str, Any]] | None = None,
-                  fingerprint: str | None = None) -> dict[str, Any] | None:
+                  fingerprint: str | None = None,
+                  source: str = "run",
+                  ledger_records: list[dict[str, Any]] | None = None
+                  ) -> dict[str, Any] | None:
     """Distill one run's event slice (+ optional trace spans) into a
     ledger record.  Returns None for an empty slice (nothing ran).
 
     The ``numerics`` join reads the numerics ``metric`` events
-    (``telemetry.numerics``).  The cost-model (``programs``,
-    ``utilization``) and hotspot joins read ``program_profile`` and
-    ``hotspot`` events, which the port does not write yet (ROADMAP item
-    16c): those fields are None, as the JAX package's ``derive_record``
-    leaves them when the events are absent."""
+    (``telemetry.numerics``).  ``programs`` are the run's
+    ``program_profile`` events deduplicated per fingerprint, and
+    ``utilization`` their per-round cost against the measured
+    ``round_device_time`` (JAX ``ledger/record.py:280-300``).  ``hotspots``
+    distills the run's ``hotspot`` windows; with ``ledger_records`` (the
+    existing corpus) the windows' measured device time a round is priced
+    against the cost model's prediction
+    (``hotspot_prediction_error_factor``, the symmetric max(p/a, a/p) of
+    ``costmodel/estimate.py``; JAX ``ledger/record.py:329-353``).  Each is
+    None when the run wrote no such event."""
     if not events:
         return None
     summary = summarize(events)
@@ -272,11 +287,36 @@ def derive_record(events: list[dict[str, Any]],
     if isinstance(sched_slot, bool) or not isinstance(sched_slot, int):
         sched_slot = None
 
+    programs = profiles_from_events(events) or None
+    utilization = None
+    if programs:
+        device_kind = next((p["device_kind"] for p in programs.values()
+                            if p.get("device_kind")), "")
+        utilization = utilization_summary(
+            programs,
+            (attribution["device_compute_s"] / rounds) if rounds else None,
+            device_kind, mesh_devices=mesh_devices)
+
+    hotspots = hotspots_from_events(events)
+    if hotspots is not None:
+        measured = hotspots.get("measured_round_device_s")
+        predicted = None
+        if measured is not None and ledger_records:
+            prediction = predict_device_time(
+                ledger_records, fingerprint or "", profile=utilization)
+            if prediction is not None:
+                predicted, info = prediction
+                hotspots["prediction_method"] = info.get("method")
+        hotspots["predicted_round_device_s"] = (
+            round(predicted, 6) if predicted is not None else None)
+        hotspots["hotspot_prediction_error_factor"] = \
+            prediction_error_factor(predicted, measured)
+
     steady = rates.get("rounds_per_sec_steady")
     record: dict[str, Any] = {
         "ledger_schema": LEDGER_SCHEMA_VERSION,
         "ts": _latest_ts(events),
-        "source": "run",
+        "source": source,
         "run_id": summary.get("run_id") or next(
             (e.get("run_id") for e in events if e.get("run_id")), None),
         "executor": executor,
@@ -326,9 +366,9 @@ def derive_record(events: list[dict[str, Any]],
             round(attribution["host_resolution_s"] / rounds, 6)
             if rounds else None),
         "compile": compile_info,
-        "programs": None,
-        "utilization": None,
-        "hotspots": None,
+        "programs": programs,
+        "utilization": utilization,
+        "hotspots": hotspots,
         "numerics": numerics_out,
         "forensics": forensics_out,
         "counts": counts,

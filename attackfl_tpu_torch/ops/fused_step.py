@@ -45,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from attackfl_tpu_torch.costmodel.capture import is_fake, kernel_work
 from attackfl_tpu_torch.ops.pytree import tree_broadcast, tree_map
 
 D = 64          # model width
@@ -216,6 +217,10 @@ def dropout_mask(keys: torch.Tensor, tensor_id: int, rows: int, width: int,
 
 
 MAX_MASKS = 16   # mask tensors of one K3 launch (MAX_TENSORS in csrc/dropout_mask.cu)
+# integer operations of one K3 mask element: fmix32 of (key ^ tensor id)
+# is amortised over the client's elements, the element's own fmix32 is 2
+# multiplies, 3 shifts and 4 xors, then a compare and a select
+K3_OPS_PER_ELEMENT = 11
 
 
 def mask_layout(C: int, shapes) -> tuple[list[int], int]:
@@ -277,11 +282,19 @@ def fill_masks(keys: torch.Tensor, specs) -> list[torch.Tensor]:
 
     CUDA keys go to the kernel, one launch for every tensor (counted in
     ``fill_masks.launches``); CPU keys to :func:`dropout_masks`; anything
-    else raises."""
+    else raises.  A counted program (``costmodel.capture``) counts the
+    launch by :func:`mask_work` whichever runs."""
     specs = [(int(t), int(r), int(w), float(p)) for t, r, w, p in specs]
     _check_mask_inputs(keys, specs)
-    if keys.device.type == "cpu":
-        return dropout_masks(keys, specs)
+    with kernel_work(**mask_work(keys.numel(), specs)):
+        if is_fake(keys):
+            return _mask_arena(keys, specs)[2]
+        if keys.device.type == "cpu":
+            return dropout_masks(keys, specs)
+        return _fill_masks_on_card(keys, specs)
+
+
+def _fill_masks_on_card(keys: torch.Tensor, specs) -> list[torch.Tensor]:
     if keys.device.type != "cuda":
         raise ValueError(f"fill_masks runs on cuda or cpu, not {keys.device}")
     from attackfl_tpu_torch.ops.build import MaskSpec, load_library
@@ -585,8 +598,21 @@ def run_epoch(p, m, v, batches, seed, t_offset, *, lr, clip,
     per-client sum of the nb per-step masked-mean losses.
 
     CUDA tensors go to the kernel (counted in ``run_epoch.launches``); CPU
-    tensors to :func:`run_epoch_reference`."""
+    tensors to :func:`run_epoch_reference`.  A counted program
+    (``costmodel.capture``) counts the call by :func:`epoch_work`
+    whichever runs."""
     _check_inputs(p, m, v, batches)
+    C, nb, B, _ = batches.shape
+    with kernel_work(**epoch_work(C, nb, B)):
+        if is_fake(batches):
+            return p, m, v, torch.empty(C, dtype=torch.float32, device=batches.device)
+        return _run_epoch(p, m, v, batches, seed, t_offset, lr=lr, clip=clip,
+                          drop_attn=drop_attn, drop_block=drop_block, drop_head=drop_head,
+                          seed_offset=seed_offset)
+
+
+def _run_epoch(p, m, v, batches, seed, t_offset, *, lr, clip, drop_attn, drop_block,
+               drop_head, seed_offset):
     kw = dict(lr=float(lr), clip=float(clip))
     rates = (float(drop_attn), float(drop_block), float(drop_head))
     if batches.device.type == "cpu":
@@ -669,3 +695,14 @@ def epoch_work(C: int, nb: int, B: int) -> dict[str, Any]:
     state_bytes = 2 * 3 * params * 4 * C          # p, m, v read and written
     nbytes = state_bytes + C * nb * B * 32 * 4 + C * 4
     return {"flops": flops, "bytes": nbytes}
+
+
+def mask_work(C: int, specs) -> dict[str, Any]:
+    """Operations and bytes one ``fill_masks`` launch needs for ``specs``
+    (its ``(tensor_id, rows, width, rate)``) at C clients, for its
+    roofline bound: each mask element written once as float32 and C int64
+    keys read; ``K3_OPS_PER_ELEMENT`` int32 operations per element, under
+    ``flops`` as XLA's cost analysis counts an elementwise op of any
+    type."""
+    elements = sum(C * int(rows) * int(width) for _, rows, width, _ in specs)
+    return {"flops": K3_OPS_PER_ELEMENT * elements, "bytes": 4 * elements + 8 * C}

@@ -14,9 +14,10 @@ of ``attackfl_tpu/telemetry/monitor.py``).
 * ``/last-round`` -- the most recent round record as JSON (what
   ``python -m attackfl_tpu_torch watch`` polls);
 * ``/runs`` -- the cross-run ledger's index, newest first;
-* ``/programs`` and ``/hotspots`` -- answered as the JAX package answers
-  them with no captured program profile and no profiling window (the
-  cost model and the windows are ROADMAP item 16c).
+* ``/programs`` -- the cost model's program profiles and a live
+  roofline estimate over the rolling-median round cadence;
+* ``/hotspots`` -- the latest mined profiling window per dispatch seam,
+  with the ``attackfl_host_bound_fraction`` gauge in ``/metrics``.
 
 The **stall watchdog** is a daemon thread that flags the run when no round
 completes within ``stall_factor x`` the rolling-median round duration
@@ -186,6 +187,10 @@ class RunMonitor:
         # at run start, 0 while demoted, back to k on re-promotion; None
         # on non-pipelined executors (gauge absent rather than 0)
         self._pipeline_depth: int | None = None
+        # the cost model's program profiles (set at each counted
+        # program) and the latest mined window per dispatch seam
+        self._cost_programs: dict[str, dict[str, Any]] = {}
+        self._hotspots: dict[str, dict[str, Any]] = {}
         # cross-run ledger: /runs lists the store's index so a live
         # monitor also answers "how does this run compare to the last
         # ones"; set by the engine when the ledger is enabled
@@ -275,20 +280,44 @@ class RunMonitor:
         with self._lock:
             self._pipeline_depth = None if depth is None else int(depth)
 
+    def set_cost_model(self, programs: dict[str, dict[str, Any]]) -> None:
+        """Record the engine's counted program profiles — called at each
+        program's first dispatch; backs /programs and the cost gauges."""
+        with self._lock:
+            self._cost_programs = dict(programs or {})
+
+    def set_hotspots(self, summary: dict[str, Any]) -> None:
+        """Record a closed profiling window's mined summary — called by
+        HotspotCapture; keyed by the dispatch-seam program name so a run
+        that profiles several seams keeps one latest window per seam.
+        Backs /hotspots and the ``attackfl_host_bound_fraction`` gauge."""
+        with self._lock:
+            self._hotspots[str(summary.get("program") or "?")] = dict(summary)
+
     def hotspots_report(self) -> dict[str, Any]:
-        """``/hotspots`` payload: the latest mined window per seam (none
-        until the profiling windows are ported, ROADMAP item 16c)."""
-        return {"windows": {}}
+        """``/hotspots`` payload: the latest mined window per seam."""
+        with self._lock:
+            return {"windows": dict(self._hotspots)}
 
     def cost_report(self) -> dict[str, Any]:
-        """``/programs`` payload as the JAX package's without captured
-        program profiles (the cost model is ROADMAP item 16c): no
-        programs, no utilization, the rolling-median round cadence."""
+        """``/programs`` payload: the counted profiles plus a live
+        roofline estimate over the rolling-median round cadence (a
+        wall-clock denominator — the honest live lower bound; the
+        ledger's figure uses the record's device time)."""
+        from attackfl_tpu_torch.costmodel.roofline import utilization_summary
+
         with self._lock:
+            programs = {name: dict(p) for name, p in self._cost_programs.items()}
             durations = list(self._durations)
+        device_kind = next((p.get("device_kind") for p in programs.values()
+                            if p.get("device_kind")), "")
         median = statistics.median(durations) if durations else None
-        return {"programs": {}, "device_kind": "", "round_seconds_median": median,
-                "utilization": None}
+        utilization = (utilization_summary(programs, median, device_kind)
+                       if programs else None)
+        if utilization is not None and median is not None:
+            utilization["denominator"] = "round_seconds_median"
+        return {"programs": programs, "device_kind": device_kind,
+                "round_seconds_median": median, "utilization": utilization}
 
     def set_ledger(self, store) -> None:
         """Attach the cross-run ledger store backing ``/runs`` (the store
@@ -452,6 +481,43 @@ class RunMonitor:
                 lines.append(
                     f'attackfl_numerics{{name="{_sanitize(str(name))}"}} '
                     f'{value:.6g}')
+        # the cost model: counted per-program profiles + the live
+        # roofline estimate (wall-cadence denominator — see cost_report)
+        with self._lock:
+            has_programs = bool(self._cost_programs)
+        if has_programs:
+            report = self.cost_report()
+            lines.append("# TYPE attackfl_program_flops gauge")
+            lines.append("# TYPE attackfl_program_bytes gauge")
+            for name, profile in sorted(report["programs"].items()):
+                label = _sanitize(str(name))
+                for gauge, key in (("attackfl_program_flops", "flops"),
+                                   ("attackfl_program_bytes", "bytes_accessed")):
+                    value = profile.get(key)
+                    if isinstance(value, (int, float)) and not isinstance(value, bool):
+                        lines.append(f'{gauge}{{program="{label}"}} {value:.6g}')
+            utilization = report.get("utilization") or {}
+            lines.append("# TYPE attackfl_utilization gauge")
+            for kind, key in (("flops", "utilization_flops"),
+                              ("bytes", "utilization_bytes")):
+                value = utilization.get(key)
+                if isinstance(value, (int, float)) and not isinstance(value, bool):
+                    lines.append(f'attackfl_utilization{{kind="{kind}"}} {value:.6g}')
+            lines.append("# TYPE attackfl_achieved_per_sec gauge")
+            for kind, key in (("flops", "achieved_flops_per_sec"),
+                              ("bytes", "achieved_bytes_per_sec")):
+                value = utilization.get(key)
+                if isinstance(value, (int, float)) and not isinstance(value, bool):
+                    lines.append(f'attackfl_achieved_per_sec{{kind="{kind}"}} {value:.6g}')
+        with self._lock:
+            hotspots = {name: dict(window) for name, window in self._hotspots.items()}
+        if hotspots:
+            lines.append("# TYPE attackfl_host_bound_fraction gauge")
+            for program, window in sorted(hotspots.items()):
+                value = window.get("host_bound_fraction")
+                if isinstance(value, (int, float)) and not isinstance(value, bool):
+                    lines.append(f'attackfl_host_bound_fraction'
+                                 f'{{program="{_sanitize(program)}"}} {value:.6g}')
         counters = self._tel.counters.snapshot()
         if counters:
             lines.append("# TYPE attackfl_counter counter")

@@ -7,9 +7,9 @@ per-phase p50/p95/mean, rounds/s both steady-state and including the
 first round's builds, the final quality metric, the counters snapshot
 and the lifecycle lists the ledger record reads.  ``--forensics`` gives
 the defense's TPR/FPR from ``attribution`` events, ``--numerics`` the
-device-side round metrics, ``--json`` the summary as JSON.  ``--merge``
-(multi-host, ROADMAP item 14) and ``--programs`` (the cost model, item
-16c) are refused.
+device-side round metrics, ``--programs`` the cost model's per-program
+profiles and roofline estimate, ``--json`` the summary as JSON.
+``--merge`` (multi-host, ROADMAP item 14) is refused.
 
 It reads JSON and does percentile arithmetic only, so it runs anywhere
 the file is.
@@ -336,6 +336,36 @@ def _numerics_main(args, events: list[dict[str, Any]]) -> int:
     return 0
 
 
+def _programs_main(args, events: list[dict[str, Any]]) -> int:
+    """``--programs``: the cost model's per-program table (schema v9;
+    JAX ``summary._programs_main``)."""
+    from attackfl_tpu_torch.costmodel.report import format_programs, programs_summary
+
+    runs = _select_runs(events, args.run_id, args.all)
+    if not runs:
+        print(f"no events recorded in {args.path!r}", file=sys.stderr)
+        return 2
+    reports = []
+    for run in runs:
+        summary = programs_summary(run)
+        if summary is not None:
+            run_id = next((e.get("run_id") for e in run
+                           if e.get("run_id")), None)
+            reports.append((run_id, summary))
+    if not reports:
+        print("no program_profile events found (telemetry.costmodel off, "
+              "or a pre-v9 artifact)", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps([dict(s, run_id=rid) for rid, s in reports]
+                         if args.all or len(reports) > 1
+                         else dict(reports[0][1], run_id=reports[0][0]),
+                         indent=1))
+    else:
+        print("\n\n".join(format_programs(s, rid) for rid, s in reports))
+    return 0
+
+
 def _forensics_main(args, events: list[dict[str, Any]]) -> int:
     from attackfl_tpu_torch.telemetry.forensics import forensics_summary, format_forensics
 
@@ -371,8 +401,10 @@ def main(argv: list[str] | None = None) -> int:
                     "rounds/s steady vs incl-compile, final metric).  "
                     "--forensics reports the defense's TPR/FPR/precision "
                     "from attribution events; --numerics reports the "
-                    "device-side round metrics.  --merge and --programs "
-                    "are not ported yet (ROADMAP items 14 and 16c).")
+                    "device-side round metrics; --programs reports the "
+                    "cost model's per-program flops/bytes/memory profiles "
+                    "and roofline estimate.  --merge is not ported yet "
+                    "(ROADMAP item 14).")
     parser.add_argument("path", nargs="?", default=".",
                         help="events.jsonl or a directory containing it")
     parser.add_argument("--run-id", type=str, default=None,
@@ -393,8 +425,10 @@ def main(argv: list[str] | None = None) -> int:
                              "separation, drift, non-finite provenance) "
                              "from schema-v3 metric events")
     parser.add_argument("--programs", action="store_true",
-                        help="per-program cost profiles from program_profile "
-                             "events (not ported yet, ROADMAP item 16c)")
+                        help="per-program cost profiles (flops, bytes "
+                             "accessed, peak memory) and the roofline "
+                             "utilization estimate from schema-v9 "
+                             "program_profile events")
     args = parser.parse_args(argv)
 
     if args.merge:
@@ -411,7 +445,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.numerics:
         return _numerics_main(args, events)
     if args.programs:
-        return _refused("--programs (the cost model's program_profile events)", "item 16c")
+        return _programs_main(args, events)
     runs = split_runs(events)
     if not runs:
         print(f"no events recorded in {args.path!r}", file=sys.stderr)

@@ -7,6 +7,12 @@ serializes them as complete ("X") events in the Chrome trace-event JSON
 format, in microseconds: load ``trace.json`` at https://ui.perfetto.dev to
 see the round timeline.  It traces the host's federation loop, not the
 card's kernels (``profile_round`` and ``torch.profiler`` do that).
+
+``Tracer.discount`` takes host time that was not the program's out of
+every open span: the cost model's bookkeeping during a counted dispatch
+(``costmodel/capture.py``) is recorded as a ``costmodel`` span of its own
+and is in no round's ``train``, ``chunk`` or ``dispatch`` span, so the
+ledger's device time (``ledger/record.py``) does not count it.
 """
 
 from __future__ import annotations
@@ -30,24 +36,43 @@ class Tracer:
         self._events: list[dict[str, Any]] = []
         self._t0 = time.perf_counter()
         self._pid = os.getpid()
+        # the open spans, outermost first: [name, args, start_us]
+        self._open: list[list] = []
+        # microseconds discount() took out of the open spans so far
+        self.discounted_us = 0.0
 
     def _now_us(self) -> float:
         return (time.perf_counter() - self._t0) * 1e6
 
+    def _emit(self, name: str, args: dict[str, Any], t0: float, t1: float) -> None:
+        event: dict[str, Any] = {
+            "name": name, "ph": "X", "ts": round(t0, 1), "dur": round(t1 - t0, 1),
+            "pid": self._pid, "tid": 0,
+        }
+        if args:
+            event["args"] = {k: _plain(v) for k, v in args.items()}
+        self._events.append(event)
+
     @contextmanager
     def span(self, name: str, **args: Any):
-        t0 = self._now_us()
+        frame = [name, args, self._now_us()]
+        self._open.append(frame)
         try:
             yield
         finally:
-            event: dict[str, Any] = {
-                "name": name, "ph": "X", "ts": round(t0, 1),
-                "dur": round(self._now_us() - t0, 1),
-                "pid": self._pid, "tid": 0,
-            }
-            if args:
-                event["args"] = {k: _plain(v) for k, v in args.items()}
-            self._events.append(event)
+            self._open.remove(frame)
+            self._emit(name, args, frame[2], self._now_us())
+
+    def discount(self, name: str, seconds: float, **args: Any) -> None:
+        """Record ``seconds`` of host time just spent on something other
+        than the open spans' work as a span ``name`` ending now, and take
+        it out of every open span (each one's start moves later by it)."""
+        now = self._now_us()
+        us = seconds * 1e6
+        self._emit(name, args, now - us, now)
+        for frame in self._open:
+            frame[2] += us
+        self.discounted_us += us
 
     def write(self) -> None:
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
@@ -77,10 +102,14 @@ class NullTracer:
 
     enabled = False
     path = None
+    discounted_us = 0.0
 
     @contextmanager
     def span(self, name: str, **args: Any):
         yield
+
+    def discount(self, name: str, seconds: float, **args: Any) -> None:
+        pass
 
     def write(self) -> None:
         pass

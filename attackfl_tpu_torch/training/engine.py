@@ -90,6 +90,20 @@ round's phases end in a sync only where JAX's block (``aggregate``,
 A round's ``attacks_active`` and ``phases`` are in its history entry
 whatever the setting, as in JAX.
 
+Hotspot windows and the cost model (JAX engine.py:316-359, 776-857):
+``telemetry.hotspots: A:B`` (or ``profile_rounds``) opens one
+``torch.profiler`` window over those rounds at the executor's dispatch
+seam (``profiler/capture.py``), which writes a ``*.trace.json.gz`` and a
+``hotspot`` event.  Each dispatch runs under a ``record_function`` label
+named as JAX's programs (``round_step``, ``aggregate``, ``hyper_update``,
+``fused_scan[n]``, ``pipeline_step[eval=...]``), which the miner reads as
+the rows' program.  With ``telemetry.costmodel``, the default, each
+program is counted on its first dispatch in a Simulator
+(``costmodel/capture.py``; the counter's own bookkeeping kept out of the
+round's spans) and written as a
+``program_profile`` event; ``ATTACKFL_COSTMODEL=0`` switches it off, as in
+JAX.  Neither changes the params.
+
 With ``telemetry.numerics`` every executor computes the JAX package's
 numerics row on the card each round (``ops/metrics.py``, a ``numerics``
 phase on the synchronous path, inside the body on the fused and
@@ -118,7 +132,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from attackfl_tpu_torch.config import Config
+from attackfl_tpu_torch.config import Config, parse_profile_rounds
+from attackfl_tpu_torch.costmodel.capture import count_program, warm
 from attackfl_tpu_torch.data.partition import dirichlet_label_partition, draw_round
 from attackfl_tpu_torch.data.synthetic import get_dataset
 from attackfl_tpu_torch.device import resolve_device
@@ -130,6 +145,7 @@ from attackfl_tpu_torch.models.hyper import make_hypernetwork
 from attackfl_tpu_torch.ops import build, defenses
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.ops.metrics import Numerics, build_layout
+from attackfl_tpu_torch.profiler.capture import HotspotCapture
 from attackfl_tpu_torch.registry import get_model
 from attackfl_tpu_torch.telemetry.console import Logger, print_with_color
 from attackfl_tpu_torch.telemetry.core import Telemetry
@@ -221,16 +237,14 @@ def check_slice(cfg: Config) -> None:
     for TransformerModel, pallas (the config refuses it for the others,
     for hyper and for a compute-dtype other than float32); the
     synchronous, fused and pipelined executors; the event log, trace,
-    counters and ledger, the numerics ring and the live monitor.  The
-    profiling and hotspot windows are refused (item 16c)."""
+    counters and ledger, the numerics ring, the live monitor, the
+    profiling and hotspot windows and the cost model.  The multi-GPU
+    client axis is refused (item 14)."""
     if MODEL_DATA.get(cfg.model) != cfg.data_name:
         raise ValueError(f"model {cfg.model!r} does not run on {cfg.data_name!r}; the "
                          f"models and their datasets: {MODEL_DATA}")
     if cfg.mesh.num_devices > 1:
         _refuse("the multi-GPU client axis", "item 14")
-    tel = cfg.telemetry
-    if tel.profile_rounds or tel.hotspots:
-        _refuse("telemetry's profiling and hotspot windows", "item 16c")
 
 
 def host_filter(mode: str, stacked: dict, attacker_mask: np.ndarray,
@@ -269,6 +283,22 @@ class Simulator:
             self.monitor = RunMonitor(self.telemetry, port=cfg.telemetry.monitor_port,
                                       stall_factor=cfg.telemetry.stall_factor,
                                       stall_grace_seconds=cfg.telemetry.stall_grace_seconds)
+        # the hotspot window (JAX engine.py:349-359): fail-open capture at
+        # the dispatch seams, each closed window mined into a `hotspot`
+        # event; traces land under <telemetry base>/profile
+        self._hotspots = HotspotCapture(
+            self.telemetry,
+            parse_profile_rounds(cfg.telemetry.hotspots or cfg.telemetry.profile_rounds),
+            monitor=self.monitor, device=self.device.type)
+        # the cost model (JAX engine.py:316-331): each program counted on
+        # its first dispatch into a `program_profile` event.
+        # ATTACKFL_COSTMODEL=0 is the harness's switch (the test suite
+        # builds hundreds of Simulators); runs keep the config default, on
+        self._costmodel_on = bool(self.telemetry.enabled and cfg.telemetry.costmodel
+                                  and os.environ.get("ATTACKFL_COSTMODEL", "1") != "0")
+        self._program_profiles: dict[str, dict[str, Any]] = {}
+        if self._costmodel_on:
+            warm()
         self._header_emitted = False
         self._header_record: dict[str, Any] | None = None
         # the cross-run ledger (JAX engine.py:363-386): one record per run,
@@ -642,6 +672,51 @@ class Simulator:
                              "(/healthz /metrics /last-round — poll with "
                              "`python -m attackfl_tpu_torch watch`)", "cyan")
 
+    def _maybe_start_profile(self, first_round: int, last_round: int | None = None,
+                             program: str = "sync") -> None:
+        """Open the profiling window when the upcoming round(s)
+        [first_round, last_round] overlap ``hotspots``/``profile_rounds``
+        (JAX engine.py:1390-1400).  Fused chunks pass their whole round
+        range; ``program`` names the dispatch seam on the ``hotspot``
+        event."""
+        self._hotspots.maybe_start(first_round, last_round, program=program)
+
+    def _maybe_stop_profile(self, completed_rounds: int = 0, force: bool = False) -> None:
+        self._hotspots.maybe_stop(completed_rounds, force=force)
+
+    def _dispatch(self, label: str, fn: Callable, *args, rounds_per_dispatch: int = 1):
+        """``fn(*args)``, one dispatch of the program ``label``, under its
+        ``record_function`` label (the hotspot miner's program).  With the
+        cost model on, the program's first dispatch in this Simulator is
+        counted (``costmodel/capture.count_program``) and written as a
+        ``program_profile`` event (JAX engine.py:811-857); the counter's
+        own bookkeeping is taken out of the open spans into a ``costmodel``
+        span, so no round's span holds it."""
+        with torch.profiler.record_function(label):
+            if not self._costmodel_on or label in self._program_profiles:
+                return fn(*args)
+            result, profile = count_program(fn, *args, device=self.device)
+            self.telemetry.tracer.discount("costmodel", profile["overhead_s"], program=label,
+                                           ops=profile["ops"])
+            self._emit_program_profile(label, profile, rounds_per_dispatch)
+            return result
+
+    def _emit_program_profile(self, name: str, counted: dict[str, Any],
+                              rounds_per_dispatch: int = 1) -> None:
+        """One counted program's profile as a ``program_profile`` event
+        (schema v9), fed to the monitor's cost gauges (JAX
+        ``_emit_program_profile``, engine.py:811-829)."""
+        profile = {k: counted[k] for k in ("flops", "transcendentals", "bytes_accessed",
+                                          "memory") if k in counted}
+        profile["rounds_per_dispatch"] = int(rounds_per_dispatch)
+        profile["device_kind"] = (torch.cuda.get_device_name(self.device)
+                                  if self.device.type == "cuda" else "cpu")
+        self._program_profiles[name] = profile
+        self.telemetry.events.emit("program_profile", program=name,
+                                   fingerprint=self.checkpoints.fingerprint, **profile)
+        if self.monitor is not None:
+            self.monitor.set_cost_model(dict(self._program_profiles))
+
     def _note_round_faults(self, round_no: int, broadcast: int) -> None:
         """A resolved round's host-side fault bookkeeping (JAX
         engine.py:1431-1439): the plan's device-side injections of its
@@ -698,6 +773,7 @@ class Simulator:
         tel = self.telemetry
         if not tel.enabled:
             return
+        self._maybe_stop_profile(force=True)
         if self.monitor is not None:
             self.monitor.run_ended()
         tel.events.emit("counters", counters=tel.counters.snapshot())
@@ -735,8 +811,15 @@ class Simulator:
             spans = self.telemetry.tracer._events
             trace_events = spans[self._ledger_trace_offset:]
             self._ledger_trace_offset = len(spans)
+            # the corpus feeds the hotspot join's prediction (this run is
+            # not appended yet)
+            try:
+                corpus = self._ledger.records()
+            except Exception:  # noqa: BLE001 — the join is optional
+                corpus = None
             record = derive_record(slice_events, trace_events=trace_events,
-                                   fingerprint=self.checkpoints.fingerprint)
+                                   fingerprint=self.checkpoints.fingerprint,
+                                   ledger_records=corpus)
             if record is None:
                 return
             rid = self._ledger.append(record)
@@ -763,6 +846,19 @@ class Simulator:
             root_size=(min(ROOT_SIZE, self.test_data["label"].shape[0])
                        if self.cfg.mode == "FLTrust" else 0),
             leak_pool=leak_pool)
+
+    def _drawn_round_step(self, params, prev_genuine, have_genuine, rng: torch.Generator,
+                          broadcast_number: int, active_mask=None, leak_pool=None):
+        """``(draws, round_step's outputs)``: the round's draws and its
+        round step, the program JAX names ``round_step`` (whose draws are
+        inside it); ``active_mask`` and ``leak_pool`` in hyper mode."""
+        if self.is_hyper:
+            draws = self.draw_round(rng, leak_pool)
+            return draws, self.round_step(params, prev_genuine, have_genuine, active_mask,
+                                          draws, broadcast_number)
+        draws = self.draw_round(rng)
+        return draws, self.round_step(params, prev_genuine, have_genuine, draws,
+                                      broadcast_number)
 
     # ------------------------------------------------------------------
     # one round
@@ -842,10 +938,9 @@ class Simulator:
             metrics["attacks_active"] = active_attack_modes(
                 self.attack_groups, broadcast_number, bool(state["have_genuine"]))
         with timer.phase("train"):
-            draws = self.draw_round(state["rng"])
-            stacked, sizes, new_genuine, ok, loss = self.round_step(
-                state["global_params"], state["prev_genuine"], state["have_genuine"],
-                draws, broadcast_number)
+            draws, (stacked, sizes, new_genuine, ok, loss) = self._dispatch(
+                "round_step", self._drawn_round_step, state["global_params"],
+                state["prev_genuine"], state["have_genuine"], state["rng"], broadcast_number)
             ok = train_ok = bool(ok)
         metrics["train_loss"] = float(loss)
         if not train_ok:
@@ -877,7 +972,8 @@ class Simulator:
         new_global = state["global_params"]
         if ok:
             with timer.phase("aggregate"):
-                new_global = self.aggregate(state["global_params"], stacked, sizes,
+                new_global = self._dispatch("aggregate", self.aggregate,
+                                            state["global_params"], stacked, sizes,
                                             weights_mask, draws)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
@@ -938,11 +1034,11 @@ class Simulator:
                 genuine = torch.as_tensor(self.genuine_idx, dtype=torch.int64)
                 leak_pool = torch.nonzero(state["active_mask"][genuine] > 0)[:, 0].to(
                     self.device)
-            draws = self.draw_round(state["rng"], leak_pool)
             active_mask = state["active_mask"].to(self.device)
-            stacked, sizes, new_genuine, ok, loss = self.round_step(
-                state["hnet_params"], state["prev_genuine"], state["have_genuine"],
-                active_mask, draws, broadcast_number)
+            draws, (stacked, sizes, new_genuine, ok, loss) = self._dispatch(
+                "round_step", self._drawn_round_step, state["hnet_params"],
+                state["prev_genuine"], state["have_genuine"], state["rng"], broadcast_number,
+                active_mask, leak_pool)
             ok = train_ok = bool(ok)
         metrics["train_loss"] = float(loss)
         if not train_ok:
@@ -953,7 +1049,8 @@ class Simulator:
         if ok:
             with timer.phase("hyper_update"):
                 # dropped clients (size 0) skip their step
-                hnet, opt = self.hyper_update(hnet, opt, stacked, active_mask * (sizes > 0))
+                hnet, opt = self._dispatch("hyper_update", self.hyper_update, hnet, opt,
+                                           stacked, active_mask * (sizes > 0))
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             gen = None
@@ -1091,11 +1188,13 @@ class Simulator:
                 if self._consult_stop(stop, state["completed_rounds"]):
                     break
                 round_no = state["completed_rounds"] + 1
+                self._maybe_start_profile(round_no, program="sync")
                 state, metrics = self.run_round(state)
                 history.append(metrics)
                 self._note_round_faults(round_no, metrics["broadcast"])
                 if self.monitor is not None:
                     self.monitor.record_round(metrics)
+                self._maybe_stop_profile(int(state["completed_rounds"]))
                 if metrics["ok"]:
                     retries = 0
                     if save_checkpoints:
@@ -1299,11 +1398,18 @@ class Simulator:
         :meth:`run_round`.  The caller's ``state`` is left as it was."""
         self._require_fused(state)
         body = self._fused_body(include_eval=True)
-        carry = self._fused_state(state)
-        rows = []
-        for _ in range(num_broadcasts):
-            carry, metrics = body(carry)
-            rows.append(metrics)
+
+        def chunk(carry):
+            rows = []
+            for _ in range(num_broadcasts):
+                carry, metrics = body(carry)
+                rows.append(metrics)
+            return carry, rows
+
+        # the chunk is one program of num_broadcasts rounds (JAX engine.py:2016-2036)
+        carry, rows = self._dispatch(f"fused_scan[{num_broadcasts}]", chunk,
+                                     self._fused_state(state),
+                                     rounds_per_dispatch=num_broadcasts)
         if "active_mask" in carry:
             carry["active_mask"] = state["active_mask"]
         return carry, {k: torch.stack([r[k] for r in rows]) for k in sorted(rows[0])}
@@ -1355,7 +1461,10 @@ class Simulator:
         and a ``round`` event per entry (JAX engine.py:2177-2221); its time
         ends at its one read of the card.  ``includes_compile`` is True
         for a chunk during which a CUDA kernel library was built or
-        loaded: the port compiles no per-program code."""
+        loaded or the cost model counted its program: the port compiles
+        no per-program code.  A hotspot window opens at the chunk that
+        reaches its first round and closes after the chunk that completes
+        its last."""
         num_rounds = num_rounds if num_rounds is not None else self.cfg.num_round
         state = self._ensure_numerics_state(
             state if state is not None else self.load_or_init_state())
@@ -1382,6 +1491,9 @@ class Simulator:
                     n = 1
                 first_dispatch = False
                 libraries = build.load_library.cache_info().currsize
+                profiles = len(self._program_profiles)
+                done_before = int(state["completed_rounds"])
+                self._maybe_start_profile(done_before + 1, done_before + n, program="fused")
                 t0 = time.perf_counter()
                 with tel.tracer.span("chunk", chunk_len=n):
                     state, metrics = self.run_scan(state, n)
@@ -1389,7 +1501,7 @@ class Simulator:
                 elapsed = time.perf_counter() - t0
                 tel.events.emit("chunk", chunk_len=n, seconds=round(elapsed, 6),
                                 includes_compile=build.load_library.cache_info().currsize
-                                > libraries)
+                                > libraries or len(self._program_profiles) > profiles)
                 # one numerics row a round, host values already (the
                 # chunk's one read brought them)
                 numerics_rows = host.pop("numerics_row", None)
@@ -1415,6 +1527,7 @@ class Simulator:
                     else:
                         consecutive_failures += 1
                         tel.counters.inc("rounds_failed")
+                self._maybe_stop_profile(int(state["completed_rounds"]))
                 if consecutive_failures > MAX_ROUND_RETRIES:
                     raise RuntimeError(
                         f"round failed {consecutive_failures} times in a row; aborting "
@@ -1499,7 +1612,8 @@ class Simulator:
         return k
 
     def _dispatch_pipeline_round(self, body: Callable, carry: dict[str, Any],
-                                 keep_state: bool) -> tuple[dict[str, Any], dict[str, Any]]:
+                                 keep_state: bool, include_eval: bool
+                                 ) -> tuple[dict[str, Any], dict[str, Any]]:
         """Issue one round (``body`` on ``carry``) and, under
         ``validation_async`` on a due broadcast, its evaluation; then
         copy the round's metrics, the evaluation's, the leak flag and the
@@ -1507,8 +1621,9 @@ class Simulator:
         carry and the queue slot.  With ``keep_state`` the slot keeps the
         round's state for its checkpoint: the body writes no tensor of
         the state it is given, and the generator, which it advances in
-        place, is kept as its state after this round."""
-        carry, metrics = body(carry)
+        place, is kept as its state after this round.  The body is the
+        program ``pipeline_step[eval=...]`` (JAX engine.py:2358-2376)."""
+        carry, metrics = self._dispatch(f"pipeline_step[eval={include_eval}]", body, carry)
         b = carry["broadcasts"]
         val: dict[str, torch.Tensor] = {}
         if (self.validation is not None and self.cfg.validation_async
@@ -1647,10 +1762,13 @@ class Simulator:
                     break
                 want_more = completed + len(queue) < num_rounds and not stopping
                 if want_more and len(queue) <= overlap():
-                    with tel.tracer.span("dispatch", round=completed + len(queue) + 1,
+                    target_round = completed + len(queue) + 1
+                    self._maybe_start_profile(target_round, program="pipelined")
+                    with tel.tracer.span("dispatch", round=target_round,
                                          broadcast=carry["broadcasts"] + 1):
                         carry, slot = self._dispatch_pipeline_round(body, carry,
-                                                                    save_checkpoints)
+                                                                    save_checkpoints,
+                                                                    include_eval)
                     queue.append(slot)
                     want_more = completed + len(queue) < num_rounds and not stopping
                 # resolve the oldest round once the queue is past its
@@ -1725,6 +1843,7 @@ class Simulator:
                                 f"Round {round_no} failed {consecutive_failures} times; "
                                 "aborting (the reference would retry forever, "
                                 "server.py:546-556)")
+                self._maybe_stop_profile(completed)
         finally:
             if self.monitor is not None and degraded:
                 self.monitor.set_degraded(None)

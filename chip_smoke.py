@@ -180,8 +180,10 @@ toolkit, imports nothing of JAX, and fails when run outside the repository.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
+import gzip
 import io
 import json
 import math
@@ -210,6 +212,8 @@ from attackfl_tpu_torch import cli, validate_kernels  # noqa: E402
 from attackfl_tpu_torch.config import (  # noqa: E402
     AttackSpec, Config, HyperDetectionConfig, MeshConfig, TelemetryConfig, load_config,
 )
+from attackfl_tpu_torch.costmodel import cli as costcli  # noqa: E402
+from attackfl_tpu_torch.costmodel.peaks import H100  # noqa: E402
 from attackfl_tpu_torch.faults.plan import parse_fault_plan  # noqa: E402
 from attackfl_tpu_torch.data.partition import random_permutations  # noqa: E402
 from attackfl_tpu_torch.data.synthetic import get_dataset  # noqa: E402
@@ -225,6 +229,7 @@ from attackfl_tpu_torch.ops.pytree import (  # noqa: E402
     tree_broadcast, tree_items, tree_leaves, tree_map, tree_ravel_stacked, tree_take, unraveler,
 )
 from attackfl_tpu_torch.profile_round import CONFIG4, DEPTH, self_device_us  # noqa: E402
+from attackfl_tpu_torch.profiler import mine  # noqa: E402
 from attackfl_tpu_torch.telemetry.events import validate_event  # noqa: E402
 from attackfl_tpu_torch.training import local  # noqa: E402
 from attackfl_tpu_torch.training import engine  # noqa: E402
@@ -232,22 +237,19 @@ from attackfl_tpu_torch.training.hyper import build_hyper_update  # noqa: E402
 from attackfl_tpu_torch.training import round as tround  # noqa: E402
 from attackfl_tpu_torch.training.engine import Simulator  # noqa: E402
 from attackfl_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
+from attackfl_tpu_torch.utils.fingerprint import config_fingerprint  # noqa: E402
 
 # BASELINE config 4 is cut in depth only (width, clients, attackers and
 # batch stay as published): epochs and samples per client to DEPTH["cut"],
 # rounds from 30 to 3
 ROUNDS = (30, 3)
 
-# published peaks of the H100 SXM (NVIDIA's data sheet): fp32 outside the
-# tensor cores, and HBM bandwidth.  INT32: an SM issues 64 INT32 lanes per
-# clock against 128 FP32 lanes (Hopper architecture white paper), half the
-# fp32 rate
-FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12
+# published peaks of the H100 SXM (NVIDIA's data sheet, the cost model's
+# row in costmodel/peaks.py): fp32 outside the tensor cores, and HBM
+# bandwidth.  INT32: an SM issues 64 INT32 lanes per clock against 128 FP32
+# lanes (Hopper architecture white paper), half the fp32 rate
+FP32_FLOPS, HBM_BYTES = H100["flops_per_sec"], H100["bytes_per_sec"]
 INT32_OPS = FP32_FLOPS / 2
-# integer operations of one K3 mask element: fmix32 of (key ^ tensor id)
-# is amortised over the client's elements, the element's own fmix32 is 2
-# multiplies, 3 shifts and 4 xors, then a compare and a select
-K3_OPS_PER_ELEMENT = 11
 # the xla path's dropout rates (attention, block, head) at config 4
 STEP_RATES = (0.1, 0.1, 0.3)
 KERNELS = ("fused_step", "dropout_mask")
@@ -411,6 +413,23 @@ ATTRIBUTION_ROUNDS = 2
 # monitor stalled at STALL_ROUND, over STALL_RUN_ROUNDS rounds
 NUMERICS_WINDOW, NUMERICS_RTOL = 2, 1e-5
 STALL_ROUND, STALL_RUN_ROUNDS = 3, 4
+# phase 16.  a: config 4 (cut) through each of TELEMETRY_EXECUTORS under
+# each backend with this hotspot window and the cost model on, then with
+# neither; each executor's dispatch seam and record_function label; the
+# port's kernels' trace rows by name, with the categories the tests fix;
+# the label's cost timed over LABEL_REPS labels.  b: the ledger's
+# utilization within (0, UTILIZATION_CAP]
+HOTSPOT_WINDOW = "2:3"
+HOTSPOT_SEAM = {"run": "sync", "run_fast": "fused", "pipeline": "pipelined"}
+HOTSPOT_LABELS = {"run": ("round_step", "aggregate"), "run_fast": (f"fused_scan[{ROUNDS[1]}]",),
+                  "pipeline": ("pipeline_step[eval=True]",)}
+KERNEL_ROWS = {"fused_step": ("train_epoch_kernel", "matmul"),
+               "dropout_mask": ("fill_masks", "copy")}
+LABEL_REPS = 20000
+UTILIZATION_CAP = 1.05
+# e: hyper config 2's window, its last round (the RNN's small ops make a
+# round's trace several times config 4's)
+HYPER_WINDOW = "3:3"
 # filled by main_path (each backend's run history) and checkpoint_phase
 # (the gap between two config-4 runs without a stop, per backend), and by
 # fault_run (the faulted run's final state, per backend)
@@ -728,12 +747,12 @@ def check_validator() -> None:
             {k: out[k]["ok"] for k in ("autodiff_match", "mask_statistics", "dropout_on_step")}))
 
 
-def k3_bound_ms(C: int, elements: int) -> tuple[float, float]:
-    """K3's bound in ms, (bytes, operations): ``elements`` floats written
-    and C int64 keys read at HBM_BYTES; K3_OPS_PER_ELEMENT int32
-    operations per element at INT32_OPS."""
-    return ((4 * elements + 8 * C) / HBM_BYTES * 1e3,
-            K3_OPS_PER_ELEMENT * elements / INT32_OPS * 1e3)
+def k3_bound_ms(C: int, specs) -> tuple[float, float]:
+    """K3's bound in ms, (bytes, operations), from ``mask_work``: the
+    masks' floats written and C int64 keys read at HBM_BYTES;
+    tfs.K3_OPS_PER_ELEMENT int32 operations per element at INT32_OPS."""
+    work = tfs.mask_work(C, specs)
+    return work["bytes"] / HBM_BYTES * 1e3, work["flops"] / INT32_OPS * 1e3
 
 
 def check_step_set(label: str, C: int, specs) -> float:
@@ -793,7 +812,7 @@ def check_dropout_mask() -> dict:
 
     keys = tfs.client_keys(2024, 5, torch.arange(C, device="cuda"))
     n_step = C * sum(r * w for _, r, w, _ in step)
-    t_bytes, t_ops = k3_bound_ms(C, n_step)
+    t_bytes, t_ops = k3_bound_ms(C, step)
     bound = max(t_bytes, t_ops)
     ms = device_ms(lambda: tfs.fill_masks(keys, step))
     nine_ms = device_ms(lambda: [tfs.fill_mask(keys, t, r, w, p) for t, r, w, p in step],
@@ -807,27 +826,27 @@ def check_dropout_mask() -> dict:
     log(f"[kernels] K3 step C={C} B={B}: kernel {ms * 1e3:.3f} us/launch, the same nine tensors "
         f"one launch each {nine_ms * 1e3:.3f} us, after a 64 MB write {cold_ms * 1e3:.3f} us, "
         f"plain {plain_ms * 1e3:.3f} us; bound {bound * 1e3:.3f} us ({4 * n_step / 1e6:.2f} MB "
-        f"written at 3.35 TB/s; {K3_OPS_PER_ELEMENT * n_step / 1e6:.1f} M int32 ops take "
+        f"written at 3.35 TB/s; {tfs.K3_OPS_PER_ELEMENT * n_step / 1e6:.1f} M int32 ops take "
         f"{t_ops * 1e3:.3f} us); {bound / ms:.1%} of the bound")
 
     one_ms = device_ms(lambda: tfs.fill_mask(keys, T_HEAD, B, big[2], 0.1))
     one_plain = device_ms(lambda: tfs.dropout_mask(keys, T_HEAD, B, big[2], 0.1), reps=20)
-    one_bytes, one_ops = k3_bound_ms(C, math.prod(big))
+    one_bytes, one_ops = k3_bound_ms(C, [(T_HEAD, B, big[2], 0.1)])
     log(f"[kernels] K3 {list(big)}: kernel {one_ms * 1e3:.3f} us/launch, plain "
         f"{one_plain * 1e3:.3f} us, bound {max(one_bytes, one_ops) * 1e3:.3f} us "
         f"({4 * math.prod(big) / 1e6:.2f} MB written at 3.35 TB/s; "
-        f"{K3_OPS_PER_ELEMENT * math.prod(big) / 1e6:.1f} M int32 ops take "
+        f"{tfs.K3_OPS_PER_ELEMENT * math.prod(big) / 1e6:.1f} M int32 ops take "
         f"{one_ops * 1e3:.3f} us)")
 
     har_keys = tfs.client_keys(2024, 5, torch.arange(har_C, device="cuda"))
     n_har = har_C * sum(r * w for _, r, w, _ in har)
-    har_bytes, har_ops = k3_bound_ms(har_C, n_har)
+    har_bytes, har_ops = k3_bound_ms(har_C, har)
     har_ms = device_ms(lambda: tfs.fill_masks(har_keys, har), reps=20)
     har_plain = device_ms(lambda: tfs.dropout_masks(har_keys, har), reps=2)
     log(f"[kernels] K3 HAR step set C={har_C} B={har_B} L={HAR_L}: kernel "
         f"{har_ms * 1e3:.3f} us/launch, plain {har_plain * 1e3:.3f} us; bound "
         f"{max(har_bytes, har_ops) * 1e3:.3f} us ({4 * n_har / 1e6:.1f} MB written at 3.35 "
-        f"TB/s; {K3_OPS_PER_ELEMENT * n_har / 1e6:.1f} M int32 ops take {har_ops * 1e3:.3f} "
+        f"TB/s; {tfs.K3_OPS_PER_ELEMENT * n_har / 1e6:.1f} M int32 ops take {har_ops * 1e3:.3f} "
         f"us); {max(har_bytes, har_ops) / har_ms:.1%} of the bound")
     return {"name": "dropout_mask", "route": "cuda",
             "source": "attackfl_tpu_torch/csrc/dropout_mask.cu",
@@ -2166,20 +2185,32 @@ def faults_dtypes_async_phase(card: str) -> None:
         shutil.rmtree(root)
 
 
-def count_syncs(fn):
-    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
-    result, the synchronizing CUDA operations it made (each copy between
-    the host and the card from pageable memory, each stream sync, each
-    read of a device value), and where in the Python code they were."""
+@contextlib.contextmanager
+def sync_log():
+    """A block under ``torch.cuda.set_sync_debug_mode("warn")``: yields
+    the list its warnings land in (``syncs_of`` picks the syncs)."""
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            out = fn()
+            yield caught
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+
+
+def syncs_of(caught: list) -> list:
+    return [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+
+
+def count_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result, the synchronizing CUDA operations it made (each copy between
+    the host and the card from pageable memory, each stream sync, each
+    read of a device value), and where in the Python code they were."""
+    with sync_log() as caught:
+        out = fn()
+    syncs = syncs_of(caught)
     sites = Counter(f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in syncs)
     return out, len(syncs), sites
 
@@ -2789,7 +2820,10 @@ def telemetry_executor_runs(root: str) -> dict:
             events = read_events(sim.cfg.log_path)
             kinds = [e["kind"] for e in events]
             middle = (["chunk"] if how == "run_fast" else []) + ["round"] * n
-            expect = ["run_header"] + middle + ["counters", "run_end", "ledger"]
+            # the cost model (on with telemetry, as in JAX) profiles each
+            # program at its first dispatch, before the first round's event
+            profiles = ["program_profile"] * (2 if how == "run" else 1)
+            expect = ["run_header"] + profiles + middle + ["counters", "run_end", "ledger"]
             gap = max_param_gap(on["global_params"], off["global_params"])
             equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(on["global_params"]),
                                                           tree_leaves(off["global_params"])))
@@ -3314,7 +3348,487 @@ def numerics_phase() -> dict:
     return launches
 
 
-def main() -> int:
+def http_get(port: int, path: str) -> tuple[int, bytes]:
+    try:
+        with urllib.request.urlopen(f"http://localhost:{port}{path}", timeout=10) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def trace_rows(path: str) -> list:
+    """A window's trace, every event."""
+    with gzip.open(path, "rb") as fh:
+        return json.load(fh)["traceEvents"]
+
+
+def label_check(events: list, rows: list) -> tuple[int, int]:
+    """The kernel, memcpy and memset rows launched inside a
+    ``record_function`` label of the engine, found from the trace's own
+    spans (a row reaches its launch by its correlation), and how many of
+    them the miner's ``rows`` (``_device_ops``) attribute to no
+    program."""
+    labels = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    launch = {e["args"]["correlation"]: e["ts"] + e["dur"] / 2 for e in events
+              if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in (e.get("args") or {})}
+    inside = set()
+    for i, e in enumerate(e for e in events
+                          if e.get("ph") == "X" and e.get("cat") in
+                          ("kernel", "gpu_memcpy", "gpu_memset")):
+        t = launch.get((e.get("args") or {}).get("correlation"))
+        if t is not None and any(a <= t <= b for a, b in labels):
+            inside.add(i)
+    unknown = sum(1 for i, row in enumerate(rows) if i in inside and row[2] == "<unknown>")
+    return len(inside), unknown
+
+
+def hotspot_run(backend: str, how: str, root: str, on: bool) -> dict:
+    """Phase 16 a's run of config 4 (cut) through ``how`` with the window
+    HOTSPOT_WINDOW, the cost model and the monitor ``on``, or with none of
+    them, under ``sync_log``: the run, its host syncs, the syncs the
+    window's open and close made themselves, the kernel launches between
+    them, and with ``on`` the monitor's answers."""
+    directory = os.path.join(root, f"{backend}-{how}-{'on' if on else 'off'}")
+    tel = TelemetryConfig(hotspots=HOTSPOT_WINDOW if on else "", costmodel=on, monitor=on,
+                          monitor_port=0, ledger_dir=os.path.join(root, "ledger"))
+    cfg = cut_config(local_backend=backend, log_path=directory, checkpoint_dir=directory,
+                     pipeline=how == "pipeline", pipeline_depth=TELEMETRY_DEPTH, telemetry=tel)
+    sim = Simulator(cfg, device="cuda")
+    state = sim.init_state()
+    capture, marks = sim._hotspots, {}
+
+    def seam(name, real, caught):
+        def wrapped(*args, **kwargs):
+            was, before, launches = capture.profiling, len(syncs_of(caught)), launch_counts()
+            real(*args, **kwargs)
+            if capture.profiling != was:
+                marks[name] = {"launches": launches, "syncs": len(syncs_of(caught)) - before}
+        return wrapped
+
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()), sync_log() as caught:
+        capture.maybe_start = seam("open", capture.maybe_start, caught)
+        capture.maybe_stop = seam("close", capture.maybe_stop, caught)
+        t0 = time.perf_counter()
+        if how == "run_fast":
+            state, history = sim.run_fast(state=state, chunk_size=cfg.num_round,
+                                          save_checkpoints=False, verbose=False)
+        else:
+            state, history = sim.run(state=state, save_checkpoints=False, verbose=False)
+        wall = time.perf_counter() - t0
+        syncs = syncs_of(caught)
+    out = {"sim": sim, "state": state, "history": history, "wall": wall,
+           "launches": launch_counts(), "syncs": len(syncs),
+           "sites": Counter(f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in syncs),
+           "marks": marks, "dir": directory}
+    if on:
+        port = sim.monitor.port
+        out["monitor"] = {path: http_get(port, path)
+                          for path in ("/programs", "/hotspots", "/metrics")}
+        out["spans"] = list(sim.telemetry.tracer._events)
+    sim.close()
+    return out
+
+
+def hotspot_window_checks(backend: str, how: str, run: dict, off: dict) -> dict:
+    """Phase 16 a's gates on one windowed run against its run with no
+    window: one valid ``ok`` window of the executor's seam whose books
+    close, the port's kernel rows by name equal to its launches over the
+    window, in the category the tests fix and under the executor's label,
+    no row launched inside a label left to no program, the params bit for
+    bit, the host syncs outside the window's own those of the run without
+    one.  Returns the window's ``hotspot`` event."""
+    label = f"hotspots {backend} {how}"
+    events = read_events(run["dir"])
+    windows = [e for e in events if e["kind"] == "hotspot"]
+    if len(windows) != 1 or windows[0]["status"] != "ok" or not windows[0]["books_close"] \
+            or windows[0]["program"] != HOTSPOT_SEAM[how]:
+        raise AssertionError(f"{label}: hotspot events {windows}")
+    report = windows[0]
+    events = trace_rows(os.path.join(run["dir"], report["trace"]))
+    device_rows = mine._device_ops(events, "cuda")
+    kernel = BACKEND_KERNEL[backend]
+    name, category = KERNEL_ROWS[kernel]
+    rows = [{"program": program, "category": mine.op_category(op)}
+            for _, _, program, op, _ in device_rows if op == name]
+    launched = run["marks"]["close"]["launches"][kernel] - run["marks"]["open"]["launches"][kernel]
+    labelled, unknown = label_check(events, device_rows)
+    window_syncs = run["marks"]["open"]["syncs"] + run["marks"]["close"]["syncs"]
+    equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(run["state"]["global_params"]),
+                                                  tree_leaves(off["state"]["global_params"])))
+    n = len(run["history"])
+    top = ", ".join(f"{r['name']} ({r['category']}, {r['program']}) {r['self_us']:.1f} us "
+                    f"{r['share']:.1%}" for r in report["top_ops"][:3])
+    timings = run["sim"]._hotspots.timings
+    log(f"[hotspots] {backend} {how}: window {report['round_first']}-"
+        f"{report['round_last']} ok, {report['lanes']} lanes, host_bound_fraction "
+        f"{report['host_bound_fraction']} ({report['classification']}), busy "
+        f"{report['device_busy_us'] / 1e3:.3f} ms of {report['wall_us'] / 1e3:.3f} ms; top "
+        f"{top}; {name} rows {len(rows)} against {launched} launches in "
+        f"the window, under {sorted({r['program'] for r in rows})}; {labelled} device rows "
+        f"launched inside a label, {unknown} of them unattributed; open "
+        f"{timings['open_ms']:.1f} ms, close {timings['close_ms']:.1f} ms, export "
+        f"{timings['export_ms']:.1f} ms; s/round with the window and the cost model "
+        f"{run['wall'] / n:.4f}, with neither {off['wall'] / n:.4f}; host syncs "
+        f"{run['syncs']} (the window's open {run['marks']['open']['syncs']} and close "
+        f"{run['marks']['close']['syncs']}) against {off['syncs']}; params equal {equal}")
+    if len(rows) != launched or not launched:
+        raise AssertionError(f"{label}: {name} rows {rows}, {launched} launches in the window")
+    if any(r["category"] != category or r["program"] not in HOTSPOT_LABELS[how] for r in rows):
+        raise AssertionError(f"{label}: {name} rows {rows}")
+    if unknown or not labelled:
+        raise AssertionError(f"{label}: {unknown} of {labelled} labelled rows unattributed")
+    if not equal:
+        raise AssertionError(f"{label}: the window or the cost model changed the params")
+    if run["syncs"] - window_syncs != off["syncs"]:
+        raise AssertionError(f"{label}: {run['syncs']} host syncs ({window_syncs} the "
+                             f"window's) at {dict(run['sites'])}, {off['syncs']} without it")
+    if (how == "run_fast" and off["syncs"] != SYNCS_PER_CHUNK) or (how == "pipeline"
+                                                                  and off["syncs"]):
+        raise AssertionError(f"{label}: {off['syncs']} host syncs without a window")
+    return report
+
+
+def profile_checks(backend: str, how: str, run: dict) -> dict:
+    """Phase 16 b's gates on one run's ``program_profile`` events: the
+    executor's programs, valid, with the dispatch's memory; their counted
+    dispatches' host ms.  Returns the profiles by name."""
+    events = read_events(run["dir"])
+    profiles = {e["program"]: e for e in events if e["kind"] == "program_profile"}
+    expect = set(HOTSPOT_LABELS[how])
+    if set(profiles) != expect or any(p["memory"]["peak"] <= 0 for p in profiles.values()):
+        raise AssertionError(f"profiles {backend} {how}: {profiles}")
+    if how == "run_fast" and profiles[HOTSPOT_LABELS[how][0]]["rounds_per_dispatch"] != ROUNDS[1]:
+        raise AssertionError(f"profiles {backend} {how}: rounds_per_dispatch {profiles}")
+    return profiles
+
+
+def cost_model_checks(runs: dict, root: str) -> None:
+    """Phase 16 b: the programs of every windowed run; under pallas
+    round_step's flops against the count of the same config on fake CPU
+    tensors and K1's ``epoch_work`` in it; a second Simulator's profile;
+    the ledger records' utilization on the H100; /programs, /hotspots and
+    the gauges."""
+    card = card_line()
+    for (backend, how), run in runs.items():
+        profiles = profile_checks(backend, how, run)
+        counted = [e for e in run["spans"] if e["name"] == "costmodel"]
+        log(f"[costmodel] {backend} {how}: " + "; ".join(
+            f"{name} {p['flops'] / 1e9:.3f} GFLOP, {p['transcendentals'] / 1e6:.3f} M "
+            f"transcendentals, {p['bytes_accessed'] / 1e9:.3f} GB, peak "
+            f"{p['memory']['peak'] / 2 ** 30:.3f} GiB (argument "
+            f"{p['memory']['argument'] / 2 ** 20:.1f} MiB, temp "
+            f"{p['memory']['temp'] / 2 ** 20:.1f} MiB)" for name, p in sorted(profiles.items()))
+            + "; the counter's bookkeeping " + ", ".join(
+                f"{e['args']['program']} {e['dur'] / 1e3:.1f} ms over {e['args']['ops']} ops"
+                for e in counted)
+            + f" ({card})")
+    sync = runs[("pallas", "run")]
+    phases = sync["history"][1]["phases"]
+    log(f"[costmodel] pallas run: round 2's uncounted train {phases['train'] * 1e3:.1f} ms, "
+        f"aggregate {phases['aggregate'] * 1e3:.1f} ms")
+
+    cfg = sync["sim"].cfg
+    fake = costcli.count_sync_programs(cfg, "cpu")
+    with unittest.mock.patch.object(tfs, "epoch_work", lambda C, nb, B: {"flops": 0, "bytes": 0}):
+        without = costcli.count_sync_programs(cfg, "cpu")
+    nb = -(-cfg.num_data_range[1] // cfg.batch_size)
+    k1 = cfg.epochs * tfs.epoch_work(cfg.total_clients, nb, cfg.batch_size)["flops"]
+    card_step = [e for e in read_events(sync["dir"]) if e["kind"] == "program_profile"
+                 and e["program"] == "round_step"][0]
+    second = hotspot_run("pallas", "run", os.path.join(root, "second"), True)
+    again = [e for e in read_events(second["dir"]) if e["kind"] == "program_profile"
+             and e["program"] == "round_step"][0]
+    keys = ("flops", "transcendentals", "bytes_accessed")
+    log(f"[costmodel] pallas round_step: card {card_step['flops']} flops, the CPU's count on "
+        f"fake tensors {fake['round_step']['flops']}, without K1's formula "
+        f"{without['round_step']['flops']} (difference {fake['round_step']['flops'] - without['round_step']['flops']}, "
+        f"{cfg.epochs} x epoch_work {k1}); bytes card {card_step['bytes_accessed']}, CPU "
+        f"{fake['round_step']['bytes_accessed']}; a second Simulator "
+        f"{[again[k] for k in keys]}")
+    if card_step["flops"] != fake["round_step"]["flops"] \
+            or fake["round_step"]["flops"] - without["round_step"]["flops"] != k1:
+        raise AssertionError(f"round_step flops: card {card_step['flops']}, CPU {fake}, "
+                             f"without K1 {without}, K1 {k1}")
+    if any(again[k] != card_step[k] for k in keys):
+        raise AssertionError(f"a second Simulator's round_step {again} against {card_step}")
+
+    records, _ = LedgerStore(os.path.join(root, "ledger")).load()
+    profiled = [r for r in records if r.get("programs")]
+    for r in profiled:
+        u = r["utilization"]
+        log(f"[costmodel] ledger record {r['executor']} {r['fingerprint']}: utilization "
+            f"{u['device_kind']}: flops {u.get('utilization_flops')}, bytes "
+            f"{u.get('utilization_bytes')}; achieved {u['achieved_flops_per_sec'] / 1e12:.4f} "
+            f"TFLOP/s, {u['achieved_bytes_per_sec'] / 1e12:.4f} TB/s over round_device_time "
+            f"{r['round_device_time']} s; hotspots {r['hotspots']['status_counts']}, measured "
+            f"{r['hotspots']['measured_round_device_s']} s a round, predicted "
+            f"{r['hotspots']['predicted_round_device_s']} "
+            f"(x{r['hotspots']['hotspot_prediction_error_factor']})")
+        if "H100" not in u["device_kind"] or not all(
+                0 < u.get(k, 0) <= UTILIZATION_CAP for k in ("utilization_flops",
+                                                              "utilization_bytes")):
+            raise AssertionError(f"ledger utilization {u}")
+    if len(profiled) != len(runs):
+        raise AssertionError(f"{len(profiled)} ledger records with programs, expected "
+                             f"{len(runs)}")
+
+    answers = sync["monitor"]
+    programs = json.loads(answers["/programs"][1])
+    windows = json.loads(answers["/hotspots"][1])["windows"]
+    metrics = answers["/metrics"][1].decode()
+    gauges = [line for line in metrics.splitlines()
+              if line.startswith(("attackfl_program_", "attackfl_utilization",
+                                  "attackfl_achieved", "attackfl_host_bound"))]
+    log(f"[costmodel] the pallas run's monitor: /programs {sorted(programs['programs'])} "
+        f"utilization {programs['utilization'].get('utilization_flops')} of the flops peak "
+        f"over its median round; /hotspots {sorted(windows)}; gauges {gauges}")
+    if set(programs["programs"]) != set(HOTSPOT_LABELS["run"]) or "sync" not in windows \
+            or not any(g.startswith("attackfl_utilization") for g in gauges) \
+            or not any(g.startswith("attackfl_host_bound_fraction") for g in gauges):
+        raise AssertionError(f"monitor: {programs}, {windows}, {gauges}")
+
+
+def hotspot_fail_open(root: str, off: dict) -> None:
+    """Phase 16 c: the pallas run with its profile directory unwritable
+    (a file where the directory goes): one ``unavailable`` window, its
+    counter 1, and the params of a's run without a window."""
+    directory = os.path.join(root, "unwritable")
+    os.makedirs(directory)
+    with open(os.path.join(directory, "profile"), "w"):
+        pass
+    sim = Simulator(cut_config(local_backend="pallas", log_path=directory,
+                               telemetry=TelemetryConfig(hotspots=HOTSPOT_WINDOW)), device="cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        state, _ = sim.run(state=sim.init_state(), save_checkpoints=False, verbose=False)
+    count = sim.telemetry.counters.get("hotspot_windows_unavailable")
+    sim.close()
+    windows = [(e["status"], e.get("reason")) for e in read_events(directory)
+               if e["kind"] == "hotspot"]
+    equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(state["global_params"]),
+                                                  tree_leaves(off["state"]["global_params"])))
+    log(f"[hotspots] pallas run with its profile directory unwritable: windows {windows}, "
+        f"hotspot_windows_unavailable {count}, params equal to the run without a window "
+        f"{equal}")
+    if [w[0] for w in windows] != ["unavailable"] or count != 1 or not equal:
+        raise AssertionError(f"fail-open: {windows}, counter {count}, params equal {equal}")
+
+
+def config4_yaml(path: str, backend: str, log_path: str) -> str:
+    """Config 4 (cut) under ``backend`` as a config file, for the command
+    lines."""
+    import yaml
+
+    cfg = cut_config(local_backend=backend)
+    attack = cfg.attacks[0]
+    doc = {"server": {"num-round": cfg.num_round, "clients": cfg.total_clients,
+                      "mode": cfg.mode, "model": cfg.model, "data-name": cfg.data_name,
+                      "train-size": cfg.train_size, "test-size": cfg.test_size,
+                      "genuine-rate": cfg.genuine_rate, "random-seed": cfg.random_seed,
+                      "data-distribution": {"num-data-range": list(cfg.num_data_range)}},
+           "learning": {"epoch": cfg.epochs, "batch-size": cfg.batch_size,
+                        "learning-rate": cfg.lr, "clip-grad-norm": cfg.clip_grad_norm},
+           "tpu": {"local-backend": backend},
+           "attack-clients": [{"mode": attack.mode, "num-clients": attack.num_clients,
+                               "attack-round": attack.attack_round,
+                               "args": list(attack.args)}],
+           "log_path": log_path}
+    with open(path, "w") as fh:
+        yaml.safe_dump(doc, fh)
+    if config_fingerprint(load_config(path)) != config_fingerprint(cfg):
+        raise AssertionError(f"{path} is not config 4 (cut)")
+    return path
+
+
+def command_line_checks(runs: dict, root: str) -> None:
+    """Phase 16 d: ``hotspots show`` and ``diff`` on a's pallas run,
+    ``metrics --programs``, ``cost estimate`` from a's ledger (the peer
+    path) and from an empty one (the count on fake tensors), ``cost
+    validate`` on a's ledger."""
+    directory = runs[("pallas", "run")]["dir"]
+    ledger = os.path.join(root, "ledger")
+    path = config4_yaml(os.path.join(root, "config4.yaml"), "pallas", root)
+    empty = os.path.join(root, "empty-ledger")
+    os.makedirs(empty)
+    commands = (["hotspots", "show", directory], ["hotspots", "diff", directory, directory],
+                ["metrics", directory, "--programs"],
+                ["cost", "estimate", "--config", path, "--dir", ledger, "--json"],
+                ["cost", "estimate", "--config", path, "--dir", empty, "--json"],
+                ["cost", "validate", "--dir", ledger])
+    outs = []
+    for argv in commands:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        outs.append((rc, buf.getvalue(), time.perf_counter() - t0))
+        log(f"[commands] {' '.join(argv[:2])}: exit {rc} in {outs[-1][2]:.2f} s")
+    for line in outs[0][1].splitlines()[:12] + outs[5][1].splitlines()[:4]:
+        log(f"[commands]   {line}")
+    peer, fresh = json.loads(outs[3][1]), json.loads(outs[4][1])
+    log(f"[commands] cost estimate from a's ledger: {peer['method']}, "
+        f"{peer.get('round_device_time')} s a round over {peer.get('peers')} peers; from an "
+        f"empty ledger: {fresh['method']} ({fresh.get('reason')}, profile "
+        f"{fresh.get('profile')})")
+    if [rc for rc, _, _ in outs[:4]] != [0, 0, 0, 0] or peer["method"] != "peer":
+        raise AssertionError(f"commands: exits {[rc for rc, _, _ in outs]}, estimate {peer}")
+    if outs[4][0] not in (0, 2) or outs[5][0] not in (0, 1) or "error factor" not in outs[5][1]:
+        raise AssertionError(f"commands: estimate {fresh}, validate {outs[5][:2]}")
+
+
+def hotspot_hyper_run(root: str) -> None:
+    """Phase 16 e: hyper config 2 (cut) under run with the window and the
+    cost model, then with neither: one ``ok`` window, hyper_update
+    profiled, the hypernetwork and its Adam state bit for bit."""
+    label, config, cut = HYPER_RUNS[0]
+    states = []
+    for on in (True, False):
+        directory = os.path.join(root, f"hyper-{on}")
+        tel = TelemetryConfig(hotspots=HYPER_WINDOW if on else "", costmodel=on)
+        sim = Simulator(Config(**{**config, **cut, "log_path": directory, "telemetry": tel}),
+                        device="cuda")
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            state, history = sim.run(state=sim.init_state(), save_checkpoints=False,
+                                     verbose=False)
+        launches = launch_counts()
+        sim.close()
+        states.append(state)
+        if on:
+            events = read_events(directory)
+            windows = [(e["status"], e["program"]) for e in events if e["kind"] == "hotspot"]
+            programs = sorted(e["program"] for e in events if e["kind"] == "program_profile")
+    a, b = states
+    same = (torch.equal(a["hnet_params"], b["hnet_params"])
+            and all(torch.equal(a["hyper_opt_state"][k], b["hyper_opt_state"][k])
+                    for k in ("count", "m", "v")))
+    log(f"[hotspots] hyper {label}: windows {windows}, programs {programs}; hypernetwork and "
+        f"Adam state equal to the run with neither {same}; launches {launches}")
+    if windows != [("ok", "sync")] or programs != ["hyper_update", "round_step"] or not same:
+        raise AssertionError(f"hotspots hyper: windows {windows}, programs {programs}, "
+                             f"equal {same}")
+    require_kernel("hotspots hyper", sim.cfg, launches, len(history))
+
+
+def compact_trace(src: str, dst: str) -> None:
+    """``src``'s rows the miner reads, each with the fields it reads: the
+    device rows and their launch rows with their correlation, the labels,
+    the aten ops that are some launch's innermost, the profiler's span; a
+    kernel's name as the miner shortens it."""
+    events = trace_rows(src)
+    device = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    wanted = {(e.get("args") or {}).get("correlation") for e in device}
+    launches = [e for e in events if e.get("ph") == "X"
+                and e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and (e.get("args") or {}).get("correlation") in wanted]
+    ops: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "cpu_op":
+            ops.setdefault((e["pid"], e["tid"]), []).append(e)
+    keep = set()
+    for lane, rows in ops.items():
+        spans = [(e["ts"], e["ts"] + e["dur"], str(i)) for i, e in enumerate(rows)]
+        queries = [(e["ts"] + e["dur"] / 2, j) for j, e in enumerate(launches)
+                   if (e["pid"], e["tid"]) == lane]
+        keep.update(id(rows[int(i)]) for i in mine._innermost(spans, queries).values())
+
+    def slim(e):
+        out = {k: e[k] for k in ("ph", "cat", "name", "pid", "tid", "ts", "dur")}
+        if e["cat"] == "kernel":
+            out["name"] = mine.kernel_short_name(e["name"])
+        if "correlation" in (e.get("args") or {}):
+            out["args"] = {"correlation": e["args"]["correlation"]}
+        return out
+
+    rows = [slim(e) for e in events if e.get("ph") == "X" and (
+        e in device or e.get("cat") in ("user_annotation", "Trace") or id(e) in keep)]
+    rows += [slim(e) for e in launches]
+    with gzip.open(dst, "wt") as fh:
+        json.dump({"traceEvents": rows}, fh, separators=(",", ":"))
+
+
+def hotspot_fixtures(root: str, out_dir: str) -> None:
+    """The CPU tests' golden traces: one config-4 (cut) round under each
+    backend in a window, compacted to the rows the miner reads, which
+    must mine as the whole trace does; written with their reports'
+    top ops, categories and books to ``out_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    golden = {}
+    for backend in ("pallas", "xla"):
+        directory = os.path.join(root, f"fixture-{backend}")
+        sim = Simulator(cut_config(local_backend=backend, log_path=directory, num_round=2,
+                                   telemetry=TelemetryConfig(hotspots="2:2")), device="cuda")
+        with contextlib.redirect_stdout(io.StringIO()):
+            sim.run(state=sim.init_state(), save_checkpoints=False, verbose=False)
+        sim.close()
+        (event,) = [e for e in read_events(directory) if e["kind"] == "hotspot"]
+        name = f"config4_{backend}_round.cuda.trace.json.gz"
+        dst = os.path.join(out_dir, name)
+        compact_trace(os.path.join(directory, event["trace"]), dst)
+        whole = mine.mine_trace(os.path.join(directory, event["trace"]))
+        small = mine.mine_trace(dst)
+        keys = ("top_ops", "categories", "books", "host_bound_fraction", "programs")
+        if any(whole[k] != small[k] for k in keys):
+            raise AssertionError(f"fixture {backend}: the compacted trace mines otherwise")
+        golden[name] = {k: small[k] for k in keys}
+        log(f"[fixtures] {name}: {os.path.getsize(dst)} bytes")
+    with open(os.path.join(out_dir, "golden.json"), "w") as fh:
+        json.dump(golden, fh, indent=1, sort_keys=True)
+
+
+def hotspots_phase(fixtures: str | None = None) -> dict:
+    """Phase 16: runs a-e (and the tests' golden traces into
+    ``fixtures``).  Returns the launches of a's windowed runs."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_hotspots_")
+    total = Counter()
+    try:
+        marks = [time.perf_counter()]
+        t0 = time.perf_counter()
+        for _ in range(LABEL_REPS):
+            with torch.profiler.record_function("round_step"):
+                pass
+        label_us = (time.perf_counter() - t0) / LABEL_REPS * 1e6
+        log(f"[hotspots] a record_function label with no profiler: {label_us:.2f} us; a "
+            f"synchronous round has 2, a chunk and a pipelined round 1")
+        runs, offs = {}, {}
+        for backend in ("pallas", "xla"):
+            for how in TELEMETRY_EXECUTORS:
+                run = hotspot_run(backend, how, root, True)
+                off = hotspot_run(backend, how, root, False)
+                hotspot_window_checks(backend, how, run, off)
+                require_kernel(f"hotspots {backend} {how}", run["sim"].cfg, run["launches"],
+                               len(run["history"]))
+                total.update(run["launches"])
+                runs[(backend, how)], offs[(backend, how)] = run, off
+        marks.append(time.perf_counter())
+        cost_model_checks(runs, root)
+        marks.append(time.perf_counter())
+        hotspot_fail_open(root, offs[("pallas", "run")])
+        marks.append(time.perf_counter())
+        command_line_checks(runs, root)
+        marks.append(time.perf_counter())
+        hotspot_hyper_run(root)
+        marks.append(time.perf_counter())
+        if fixtures:
+            hotspot_fixtures(root, fixtures)
+        log("[phase 16] " + ", ".join(f"{k} {b - a:.1f} s" for k, a, b in
+                                      zip("abcde", marks, marks[1:])))
+    finally:
+        shutil.rmtree(root)
+    return dict(total)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
+    parser.add_argument("--only", type=int, default=None, metavar="PHASE",
+                        help="after the build, run only this phase of 12-16 and print no "
+                             "result line (a development run)")
+    parser.add_argument("--fixtures", type=str, default=None, metavar="DIR",
+                        help="write phase 16's golden traces for the CPU tests into DIR")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -3334,6 +3848,14 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {name}: {line.strip()}")
         build.load_library(name)
+
+    if args.only is not None:
+        phase = {12: fused_phase, 13: pipeline_phase, 14: telemetry_phase,
+                 15: numerics_phase, 16: lambda: hotspots_phase(args.fixtures)}[args.only]
+        t0 = time.perf_counter()
+        log(f"[only] phase {args.only}: launches {phase()} in {time.perf_counter() - t0:.1f} "
+            f"s; no result line")
+        return 0
 
     check_validator()
     kernels = [check_fused_step(card, built["fused_step"][1]), check_dropout_mask()]
@@ -3360,10 +3882,14 @@ def main() -> int:
     t0 = time.perf_counter()
     numerics_launches = numerics_phase()
     log(f"[numerics and monitor] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hotspot_launches = hotspots_phase(args.fixtures)
+    log(f"[hotspots and cost model] phase done in {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] += (pipeline_launches.get(k["name"], 0)
                           + telemetry_launches.get(k["name"], 0)
-                          + numerics_launches.get(k["name"], 0))
+                          + numerics_launches.get(k["name"], 0)
+                          + hotspot_launches.get(k["name"], 0))
     log(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,12 +7,14 @@ Registrations written by either package's client are read by either
 package's server into the same attack specs; every flag of JAX's
 ``server_main`` sets the Config field JAX's sets, and the engine refuses
 the unported ones, naming their ROADMAP item (``--pipeline`` and
-``--pipeline-depth`` run the pipelined executor); a server run from three
+``--pipeline-depth`` run the pipelined executor, ``--hotspots`` and
+``--profile-rounds`` write their profiling window); a server run from three
 registrations prints JAX's ``Finished`` line; a 3-broadcast run of each
 package under ``nan_storm@2`` writes the same ``app.log`` lines once the
 timestamps are cut and the numbers masked.
 """
 
+import json
 import os
 import re
 
@@ -22,6 +24,7 @@ from _torch_port_threads import one_torch_thread  # noqa: F401
 from attackfl_tpu import cli as jcli
 from attackfl_tpu.config import Config as JaxConfig
 from attackfl_tpu.config import TelemetryConfig as JaxTelemetryConfig
+from attackfl_tpu.config import parse_profile_rounds as jax_parse_profile_rounds
 from attackfl_tpu.faults.plan import parse_fault_plan as jax_parse_fault_plan
 from attackfl_tpu.training.engine import Simulator as JaxSimulator
 from attackfl_tpu_torch import cli
@@ -42,6 +45,11 @@ def _yaml(tmp_path, name="cfg.yaml") -> str:
     path = tmp_path / name
     path.write_text(YAML.replace("{log}", str(tmp_path)))
     return str(path)
+
+
+def _events(path) -> list:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh]
 
 
 def _spec(spec) -> tuple:
@@ -125,18 +133,31 @@ def test_pipeline_flags_reach_the_config_and_run(flags, depth, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--monitor", "--profile-rounds", "1:2"], "item 16c"),
-    (["--monitor-port", "0", "--hotspots", "2"], "item 16c"),
-    (["--profile-rounds", "1:2"], "item 16c"),
-    (["--hotspots", "1:2"], "item 16c"),
-    (["--numerics", "--hotspots", "1:2"], "item 16c"),
+    (["--monitor", "--profile-rounds", "1:2"], None),
+    (["--monitor-port", "0", "--hotspots", "2"], None),
+    (["--profile-rounds", "1:2"], None),
+    (["--hotspots", "1:2"], None),
+    (["--numerics", "--hotspots", "1:2"], None),
     (["--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "1"],
      "item 14"),
 ])
-def test_unported_flags_are_refused_with_their_item(flags, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
-        cli.main(["server", "--config", _yaml(tmp_path), "--device", "cpu", "--no-wait",
-                  *flags])
+def test_unported_flags_are_refused_with_their_item(flags, item, tmp_path, monkeypatch):
+    """The multi-host flags stay refused with their item.  The profiling
+    and hotspot windows (ROADMAP item 16c, refused until it was ported)
+    run and write their window: ``--hotspots 2`` is the window 2:2, as
+    JAX's server reads it."""
+    argv = ["server", "--config", _yaml(tmp_path), "--device", "cpu", "--no-wait", *flags]
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
+            cli.main(argv)
+        return
+    monkeypatch.setenv("ATTACKFL_TELEMETRY_DIR", str(tmp_path))
+    assert cli.main(argv) == 0
+    spec = flags[flags.index("--hotspots" if "--hotspots" in flags else "--profile-rounds") + 1]
+    (event,) = [e for e in _events(tmp_path / "events.jsonl") if e["kind"] == "hotspot"]
+    assert event["status"] == "ok" and event["program"] == "sync"
+    assert (event["round_first"], event["round_last"]) == jax_parse_profile_rounds(spec)
+    assert os.path.isfile(tmp_path / event["trace"])
 
 
 class _Built(Exception):

@@ -1,5 +1,6 @@
 """The port's engine, round draws and CLI on the CPU, at a small size."""
 
+import json
 import math
 
 import pytest
@@ -50,14 +51,33 @@ def test_default_device_without_cuda_raises(monkeypatch):
         Simulator(Config(**SMALL))
 
 
+def _hotspot_events(directory) -> list[dict]:
+    with open(directory / "events.jsonl") as fh:
+        return [e for e in map(json.loads, fh) if e["kind"] == "hotspot"]
+
+
 @pytest.mark.parametrize("override, item", [
     ({"mesh": MeshConfig(num_devices=2)}, "item 14"),
-    ({"telemetry": TelemetryConfig(profile_rounds="1:2")}, "item 16c"),
-    ({"telemetry": TelemetryConfig(hotspots="1:2")}, "item 16c"),
+    ({"telemetry": TelemetryConfig(profile_rounds="1:2")}, None),
+    ({"telemetry": TelemetryConfig(hotspots="1:2")}, None),
 ])
-def test_outside_the_slice_is_refused(override, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        Simulator(Config(**{**SMALL, **override}), device="cpu")
+def test_outside_the_slice_is_refused(override, item, tmp_path, monkeypatch):
+    """The multi-GPU client axis stays refused (item 14).  The profiling
+    and hotspot windows, refused until ROADMAP item 16c was ported, are
+    accepted: a run opens the window and writes its trace and its
+    ``hotspot`` event."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            Simulator(Config(**{**SMALL, **override}), device="cpu")
+        return
+    monkeypatch.setenv("ATTACKFL_TELEMETRY_DIR", str(tmp_path))
+    sim = Simulator(Config(**{**SMALL, **override, "num_round": 2}), device="cpu")
+    sim.run(save_checkpoints=False, verbose=False)
+    sim.close()
+    (event,) = _hotspot_events(tmp_path)
+    assert event["status"] == "ok" and event["program"] == "sync"
+    assert (event["round_first"], event["round_last"]) == (1, 2)
+    assert (tmp_path / event["trace"]).name.endswith(".cpu.trace.json.gz")
 
 
 @pytest.mark.parametrize("override", [
@@ -123,17 +143,23 @@ def test_hyper_refusals_of_the_jax_package_stay(override, match):
         Config(**{**SMALL, "mode": "hyper", **override})
 
 
-def test_hyper_takes_bf16_and_faults_and_keeps_the_pipeline_refusal():
+def test_hyper_takes_bf16_and_faults_and_keeps_the_pipeline_refusal(tmp_path, monkeypatch):
     """Hyper mode takes bf16, a fault plan and the pipelined executor as
-    the plain round does; the multi-GPU client axis and the hotspot
-    windows stay refused (ROADMAP queue 1, items 14 and 16c)."""
+    the plain round does; the multi-GPU client axis stays refused (ROADMAP
+    queue 1, item 14).  A hotspot window on the hyper pipeline, refused
+    until item 16c was ported, opens over its rounds."""
     hyper = {**SMALL, "mode": "hyper", "local_backend": "xla"}
     check_slice(Config(**hyper, mesh=MeshConfig(compute_dtype="bfloat16")))
     check_slice(Config(**hyper, pipeline=True, pipeline_depth=2))
     with pytest.raises(NotImplementedError, match="item 14"):
         check_slice(Config(**hyper, pipeline=True, mesh=MeshConfig(num_devices=2)))
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        check_slice(Config(**hyper, pipeline=True, telemetry=TelemetryConfig(hotspots="1:2")))
+    monkeypatch.setenv("ATTACKFL_TELEMETRY_DIR", str(tmp_path))
+    sim = Simulator(Config(**{**hyper, "num_round": 2}, pipeline=True,
+                           telemetry=TelemetryConfig(hotspots="1:2")), device="cpu")
+    sim.run(save_checkpoints=False, verbose=False)
+    sim.close()
+    (event,) = _hotspot_events(tmp_path)
+    assert (event["status"], event["program"]) == ("ok", "pipelined")
     cfg = Config(**hyper, faults=parse_fault_plan("nan_storm@2:clients=1;dropout@3"))
     check_slice(cfg)
     assert [s.kind for s in cfg.faults] == ["nan_storm", "dropout"]

@@ -6,7 +6,11 @@ against the JAX package's jax-free tools, on the CPU, at the size of
 1. JAX's ``derive_record`` on a port run's ``events.jsonl`` and
    ``trace.json`` gives the record the port appended to its ledger (the
    timestamp and the id aside), under ``run``, ``run_fast`` and the
-   pipeline; both packages' ``validate_record`` pass it.
+   pipeline; both packages' ``validate_record`` pass it.  Under the
+   suite's ``ATTACKFL_COSTMODEL=0`` its ``programs`` and ``utilization``
+   joins are None; with the cost model on and a hotspot window they hold
+   the run's profiles, its utilization and its window, priced against
+   the ledger's earlier record, as JAX's joins give them.
 2. JAX's ``load_events``, ``summarize``, ``forensics_summary``, its
    ``metrics`` and ``ledger list`` command lines and its ``LedgerStore``
    read a port run; the port's ``summarize`` and ``forensics_summary``
@@ -87,6 +91,40 @@ def test_jax_derive_record_gives_the_ports_record(how, tmp_path):
     assert appended["counts"]["rounds_failed"] == 2
     assert appended["programs"] is appended["numerics"] is appended["hotspots"] is None
     assert appended["round_device_time"] > 0 and appended["host_resolution_latency"] >= 0
+
+
+@pytest.mark.parametrize("how", ["run", "pipeline"])
+def test_jax_derive_record_gives_the_ports_joins_with_the_cost_model_on(how, tmp_path,
+                                                                      monkeypatch):
+    """The counterpart of the record test with the cost model on and a
+    hotspot window: the ``programs``, ``utilization`` and ``hotspots``
+    joins JAX's ``derive_record`` gives on the port's events (the second
+    run priced against the first's record) are the port's."""
+    monkeypatch.setenv("ATTACKFL_COSTMODEL", "1")
+    tel = TelemetryConfig(hotspots="1:2")
+    _run(tmp_path, how, telemetry=tel)
+    corpus, _ = store.LedgerStore(str(tmp_path / "ledger")).load()
+    sim, _, _ = _run(tmp_path, how, telemetry=tel)
+    records, _ = store.LedgerStore(str(tmp_path / "ledger")).load()
+    appended = records[-1]
+    events = jsummary.split_runs(jsummary.load_events(str(tmp_path)))[-1]
+    with open(tmp_path / "trace.json") as fh:
+        spans = json.load(fh)["traceEvents"]
+    theirs = jax_derive_record(events, trace_events=spans,
+                               fingerprint=sim.checkpoints.fingerprint, ledger_records=corpus)
+    ours = record.derive_record(events, trace_events=spans,
+                                fingerprint=sim.checkpoints.fingerprint, ledger_records=corpus)
+    assert ours == theirs
+    aside = ("ts", "record_id")
+    assert {k: v for k, v in theirs.items() if k not in aside} == \
+        {k: v for k, v in appended.items() if k not in aside}
+    names = {"run": {"round_step", "aggregate"}, "pipeline": {"pipeline_step[eval=True]"}}[how]
+    assert set(appended["programs"]) == names
+    assert appended["utilization"]["device_kind"] == "cpu"
+    assert appended["utilization"]["achieved_flops_per_sec"] > 0
+    assert appended["hotspots"]["status_counts"] == {"ok": 1}
+    assert appended["hotspots"]["hotspot_prediction_error_factor"] >= 1.0
+    assert appended["hotspots"]["prediction_method"] == "peer"
 
 
 def test_jax_tools_read_a_port_run(tmp_path, capsys):

@@ -17,8 +17,9 @@ against the JAX package's, on the CPU.
 3. ``python -m attackfl_tpu_torch watch --once`` prints what JAX's prints
    on the same monitor, with its exit codes; ``metrics`` (plain,
    ``--numerics``, ``--forensics``, ``--json``) prints what JAX's prints on
-   the same ``events.jsonl``; ``--merge`` and ``--programs`` are refused
-   with their item; ``run --numerics --monitor-port 0`` runs.
+   the same ``events.jsonl``; ``--merge`` is refused with its item and
+   ``--programs`` prints what JAX's prints on a run with the cost model
+   on; ``run --numerics --monitor-port 0`` runs.
 """
 
 import json
@@ -382,11 +383,27 @@ def test_metrics_prints_jaxs_report(flags, defended_run, capsys):
         assert "rounds with numerics: 3" in ours and "attack separation over" in ours
 
 
-def test_metrics_refuses_merge_and_programs(defended_run, capsys):
+def test_metrics_refuses_merge_and_programs(defended_run, capsys, tmp_path, monkeypatch):
+    """``--merge`` stays refused (item 14).  ``--programs``, refused until
+    ROADMAP item 16c was ported, prints JAX's table: none on a run with
+    the cost model off, the profiles of a run with it on."""
     assert summary.main([defended_run, "--merge"]) == 2
     assert "item 14" in capsys.readouterr().err
-    assert summary.main([defended_run, "--programs"]) == 2
-    assert "item 16c" in capsys.readouterr().err
+    assert summary.main([defended_run, "--programs"]) == jsummary.main(
+        [defended_run, "--programs"]) == 2
+    assert "no program_profile events found" in capsys.readouterr().err
+    monkeypatch.setenv("ATTACKFL_TELEMETRY_DIR", str(tmp_path))
+    monkeypatch.setenv("ATTACKFL_COSTMODEL", "1")
+    sim = Simulator(Config(**{**TINY, "num_round": 2}, log_path=str(tmp_path)), device="cpu")
+    sim.run(save_checkpoints=False, verbose=False)
+    sim.close()
+    capsys.readouterr()
+    for flags in ([], ["--json"]):
+        assert cli.main(["metrics", str(tmp_path), "--programs", *flags]) == 0
+        ours = capsys.readouterr().out
+        assert jsummary.main([str(tmp_path), "--programs", *flags]) == 0
+        assert ours == capsys.readouterr().out
+    assert "round_step" in ours and "aggregate" in ours
 
 
 def test_run_command_with_numerics_and_monitor(tmp_path, monkeypatch, capsys):
