@@ -54,8 +54,13 @@ commands:
   hotspots mine a run's profiling windows: show [DIR] [--json] [--top K],
            diff A B [--json] [--hostbound-rise X] [--share-drift X]
   cost     the cost model: estimate --config PATH [--rounds N] [--dir D]
-           [--device cuda|cpu] [--no-compile] [--json]; validate [--dir D]
-           [--window N] [--max-median-factor X] [--json]
+           [--device cuda|cpu] [--matrix] [--no-compile] [--json]; validate
+           [--dir D] [--window N] [--max-median-factor X] [--json]
+  matrix   the scenario matrix: run --config PATH [--attacks A,..]
+           [--defenses D,..] [--seeds S,..] [--rounds N] [--chunk K]
+           [--sweep-dir DIR] [--sweep-id ID] [--resume] [--device cuda|cpu]
+           (--mesh, the cell axis across GPUs, is refused: item 14);
+           status [--dir D] [--sweep-id ID] [--json]
 """
 
 
@@ -484,6 +489,15 @@ def hotspots_main(argv=None) -> int:
     return _hotspots_main(list(sys.argv[1:] if argv is None else argv))
 
 
+def matrix_main(argv=None) -> int:
+    """``matrix``: the scenario matrix (JAX cli.py:676-683): ``run``
+    runs a whole (attack × defense × seed) grid on one device, ``status``
+    renders the sweep's per-cell ledger records."""
+    from attackfl_tpu_torch.matrix.cli import main as _matrix_main
+
+    return _matrix_main(list(sys.argv[1:] if argv is None else argv))
+
+
 def cost_main(argv=None) -> int:
     """``cost``: price a config without running it (``estimate``) and
     replay the predictor over a ledger corpus (``validate``) (JAX
@@ -495,7 +509,7 @@ def cost_main(argv=None) -> int:
 
 _SUBCOMMANDS = {"run": run_main, "server": server_main, "client": client_main,
                "metrics": metrics_main, "watch": watch_main, "hotspots": hotspots_main,
-               "cost": cost_main}
+               "cost": cost_main, "matrix": matrix_main}
 
 
 def main(argv=None) -> int:

@@ -103,6 +103,12 @@ _TRANSCENDENTAL = frozenset({
 _ACTIVE: list["ProgramCounter"] = []
 
 
+def counting() -> bool:
+    """True inside a counted dispatch: its ops must dispatch one by one to
+    be counted, so a captured graph is not replayed there."""
+    return bool(_ACTIVE)
+
+
 _FORMULAS: dict = {}
 
 

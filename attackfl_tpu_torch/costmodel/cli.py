@@ -12,7 +12,10 @@ instead.  A program that reads a value from its tensors (the γ-search
 attacks, hyper mode's update) cannot be counted without running and is
 left out of the profile, as JAX leaves out a program whose compile
 raises; with none counted the config is unpredictable.  ``--matrix``
-(the grid of a sweep) is refused: the matrix is ROADMAP item 15.
+prices the config's ``matrix:`` grid cell by cell, as JAX's does: each
+cell's standalone config by its peers, the first peerless cell's counted
+profile standing for its siblings, and the sum as the sweep's serial
+bound.
 
 ``validate`` is the accuracy contract: leave-one-out replay of the
 predictor over a ledger corpus, exit 1 when the median symmetric error
@@ -139,19 +142,50 @@ def estimate_main(args) -> int:
     from attackfl_tpu_torch.config import load_config
     from attackfl_tpu_torch.utils.fingerprint import config_fingerprint
 
-    if args.matrix:
-        print("cost estimate --matrix prices a sweep's grid, and the matrix is not "
-              "ported yet (ROADMAP.md queue 1, item 15)", file=sys.stderr)
-        return 2
     cfg = load_config(args.config)
     if args.rounds is not None:
         cfg = cfg.replace(num_round=args.rounds)
     records, directory = _load_records(args.dir)
     out: dict[str, Any] = {"ledger": directory,
                            "ledger_records": len(records)}
-    estimate = _estimate_one(records, config_fingerprint(cfg), cfg.num_round, cfg,
-                             not args.no_compile, args.device)
-    out.update(estimate)
+
+    if args.matrix:
+        import yaml
+
+        from attackfl_tpu_torch.matrix.grid import cell_config, expand_cells, grid_from_dict
+
+        with open(args.config) as fh:
+            raw = yaml.safe_load(fh) or {}
+        grid = grid_from_dict(dict(raw.get("matrix") or {}))
+        per_cell = []
+        total = 0.0
+        predictable = 0
+        for cell in expand_cells(grid):
+            ccfg = cell_config(cfg, cell, rounds=grid.rounds)
+            estimate = _estimate_one(
+                records, config_fingerprint(ccfg), grid.rounds,
+                # the cells share the round's shapes, so the FIRST peerless
+                # cell's profile prices its siblings too (flops differ only
+                # by the defense, second-order)
+                ccfg if predictable == 0 else None, not args.no_compile, args.device)
+            estimate["cell"] = cell.key
+            per_cell.append(estimate)
+            wall = estimate.get("predicted_wall_seconds")
+            if wall is not None:
+                total += wall
+                predictable += 1
+        out.update({
+            "grid": grid.describe(),
+            "cells": per_cell,
+            "predictable_cells": predictable,
+            # serial bound: the sweep folds its device cells' training, so
+            # the real sweep lands at or under this
+            "predicted_sweep_wall_seconds_serial_bound": round(total, 3),
+        })
+    else:
+        estimate = _estimate_one(records, config_fingerprint(cfg), cfg.num_round, cfg,
+                                 not args.no_compile, args.device)
+        out.update(estimate)
 
     if args.json:
         print(json.dumps(out, indent=1))
@@ -163,6 +197,22 @@ def estimate_main(args) -> int:
 def format_estimate(out: dict[str, Any]) -> str:
     lines = [f"cost estimate — ledger {out['ledger']} "
              f"({out['ledger_records']} record(s))"]
+    if "cells" in out:
+        lines.append(
+            f"matrix grid: {out['grid']['n_cells']} cells x "
+            f"{out['grid']['rounds']} rounds")
+        for cell in out["cells"]:
+            wall = cell.get("predicted_wall_seconds")
+            lines.append(
+                f"  {cell['cell']:<32} "
+                + (f"{wall:>9.2f}s  [{cell.get('method')}]"
+                   if wall is not None else "unpredictable "
+                   "(no peer, no profile)"))
+        lines.append(
+            f"predicted sweep wall (serial bound): "
+            f"{out['predicted_sweep_wall_seconds_serial_bound']}s over "
+            f"{out['predictable_cells']} predictable cell(s)")
+        return "\n".join(lines)
     if out.get("method") == "unpredictable":
         lines.append(f"unpredictable: {out['reason']} (run once with "
                      "telemetry.ledger on, or drop --no-compile)")
@@ -240,8 +290,7 @@ def main(argv: list[str] | None = None) -> int:
     p_est.add_argument("--rounds", type=int, default=None,
                        help="override num-round for the wall prediction")
     p_est.add_argument("--matrix", action="store_true",
-                       help="price the config's matrix grid per cell (not ported "
-                            "yet, ROADMAP item 15)")
+                       help="price the config's matrix grid per cell")
     p_est.add_argument("--device", type=str, default="cuda",
                        help="device of the count without a run: cuda (default) "
                             "or cpu")

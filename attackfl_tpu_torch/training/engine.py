@@ -134,7 +134,7 @@ import torch
 
 from attackfl_tpu_torch.config import Config, parse_profile_rounds
 from attackfl_tpu_torch.costmodel.capture import count_program, warm
-from attackfl_tpu_torch.data.partition import dirichlet_label_partition, draw_round
+from attackfl_tpu_torch.data.partition import dirichlet_label_partition
 from attackfl_tpu_torch.data.synthetic import get_dataset
 from attackfl_tpu_torch.device import resolve_device
 from attackfl_tpu_torch.eval.validation import METRIC_KEYS, Validation
@@ -154,9 +154,8 @@ from attackfl_tpu_torch.telemetry.numerics import NumericsDrainer
 from attackfl_tpu_torch.telemetry.timing import RoundTimer
 from attackfl_tpu_torch.training.hyper import build_hyper_round, build_hyper_update
 from attackfl_tpu_torch.training.round import (
-    ROOT_SIZE, active_attack_modes, active_attacker_indices, attacking_groups,
-    build_aggregator, build_attack_groups, build_attribution_fn, build_round_step,
-    describe_attack_groups, leak_size,
+    active_attack_modes, active_attacker_indices, build_aggregator, build_attack_groups,
+    build_attribution_fn, build_round_step, describe_attack_groups, leak_size, round_drawer,
 )
 from attackfl_tpu_torch.utils import checkpoint as ckpt
 from attackfl_tpu_torch.utils.fingerprint import config_fingerprint
@@ -263,6 +262,74 @@ def host_filter(mode: str, stacked: dict, attacker_mask: np.ndarray,
     return keep, {"fltracer_anomalies": anomalies.tolist()}
 
 
+def validation_gate(cfg: Config, device: torch.device, validation: Validation | None
+                    ) -> Callable:
+    """``validate(b, train_ok, ok, loss, evaluate) -> (ok, metrics)``, the
+    fused body's validation gate (JAX engine.py:1856-1876): when the
+    broadcast ``b`` is due, ``evaluate()`` starts the evaluation (no
+    sync), its ``ok`` gates the round and a train-failed round reports
+    NaN metrics; a skipped broadcast reports NaN metrics and carries no
+    gate.  The metrics hold ``train_loss`` and ``ok``."""
+    val_every = cfg.validation_every
+    metric_keys = METRIC_KEYS[cfg.data_name] if validation is not None else ()
+    nan = torch.full((), float("nan"), device=device)
+
+    def validate(b: int, train_ok, ok, loss, evaluate: Callable):
+        metrics = {"train_loss": loss}
+        if validation is not None:
+            if b % val_every == 0:
+                ev = dict(evaluate())
+                ok = ok & ev.pop("ok")
+                metrics.update({k: torch.where(train_ok, v, nan) for k, v in ev.items()})
+            else:
+                metrics.update({k: nan for k in metric_keys})
+        metrics["ok"] = ok
+        return ok, metrics
+
+    return validate
+
+
+def build_plain_tail(cfg: Config, device: torch.device, aggregate: Callable,
+                     validation: Validation | None,
+                     numerics_step: Callable | None = None) -> Callable:
+    """The rest of an aggregating mode's fused broadcast once its round
+    step has run: ``tail(state, b, draws, outputs) -> (state, metrics)``,
+    ``outputs`` the round step's ``(stacked, sizes, new_genuine, train_ok,
+    loss)`` at broadcast ``b`` (JAX engine.py:1877-1984, plain branch).
+    The aggregate over the clients that reported, ``ok`` (training ok,
+    some client reported, the validation gate), the accept by
+    ``torch.where`` and, with ``numerics_step``, the numerics row measured
+    against the accepted params.  The fused body and the scenario
+    matrix's cells (``matrix/program.py``) run this one function."""
+    validate = validation_gate(cfg, device, validation)
+    weights = torch.ones(cfg.total_clients, device=device)
+
+    def accept(flag, new, old):
+        return pt.tree_map(lambda n, o: torch.where(flag, n, o), new, old)
+
+    def tail(state: dict[str, Any], b: int, draws, outputs: tuple):
+        stacked, sizes, new_gen, train_ok, loss = outputs
+        params = state["global_params"]
+        # the clients that reported: a round where none did fails
+        round_mask = weights * (sizes > 0)
+        new_global = aggregate(params, stacked, sizes, round_mask, draws)
+        ok = train_ok & torch.any(round_mask > 0)
+        ok, metrics = validate(b, train_ok, ok, loss, lambda: validation.test_async(new_global))
+        new_state = dict(
+            state, global_params=accept(ok, new_global, params), prev_genuine=new_gen,
+            have_genuine=state["have_genuine"] | train_ok,
+            completed_rounds=state["completed_rounds"] + ok.to(torch.int64),
+            broadcasts=b)
+        if numerics_step is not None:
+            # measured against the ACCEPTED params, as the synchronous round
+            new_state["numerics"], metrics["numerics_row"] = numerics_step(
+                state["numerics"], params, new_state["global_params"], stacked, sizes, loss,
+                ok, b)
+        return new_state, metrics
+
+    return tail
+
+
 class Simulator:
     """End-to-end federated simulation of one Config on one device."""
 
@@ -341,6 +408,9 @@ class Simulator:
                                       self.logger, telemetry=self.telemetry)
                            if cfg.validation else None)
         self.num_params = sum(x.numel() for x in self.model.parameters())
+        self._drawer = round_drawer(cfg, self.attack_groups, len(self.genuine_idx),
+                                    self.pool_size, self.num_params,
+                                    self.test_data["label"].shape[0], self.client_pools)
         self.is_hyper = cfg.mode == "hyper"
         self.detector = None
         if self.is_hyper:
@@ -417,6 +487,9 @@ class Simulator:
         self._stop_reason: str | None = None
         self._depth_resolved: int | None = None
         self._depth_info: dict[str, Any] | None = None
+        # extra run_header fields a wrapping executor records (the matrix
+        # stamps its fallback cells' runs with sweep_id and cell, schema v7)
+        self.header_extra: dict[str, Any] = {}
 
     # ------------------------------------------------------------------
     # state
@@ -653,7 +726,7 @@ class Simulator:
             config=dataclasses.asdict(self.cfg),
             **({"monitor_port": int(self.monitor.port)}
                if self.monitor is not None and self.monitor.port is not None else {}),
-            **depth)
+            **depth, **self.header_extra)
         if self._resume_info is not None:
             # the boundary the resumed run continues from: its own round
             # events start at round + 1
@@ -831,21 +904,10 @@ class Simulator:
                              f"{type(e).__name__}: {e}", "yellow")
 
     def draw_round(self, gen: torch.Generator, leak_pool: torch.Tensor | None = None):
-        """One round's draws; ``leak_pool``: under hyper mode's detector,
-        the active genuine positions, drawn with replacement (JAX
-        hyper.py:138-164)."""
-        lo, hi = self.cfg.num_data_range
-        firing = attacking_groups(self.attack_groups)
-        return draw_round(
-            gen, num_clients=self.cfg.total_clients, pool_size=self.pool_size,
-            lo=lo, hi=hi, epochs=self.cfg.epochs, num_genuine=len(self.genuine_idx),
-            leak_groups=[len(g.indices) for g in firing], leak_k=self.leak_k,
-            client_pools=self.client_pools, dropout_rate=self.cfg.client_dropout_rate,
-            noise_groups=[len(g.indices) for g in firing if g.mode == "Random"],
-            num_params=self.num_params, quantize=self.cfg.mode == "scionfl",
-            root_size=(min(ROOT_SIZE, self.test_data["label"].shape[0])
-                       if self.cfg.mode == "FLTrust" else 0),
-            leak_pool=leak_pool)
+        """One round's draws (``training/round.round_drawer``);
+        ``leak_pool``: under hyper mode's detector, the active genuine
+        positions, drawn with replacement (JAX hyper.py:138-164)."""
+        return self._drawer(gen, leak_pool)
 
     def _drawn_round_step(self, params, prev_genuine, have_genuine, rng: torch.Generator,
                           broadcast_number: int, active_mask=None, leak_pool=None):
@@ -1262,86 +1324,52 @@ class Simulator:
         (JAX engine.py:1925-1981)."""
         cfg = self.cfg
         validation = self.validation if include_eval else None
-        val_every = cfg.validation_every
-        metric_keys = METRIC_KEYS[cfg.data_name] if validation is not None else ()
-        nan = torch.full((), float("nan"), device=self.device)
         # the numerics row is computed in the body, carried in the state's
         # ring and returned as metrics["numerics_row"], which the chunk's
         # and the pipelined round's existing copies bring to the host
         numerics = self._numerics is not None
 
-        def accept(flag, new, old):
-            return pt.tree_map(lambda n, o: torch.where(flag, n, o), new, old)
-
-        def validate(b: int, train_ok, ok, loss, evaluate: Callable):
-            """The broadcast's metrics and its ok after the validation
-            gate; ``evaluate()`` starts the evaluation (no sync)."""
-            metrics = {"train_loss": loss}
-            if validation is not None:
-                if b % val_every == 0:
-                    ev = dict(evaluate())
-                    ok = ok & ev.pop("ok")
-                    metrics.update({k: torch.where(train_ok, v, nan) for k, v in ev.items()})
-                else:
-                    metrics.update({k: nan for k in metric_keys})
-            metrics["ok"] = ok
-            return ok, metrics
-
-        if self.is_hyper:
-            def body(state):
-                b = state["broadcasts"] + 1
-                draws = self.draw_round(state["rng"])
-                active = state["active_mask"]
-                hnet, opt = state["hnet_params"], state["hyper_opt_state"]
-                stacked, sizes, new_gen, train_ok, loss = self.round_step(
-                    hnet, state["prev_genuine"], state["have_genuine"], active, draws, b)
-                # dropped clients (size 0) skip their step
-                new_hnet, new_opt = self.hyper_update(hnet, opt, stacked, active * (sizes > 0))
-                ok, metrics = validate(
-                    b, train_ok, train_ok, loss,
-                    lambda: validation.test_hyper_async(self.hnet.generate_all(new_hnet)[0]))
-                # Adam's step count is a host int, so that its bias
-                # corrections are host floats: its select reads ok
-                count = new_opt["count"] if bool(ok) else opt["count"]
-                new_state = dict(
-                    state, hnet_params=torch.where(ok, new_hnet, hnet),
-                    hyper_opt_state={"count": count, "m": torch.where(ok, new_opt["m"], opt["m"]),
-                                     "v": torch.where(ok, new_opt["v"], opt["v"])},
-                    prev_genuine=new_gen, have_genuine=state["have_genuine"] | train_ok,
-                    completed_rounds=state["completed_rounds"] + ok.to(torch.int64),
-                    broadcasts=b)
-                if numerics:
-                    new_state["numerics"], metrics["numerics_row"] = self._numerics_step(
-                        state["numerics"], hnet, new_state["hnet_params"], stacked, sizes, loss,
-                        ok, b)
-                return new_state, metrics
-        else:
-            weights = torch.ones(cfg.total_clients, device=self.device)
+        if not self.is_hyper:
+            tail = build_plain_tail(cfg, self.device, self.aggregate, validation,
+                                    self._numerics_step if numerics else None)
 
             def body(state):
                 b = state["broadcasts"] + 1
                 draws = self.draw_round(state["rng"])
-                params = state["global_params"]
-                stacked, sizes, new_gen, train_ok, loss = self.round_step(
-                    params, state["prev_genuine"], state["have_genuine"], draws, b)
-                # the clients that reported: a round where none did fails
-                round_mask = weights * (sizes > 0)
-                new_global = self.aggregate(params, stacked, sizes, round_mask, draws)
-                ok = train_ok & torch.any(round_mask > 0)
-                ok, metrics = validate(b, train_ok, ok, loss,
-                                       lambda: validation.test_async(new_global))
-                new_state = dict(
-                    state, global_params=accept(ok, new_global, params), prev_genuine=new_gen,
-                    have_genuine=state["have_genuine"] | train_ok,
-                    completed_rounds=state["completed_rounds"] + ok.to(torch.int64),
-                    broadcasts=b)
-                if numerics:
-                    # measured against the ACCEPTED params, as the
-                    # synchronous round
-                    new_state["numerics"], metrics["numerics_row"] = self._numerics_step(
-                        state["numerics"], params, new_state["global_params"], stacked, sizes,
-                        loss, ok, b)
-                return new_state, metrics
+                outputs = self.round_step(state["global_params"], state["prev_genuine"],
+                                          state["have_genuine"], draws, b)
+                return tail(state, b, draws, outputs)
+            return body
+
+        validate = validation_gate(cfg, self.device, validation)
+
+        def body(state):
+            b = state["broadcasts"] + 1
+            draws = self.draw_round(state["rng"])
+            active = state["active_mask"]
+            hnet, opt = state["hnet_params"], state["hyper_opt_state"]
+            stacked, sizes, new_gen, train_ok, loss = self.round_step(
+                hnet, state["prev_genuine"], state["have_genuine"], active, draws, b)
+            # dropped clients (size 0) skip their step
+            new_hnet, new_opt = self.hyper_update(hnet, opt, stacked, active * (sizes > 0))
+            ok, metrics = validate(
+                b, train_ok, train_ok, loss,
+                lambda: validation.test_hyper_async(self.hnet.generate_all(new_hnet)[0]))
+            # Adam's step count is a host int, so that its bias
+            # corrections are host floats: its select reads ok
+            count = new_opt["count"] if bool(ok) else opt["count"]
+            new_state = dict(
+                state, hnet_params=torch.where(ok, new_hnet, hnet),
+                hyper_opt_state={"count": count, "m": torch.where(ok, new_opt["m"], opt["m"]),
+                                 "v": torch.where(ok, new_opt["v"], opt["v"])},
+                prev_genuine=new_gen, have_genuine=state["have_genuine"] | train_ok,
+                completed_rounds=state["completed_rounds"] + ok.to(torch.int64),
+                broadcasts=b)
+            if numerics:
+                new_state["numerics"], metrics["numerics_row"] = self._numerics_step(
+                    state["numerics"], hnet, new_state["hnet_params"], stacked, sizes, loss,
+                    ok, b)
+            return new_state, metrics
         return body
 
     def _fused_body(self, include_eval: bool) -> Callable:

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import grad_and_value, vmap
 
+from attackfl_tpu_torch.costmodel.capture import counting
 from attackfl_tpu_torch.ops import fused_step
 from attackfl_tpu_torch.ops.pytree import (
     tree_broadcast, tree_items, tree_map, tree_ravel_stacked, unraveler,
@@ -157,21 +158,80 @@ def build_step_grad(model, data_name: str, template: dict,
     return vmap(grad_and_value(loss_of_row))
 
 
+class StepGraph:
+    """One minibatch step of ``segment`` clients (``build_step_grad``'s
+    ``step`` and the clip) captured in a CUDA graph, replayed for every segment of the
+    matrix's fold (``matrix/program.py``): the host issues one replay in
+    place of the step's ~200 launches.  The graph's inputs have the shapes
+    and strides of the eager call's (step ``j`` of ``[segment, nb, B,
+    ...]`` batches, the masks' ``[segment, rows, width]`` rows), so it
+    runs the kernels the eager call runs, and gives its bits: a replay
+    equals the eager step bit for bit on the H100 (``PERF.md``).
+    It is captured once, after two eager calls on a side stream (cuBLAS's
+    handle and workspace), with no host sync."""
+
+    def __init__(self, step: Callable, p: torch.Tensor, binputs, by: torch.Tensor,
+                 bmsk: torch.Tensor, masks, segment: int):
+        def like(x):
+            return torch.zeros((segment,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+
+        self.p = torch.zeros_like(p)
+        self.binputs = [like(x) for x in binputs]
+        self.by, self.bmsk = like(by), like(bmsk)
+        self.masks = None if masks is None else [like(m) for m in masks]
+        args = (self.p, tuple(x[:, 0] for x in self.binputs), self.by[:, 0], self.bmsk[:, 0],
+                *(() if self.masks is None else (self.masks,)))
+        current = torch.cuda.current_stream(p.device)
+        side = torch.cuda.Stream(p.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                step(*args)
+            self.graph = torch.cuda.CUDAGraph()
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.out = step(*args)
+            finally:
+                self.graph.capture_end()
+        current.wait_stream(side)
+
+    def __call__(self, p, binputs, by, bmsk, j: int, masks, rows: slice):
+        """The step of ``rows`` at step ``j``: its inputs copied into the
+        graph's, one replay; the outputs are the graph's own tensors."""
+        self.p.copy_(p)
+        for mine, x in zip(self.binputs, binputs):
+            mine[:, 0].copy_(x[rows, j])
+        self.by[:, 0].copy_(by[rows, j])
+        self.bmsk[:, 0].copy_(bmsk[rows, j])
+        if masks is not None:
+            for mine, m in zip(self.masks, masks):
+                mine.copy_(m[rows])
+        self.graph.replay()
+        return self.out
+
+
 def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], *,
                        epochs: int, batch_size: int, lr: float, clip_grad_norm: float,
                        dropout=None, compute_dtype: torch.dtype | None = None) -> Callable:
     """Batched local training of every client with torch autograd.
 
     Returns ``batched(params, idx [C, hi], mask [C, hi], perms [E, C, hi],
-    seed) -> (stacked_params [C, ...], ok [C] bool, loss [C])``, the
-    signature of ``ops/fused_step.build_fused_local_update``: per epoch the
-    PADDED index array is permuted by ``perms[e]`` and cut into nb fixed
-    minibatches (the tail padded with masked rows); dropout masks are keyed
-    on seed ``seed + e``; ``ok`` is False where any step's loss was not
-    finite; ``loss`` is the last epoch's mean over its nb steps.
-    ``params``: one tree, or a stacked tree with one row per client.
-    ``dropout``: the rates in the order of ``model.dropout_rates`` (None:
-    those); ``compute_dtype``: see :func:`make_loss_fn`."""
+    seed, clients=None) -> (stacked_params [C, ...], ok [C] bool, loss
+    [C])``, the signature of ``ops/fused_step.build_fused_local_update``:
+    per epoch the PADDED index array is permuted by ``perms[e]`` and cut
+    into nb fixed minibatches (the tail padded with masked rows); dropout
+    masks are keyed on seed ``seed + e``; ``ok`` is False where any step's
+    loss was not finite; ``loss`` is the last epoch's mean over its nb
+    steps.  ``params``: one tree, or a stacked tree with one row per
+    client.  ``dropout``: the rates in the order of ``model.dropout_rates``
+    (None: those); ``compute_dtype``: see :func:`make_loss_fn`.
+
+    The same call trains many runs' clients together (the scenario
+    matrix's fold, ``matrix/program.py``): ``seed`` a [C] tensor, each
+    row's run's draw, and ``clients`` [C] each row's client id within its
+    run.  The keys ``client_keys(seed + e, step, client)`` are elementwise,
+    so every row draws the masks of its own run, all rows' in one K3
+    launch a step."""
     rates = tuple(float(r) for r in (model.dropout_rates if dropout is None else dropout))
     B = batch_size
     clip = float(clip_grad_norm) if clip_grad_norm else 0.0
@@ -180,8 +240,10 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
     labels = labels_of(dataset, data_name)
     specs = model.mask_specs([(B,) + tuple(x.shape[1:]) for x in columns], rates)
     ndim = {n.replace(".", "/"): p.ndim for n, p in model.named_parameters()}
+    # the captured gradient step of a segment, by its row count (the card)
+    graphs: dict[int, StepGraph] = {}
 
-    def batched(params, idx, mask, perms, seed):
+    def batched(params, idx, mask, perms, seed, clients=None, segment=None):
         C, hi = idx.shape
         nb = -(-hi // B)
         pad = nb * B - hi
@@ -189,12 +251,46 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
         stacked = tree_broadcast(params, C) if leaf.ndim == ndim[path] else params
         template = tree_map(lambda x: x[0], stacked)
         unravel = unraveler(template)
-        step = build_step_grad(model, data_name, template, compute_dtype)
+        grad = build_step_grad(model, data_name, template, compute_dtype)
+
+        def step(*args):
+            # the clip's row norms are reductions over P whose split on the
+            # card depends on the row count below 16, so a segment clips
+            # its own rows, as its standalone call does
+            grads, loss = grad(*args)
+            return (clip_by_global_norm(grads, clip) if clip > 0.0 else grads), loss
+
+        def grad_rows(p, binputs, by, bmsk, j, masks):
+            """Step ``j``'s clipped gradients and losses: one call of
+            ``step`` for each ``segment`` rows (all rows at once when
+            None); on the card each segment's call replays one captured
+            graph."""
+            def args(r):
+                return (p[r], tuple(x[r, j] for x in binputs), by[r, j], bmsk[r, j],
+                        *(() if masks is None else ([m[r] for m in masks],)))
+            if segment is None or segment >= C:
+                return step(*args(slice(None)))
+            rows = [slice(i, i + segment) for i in range(0, C, segment)]
+            if p.is_cuda and not counting():
+                graph = graphs.get(segment)
+                if graph is None:
+                    graph = graphs[segment] = StepGraph(step, p[rows[0]], binputs, by, bmsk,
+                                                        masks, segment)
+                grads = torch.empty_like(p)
+                loss = torch.empty(C, dtype=p.dtype, device=p.device)
+                for r in rows:
+                    g, v = graph(p[r], binputs, by, bmsk, j, masks, r)
+                    grads[r].copy_(g)
+                    loss[r].copy_(v)
+                return grads, loss
+            parts = [step(*args(r)) for r in rows]
+            return torch.cat([g for g, _ in parts]), torch.cat([v for _, v in parts])
 
         p = tree_ravel_stacked(stacked)
         m, v = torch.zeros_like(p), torch.zeros_like(p)
         ok = torch.ones(C, dtype=torch.bool, device=idx.device)
-        clients = torch.arange(C, dtype=torch.int64, device=idx.device)
+        if clients is None:
+            clients = torch.arange(C, dtype=torch.int64, device=idx.device)
         loss_sum = None
         for e in range(epochs):
             bidx = F.pad(torch.gather(idx, 1, perms[e]), (0, pad)).reshape(C, nb, B)
@@ -207,12 +303,9 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
             loss_sum = torch.zeros(C, dtype=p.dtype, device=idx.device)
             for j in range(nb):
                 masks = step_masks(keys[j], specs)
-                batch = (tuple(x[:, j] for x in binputs), by[:, j], bmsk[:, j])
-                grads, loss = step(p, *batch, *(() if masks is None else (masks,)))
+                grads, loss = grad_rows(p, binputs, by, bmsk, j, masks)
                 ok &= torch.isfinite(loss)
                 loss_sum += loss
-                if clip > 0.0:
-                    grads = clip_by_global_norm(grads, clip)
                 adam_step_(p, m, v, grads, t0 + j + 1, lr)
         return tree_map(lambda x: x.contiguous(), unravel(p)), ok, loss_sum / nb
 

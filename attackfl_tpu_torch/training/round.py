@@ -44,7 +44,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from attackfl_tpu_torch.config import NONE_ATTACK, Config
-from attackfl_tpu_torch.data.partition import RoundDraws, apply_client_dropout
+from attackfl_tpu_torch.data.partition import RoundDraws, apply_client_dropout, draw_round
 from attackfl_tpu_torch.faults.inject import apply_nan_storm, build_client_fault_fn
 from attackfl_tpu_torch.ops import aggregators, attacks, fused_step
 from attackfl_tpu_torch.ops import pytree as pt
@@ -197,34 +197,57 @@ def scatter_attacks(stacked: dict, ok: torch.Tensor, groups: Sequence[AttackGrou
     return stacked, ok
 
 
-def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
-                     attack_groups: Sequence[AttackGroup],
-                     genuine_idx: Sequence[int]) -> Callable:
-    """Build ``round_step(global_params, prev_genuine, have_genuine, draws,
-    broadcast_number) -> (stacked, sizes, new_genuine, ok, mean_loss)``:
-    ``have_genuine`` a bool or a 0-dim bool tensor on the round's device,
-    ``ok`` and ``mean_loss`` 0-dim device tensors.  The step reads nothing
-    back from the card (on config 4's path; the γ searches and FLTrust's
-    root seed still do, ROADMAP.md item 3a).
-
-    ``train_data`` lies on the device the round runs on.  ``local_backend``
-    ``xla`` trains with torch autograd (``training/local.py``), ``pallas``
-    with the fused kernel (``ops/fused_step.py``), TransformerModel only.
-    Dropout is at the model's own rates (``model.dropout_rates``)."""
-    device = next(iter(train_data.values())).device
+def build_client_update(model, cfg: Config, train_data: dict[str, torch.Tensor]) -> Callable:
+    """Every client's local training of a round, ``batched(params, idx,
+    mask, perms, seed) -> (stacked, ok, losses)``: under ``local_backend``
+    ``xla`` torch autograd (``training/local.py``, which also trains many
+    runs' clients in one call), under ``pallas`` the fused kernel
+    (``ops/fused_step.py``), TransformerModel only.  Dropout is at the
+    model's own rates (``model.dropout_rates``)."""
     kw = dict(epochs=cfg.epochs, batch_size=cfg.batch_size, lr=cfg.lr,
               clip_grad_norm=cfg.clip_grad_norm)
     if cfg.local_backend == "xla":
         # dropout on wherever it runs, as the JAX package's xla path
-        batched_update = local.build_local_update(
+        return local.build_local_update(
             model, cfg.data_name, train_data,
             compute_dtype=local.resolve_compute_dtype(cfg.mesh.compute_dtype), **kw)
-    else:
-        # on the CPU the fused path trains with dropout off, as the JAX
-        # package's interpret path does: there it is a correctness path
-        dropout = (0.0, 0.0, 0.0) if device.type == "cpu" else model.dropout_rates
-        batched_update = fused_step.build_fused_local_update(
-            train_data, dropout=dropout, **kw)
+    # on the CPU the fused path trains with dropout off, as the JAX
+    # package's interpret path does: there it is a correctness path
+    device = next(iter(train_data.values())).device
+    dropout = (0.0, 0.0, 0.0) if device.type == "cpu" else model.dropout_rates
+    return fused_step.build_fused_local_update(train_data, dropout=dropout, **kw)
+
+
+@dataclass(frozen=True)
+class RoundHalves:
+    """The round step in its two halves (:func:`build_round_halves`):
+    ``prepare(draws, broadcast_number) -> (sizes, mask, kept)``, the
+    clients' sizes and sample masks after the stragglers and the plan's
+    forced dropout; ``train(global_params, draws, mask) -> (stacked, ok,
+    losses)``, the local update (``update``, :func:`build_client_update`);
+    ``finish(global_params, prev_genuine, have_genuine, draws,
+    broadcast_number, sizes, kept, trained) -> (stacked, sizes,
+    new_genuine, ok, mean_loss)``, the attacks, the NaN storm and the
+    leak pool.  The round step is ``finish`` of ``train`` of ``prepare``;
+    the scenario matrix calls ``train`` once for many runs' clients
+    (``matrix/program.py``)."""
+
+    prepare: Callable
+    train: Callable
+    finish: Callable
+    update: Callable
+
+
+def build_round_halves(model, cfg: Config, train_data: dict[str, torch.Tensor],
+                       attack_groups: Sequence[AttackGroup],
+                       genuine_idx: Sequence[int],
+                       update: Callable | None = None) -> RoundHalves:
+    """The halves of :func:`build_round_step` (:class:`RoundHalves`);
+    ``update`` is the local update to train with (default: a new
+    :func:`build_client_update`)."""
+    device = next(iter(train_data.values())).device
+    batched_update = update if update is not None else build_client_update(
+        model, cfg, train_data)
     genuine_arr = torch.as_tensor(list(genuine_idx), dtype=torch.int64, device=device)
     firing = attacking_groups(attack_groups)
     firing_rows = group_rows(firing, device)
@@ -232,13 +255,7 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
     forced_drop_fn = build_client_fault_fn(cfg.faults, cfg.total_clients, "dropout", device)
     nan_storm_fn = build_client_fault_fn(cfg.faults, cfg.total_clients, "nan_storm", device)
 
-    def round_step(global_params: dict, prev_genuine: dict,
-                   have_genuine: bool | torch.Tensor, draws: RoundDraws,
-                   broadcast_number: int):
-        # a host bool (the synchronous loop's) as the device flag the
-        # fused path carries: a fill, no copy from the host
-        if not isinstance(have_genuine, torch.Tensor):
-            have_genuine = torch.full((), bool(have_genuine), dtype=torch.bool, device=device)
+    def prepare(draws: RoundDraws, broadcast_number: int):
         sizes, mask, kept = draws.sizes, draws.mask, draws.kept
         if kept is not None:
             sizes, mask = apply_client_dropout(kept, sizes, mask)
@@ -248,8 +265,19 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
                 kept = torch.ones_like(sizes, dtype=torch.bool)
             kept = kept & ~forced_drop_fn(broadcast_number)
             sizes, mask = apply_client_dropout(kept, sizes, mask)
-        stacked, ok, losses = batched_update(
-            global_params, draws.idx, mask, draws.perms, draws.dropout_seed)
+        return sizes, mask, kept
+
+    def train(global_params: dict, draws: RoundDraws, mask: torch.Tensor):
+        return batched_update(global_params, draws.idx, mask, draws.perms, draws.dropout_seed)
+
+    def finish(global_params: dict, prev_genuine: dict, have_genuine: bool | torch.Tensor,
+               draws: RoundDraws, broadcast_number: int, sizes: torch.Tensor,
+               kept: torch.Tensor | None, trained: tuple):
+        # a host bool (the synchronous loop's) as the device flag the
+        # fused path carries: a fill, no copy from the host
+        if not isinstance(have_genuine, torch.Tensor):
+            have_genuine = torch.full((), bool(have_genuine), dtype=torch.bool, device=device)
+        stacked, ok, losses = trained
         stacked, ok = scatter_attacks(
             stacked, ok, firing, firing_rows, draws,
             fires=lambda grp: broadcast_number >= grp.attack_round,
@@ -280,7 +308,58 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
                                   fresh, prev_genuine)
         return stacked, sizes, new_genuine, train_ok, mean_loss
 
+    return RoundHalves(prepare=prepare, train=train, finish=finish, update=batched_update)
+
+
+def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
+                     attack_groups: Sequence[AttackGroup],
+                     genuine_idx: Sequence[int]) -> Callable:
+    """Build ``round_step(global_params, prev_genuine, have_genuine, draws,
+    broadcast_number) -> (stacked, sizes, new_genuine, ok, mean_loss)``:
+    ``have_genuine`` a bool or a 0-dim bool tensor on the round's device,
+    ``ok`` and ``mean_loss`` 0-dim device tensors.  The step reads nothing
+    back from the card (on config 4's path; the γ searches and FLTrust's
+    root seed still do, ROADMAP.md item 3a).  It is ``finish(train(...))``
+    of :func:`build_round_halves`.
+
+    ``train_data`` lies on the device the round runs on; the local update
+    is :func:`build_client_update`'s."""
+    halves = build_round_halves(model, cfg, train_data, attack_groups, genuine_idx)
+
+    def round_step(global_params: dict, prev_genuine: dict,
+                   have_genuine: bool | torch.Tensor, draws: RoundDraws,
+                   broadcast_number: int):
+        sizes, mask, kept = halves.prepare(draws, broadcast_number)
+        trained = halves.train(global_params, draws, mask)
+        return halves.finish(global_params, prev_genuine, have_genuine, draws,
+                             broadcast_number, sizes, kept, trained)
+
     return round_step
+
+
+def round_drawer(cfg: Config, attack_groups: Sequence[AttackGroup], num_genuine: int,
+                 pool_size: int, num_params: int, test_rows: int,
+                 client_pools: torch.Tensor | None = None) -> Callable:
+    """``draw(gen, leak_pool=None) -> RoundDraws``: one round's draws for
+    ``cfg`` (``data/partition.draw_round``), what the engine's
+    ``Simulator.draw_round`` draws; ``test_rows`` is the test set's size
+    (FLTrust's root set is its first ``ROOT_SIZE`` rows)."""
+    lo, hi = cfg.num_data_range
+    firing = attacking_groups(attack_groups)
+    leak_k = leak_size(cfg, num_genuine)
+
+    def draw(gen: torch.Generator, leak_pool: torch.Tensor | None = None) -> RoundDraws:
+        return draw_round(
+            gen, num_clients=cfg.total_clients, pool_size=pool_size,
+            lo=lo, hi=hi, epochs=cfg.epochs, num_genuine=num_genuine,
+            leak_groups=[len(g.indices) for g in firing], leak_k=leak_k,
+            client_pools=client_pools, dropout_rate=cfg.client_dropout_rate,
+            noise_groups=[len(g.indices) for g in firing if g.mode == "Random"],
+            num_params=num_params, quantize=cfg.mode == "scionfl",
+            root_size=min(ROOT_SIZE, test_rows) if cfg.mode == "FLTrust" else 0,
+            leak_pool=leak_pool)
+
+    return draw
 
 
 # FLTrust's root set: the first ROOT_SIZE test samples, trained at batch
@@ -357,6 +436,16 @@ def build_aggregator(model, cfg: Config,
     else:
         raise ValueError(f"Server mode '{mode}' is not valid.")
     return aggregate
+
+
+def build_defense_branches(model, cfg: Config, test_data: dict[str, torch.Tensor] | None,
+                           modes: Sequence[str]) -> list[Callable]:
+    """One aggregate per mode of ``modes`` (JAX ``build_defense_branches``,
+    round.py:516-531), each built by :func:`build_aggregator` under the base
+    config with only the mode swapped: the defense knobs (krum_f,
+    trim_ratio, byzantine_threshold) every standalone run of that mode
+    reads.  The scenario matrix calls a cell's branch directly."""
+    return [build_aggregator(model, cfg.replace(mode=mode), test_data) for mode in modes]
 
 
 def build_attribution_fn(model, cfg: Config,

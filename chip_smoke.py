@@ -169,10 +169,34 @@ no result line):
                  monitor's host ms a round; e. hyper config 2 (cut) with
                  numerics on and off: one row a round, the hypernetwork
                  and Adam state bit for bit.
+ 16. hotspot windows and the cost model -- see hotspots_phase;
+ 17. scenario matrix -- a. the sweep of LIE (z 0.74, from round 2) and
+                 none x fedavg, krum, median, FLTrust, gmm and hyper x
+                 seeds 1 and 2 on config 4 (cut) under xla, a chunk of 3
+                 (12 batched, 4 mapped, 4 host, 4 special cells; the 16
+                 device cells' clients trained in one folded local update
+                 a broadcast, 1,600 rows): every device cell's final state
+                 against run_fast of its cell_config and one gmm and one
+                 hyper cell against run, bit for bit, with the same ok
+                 sequences; b. K3 at the folded shape against its plain
+                 version bit for bit, its time beside its bound; its
+                 launches over the device cells equal to the fold's
+                 steps times its parts plus FLTrust's root steps; the
+                 chunk's host syncs, one besides FLTrust's root seeds;
+                 c. the sweep stopped by its hook after the first
+                 fallback cell and resumed: a's grid byte for byte, the
+                 completed fallback cell running zero rounds; d. 24
+                 ledger records sharing one sweep_id, the matrix and
+                 science events valid, `matrix status` and `cost
+                 estimate --matrix` exit 0; e. the device cells' sweep
+                 round against the sum of their standalone rounds, the
+                 folded update's host-issue and device-busy ms, the peak
+                 memory, the fallback groups' seconds.
 Each of phases 4-15 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.  The kernels record's
 launches are phase 4's main path's, phase 13a's pipelined runs', phase
-14a's runs with telemetry on and phase 15a's runs with numerics on.
+14a's runs with telemetry on, phase 15a's runs with numerics on, phase
+16a's windowed runs and phase 17a's sweep.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
 toolkit, imports nothing of JAX, and fails when run outside the repository.
@@ -215,6 +239,8 @@ from attackfl_tpu_torch.config import (  # noqa: E402
 from attackfl_tpu_torch.costmodel import cli as costcli  # noqa: E402
 from attackfl_tpu_torch.costmodel.peaks import H100  # noqa: E402
 from attackfl_tpu_torch.faults.plan import parse_fault_plan  # noqa: E402
+from attackfl_tpu_torch.matrix import program as matrix_program  # noqa: E402
+from attackfl_tpu_torch.matrix.grid import GridSpec, cell_config  # noqa: E402
 from attackfl_tpu_torch.data.partition import random_permutations  # noqa: E402
 from attackfl_tpu_torch.data.synthetic import get_dataset  # noqa: E402
 from attackfl_tpu_torch.device import resolve_device  # noqa: E402
@@ -232,6 +258,8 @@ from attackfl_tpu_torch.profile_round import CONFIG4, DEPTH, self_device_us  # n
 from attackfl_tpu_torch.profiler import mine  # noqa: E402
 from attackfl_tpu_torch.telemetry.events import validate_event  # noqa: E402
 from attackfl_tpu_torch.training import local  # noqa: E402
+from attackfl_tpu_torch.training import matrix_exec  # noqa: E402
+from attackfl_tpu_torch.training.matrix_exec import MatrixRun  # noqa: E402
 from attackfl_tpu_torch.training import engine  # noqa: E402
 from attackfl_tpu_torch.training.hyper import build_hyper_update  # noqa: E402
 from attackfl_tpu_torch.training import round as tround  # noqa: E402
@@ -3821,10 +3849,393 @@ def hotspots_phase(fixtures: str | None = None) -> dict:
     return dict(total)
 
 
+# phase 17: the scenario matrix on config 4 (cut) under xla, the grid of
+# the issue: LIE (z 0.74, from round 2) and `none` x fedavg, krum, median,
+# FLTrust, gmm, hyper (HyperNetwork, no detector) x seeds 1, 2, a chunk of
+# 3: 12 batched, 4 mapped, 4 host and 4 special cells
+MATRIX_ATTACKS = (AttackSpec(mode="LIE", num_clients=ATTACKERS, attack_round=2, args=(0.74,)),
+                  AttackSpec(mode="none", num_clients=ATTACKERS, attack_round=2))
+MATRIX_DEFENSES = ("fedavg", "krum", "median", "FLTrust", "gmm", "hyper")
+MATRIX_SEEDS, MATRIX_CHUNK = (1, 2), 3
+# FLTrust's root set, ROOT_SIZE test rows at ROOT_BATCH: K3 launches a
+# broadcast of an FLTrust cell, and the site of its one read (its seed)
+ROOT_STEPS = -(-tround.ROOT_SIZE // tround.ROOT_BATCH)
+ROOT_SEED_SITE = "attackfl_tpu_torch/data/partition.py"
+
+
+def matrix_base(root: str, **kw) -> Config:
+    """Config 4 (cut) under xla as a sweep's base: threefry, iid."""
+    return cut_config(local_backend="xla", prng_impl="threefry2x32", partition="iid",
+                      log_path=root, checkpoint_dir=root, **kw)
+
+
+def matrix_grid() -> GridSpec:
+    return GridSpec(attacks=MATRIX_ATTACKS, defenses=MATRIX_DEFENSES, seeds=MATRIX_SEEDS,
+                    rounds=ROUNDS[1], chunk=MATRIX_CHUNK)
+
+
+def matrix_sweep(base: Config, stop=None) -> dict:
+    """One sweep of ``matrix_grid`` on ``base``: its MatrixRun, final
+    params and histories, and what its chunks did: each chunk's seconds,
+    length, host syncs and their sites (under
+    ``torch.cuda.set_sync_debug_mode("warn")``), the K3 launches and the
+    allocator's peak at the end of the device cells, each fallback cell's
+    seconds, the sweep's K3 launches and wall seconds."""
+    sweep = MatrixRun(base, matrix_grid(), device="cuda")
+    chunks, fallback, marks = [], {}, {}
+    real_chunk, real_fallback = sweep._run_chunk, sweep._run_fallback_cells
+
+    def chunk(cells, states, n, histories):
+        t0 = time.perf_counter()
+        out, syncs, sites = count_syncs(lambda: real_chunk(cells, states, n, histories))
+        chunks.append({"seconds": time.perf_counter() - t0, "n": n, "cells": len(cells),
+                       "syncs": syncs, "sites": sites})
+        return out
+
+    def fallbacks(*args):
+        torch.cuda.synchronize()
+        marks["device_launches"] = tfs.fill_masks.launches
+        marks["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return real_fallback(*args)
+
+    real_sim = matrix_exec.Simulator
+
+    def timed_sim(cfg, device):
+        sim = real_sim(cfg, device=device)
+        for name in ("run", "run_fast"):
+            def timed(*a, _real=getattr(sim, name), **k):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*a, **k)
+                finally:
+                    fallback[cfg.mode] = fallback.get(cfg.mode, 0.0) + time.perf_counter() - t0
+            setattr(sim, name, timed)
+        return sim
+
+    sweep._run_chunk, sweep._run_fallback_cells = chunk, fallbacks
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(matrix_exec, "Simulator", timed_sim), \
+            contextlib.redirect_stdout(io.StringIO()):
+        params, histories = sweep.run(stop=stop, verbose=False)
+    wall = time.perf_counter() - t0
+    sweep.close()
+    return {"sweep": sweep, "params": params, "histories": histories, "chunks": chunks,
+            "fallback_s": fallback, "wall": wall, "launches": tfs.fill_masks.launches, **marks}
+
+
+def matrix_grid_state(out: dict) -> dict:
+    """A sweep's final grid as host values: every device cell's state
+    (``MatrixRun.host_state``), every fallback cell's final params."""
+    sweep = out["sweep"]
+    grid = sweep.host_state(sweep.state)
+    for cell in sweep.fallback_cells:
+        grid[cell.key] = {"params": out["params"].get(cell.key)}
+    return grid
+
+
+def first_difference(a, b, where: str = "") -> str | None:
+    """The first leaf where two host trees differ, and by how much."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or sorted(a) != sorted(b):
+            return f"{where}: keys differ"
+        for key in sorted(a):
+            found = first_difference(a[key], b[key], f"{where}/{key}")
+            if found:
+                return found
+        return None
+    if isinstance(a, torch.Tensor):
+        if not isinstance(b, torch.Tensor) or a.shape != b.shape or a.dtype != b.dtype:
+            return f"{where}: shape or dtype differ"
+        if torch.equal(a, b):
+            return None
+        gap = ((a.double() - b.double()).abs().max() if a.is_floating_point()
+               else (a != b).sum())
+        return f"{where}: max |diff| {float(gap):.3e}"
+    return None if a == b else f"{where}: {a!r} != {b!r}"
+
+
+def matrix_parity(base: Config, root: str, out: dict) -> dict:
+    """Phase 17 a: every device cell against ``run_fast`` of its
+    cell_config, one cell of each fallback group against ``run``: final
+    params (and for device cells the whole state, the generator's
+    included) bit for bit, the same ok sequence.  Returns the standalone
+    runs' seconds a round by cell."""
+    sweep, per_round = out["sweep"], {}
+    grid = sweep.host_state(sweep.state)
+    picked = {}
+    for cell in sweep.fallback_cells:
+        picked.setdefault(cell.group, cell)
+    for cell in sweep.device_cells + list(picked.values()):
+        directory = os.path.join(root, "alone", cell.key)
+        cfg = cell_config(base, cell, rounds=ROUNDS[1], log_path=directory,
+                          checkpoint_dir=directory, telemetry=TelemetryConfig(enabled=False))
+        sim = Simulator(cfg, device="cuda")
+        device_cell = cell.group in ("batched", "mapped")
+        with contextlib.redirect_stdout(io.StringIO()):
+            if device_cell:
+                state, history = sim.run_fast(state=sim.init_state(), chunk_size=MATRIX_CHUNK,
+                                              save_checkpoints=False, verbose=False)
+            else:
+                state, history = sim.run(state=sim.init_state(), save_checkpoints=False,
+                                         verbose=False)
+        sim.close()
+        if device_cell:
+            per_round[cell.key] = sum(h["chunk_seconds"] / h["chunk_len"] for h in history)
+            mine = dict(grid[cell.key])
+            mine.pop("failures")
+            diff = first_difference(mine, sim.host_state(dict(
+                state, completed_rounds=int(state["completed_rounds"]),
+                have_genuine=bool(state["have_genuine"]))))
+        else:
+            key = "hnet_params" if cell.group == "special" else "global_params"
+            diff = first_difference({"p": out["params"][cell.key]}, {"p": state[key]})
+        oks = [h["ok"] for h in history], [h["ok"] for h in out["histories"][cell.key]]
+        log(f"[matrix] {cell.key} ({cell.group}): the sweep's final "
+            f"{'state' if device_cell else 'params'} against its standalone "
+            f"{'run_fast' if device_cell else 'run'}: "
+            f"{'bit-equal' if diff is None else 'DIFFERENT at ' + diff}; ok {oks[1]}")
+        if diff is not None or oks[0] != oks[1]:
+            raise AssertionError(f"matrix {cell.key}: {diff}, ok {oks}")
+    return per_round
+
+
+def matrix_k3(base: Config, out: dict) -> dict:
+    """Phase 17 b: K3 at the folded shape against its plain version, bit
+    for bit (every device cell's rows keyed on its own seed), its time
+    beside its bound; the sweep's K3 launches against the fold's steps
+    and FLTrust's root.  Returns the K3 record's additions."""
+    sweep = out["sweep"]
+    C, cells = base.total_clients, len(sweep.device_cells)
+    R = C * cells
+    specs = [s for s in TransformerModel().mask_specs([(base.batch_size,)], STEP_RATES)]
+    seeds = torch.arange(cells, dtype=torch.int64, device="cuda").repeat_interleave(C) * 7919
+    keys = tfs.client_keys(seeds + 5, 3, torch.arange(C, device="cuda").repeat(cells))
+    before = tfs.fill_masks.launches
+    got = tfs.fill_masks(keys, specs)
+    torch.cuda.synchronize()
+    want = tfs.dropout_masks(keys, specs)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if tfs.fill_masks.launches != before + 1 or not all(torch.equal(g, w)
+                                                        for g, w in zip(got, want)):
+        raise AssertionError(f"K3 at the folded shape [{R}, ...] differs from dropout_masks")
+    ms = device_ms(lambda: tfs.fill_masks(keys, specs), reps=100)
+    t_bytes, t_ops = k3_bound_ms(R, specs)
+    bound = max(t_bytes, t_ops)
+    nb = -(-base.num_data_range[1] // base.batch_size)
+    fltrust = sum(len(out["histories"][c.key]) for c in sweep.device_cells
+                  if c.defense == "FLTrust")
+    expect = sweep.fold_calls * base.epochs * nb + fltrust * base.epochs * ROOT_STEPS
+    parts = -(-cells // sweep.cells_per_part)
+    log(f"[matrix] K3 at the folded shape: {len(specs)} tensors at {R} rows in one launch, "
+        f"bit-equal to dropout_masks; {ms * 1e3:.3f} us/launch against its bound "
+        f"{bound * 1e3:.3f} us ({tfs.mask_work(R, specs)['bytes'] / 1e6:.2f} MB at 3.35 "
+        f"TB/s; {t_ops * 1e3:.3f} us of int32 ops), {bound / ms:.1%} of the bound "
+        f"({card_line()})")
+    log(f"[matrix] K3 launches over the device cells: {out['device_launches']}; the fold "
+        f"dispatched {sweep.fold_calls} local updates ({parts} part(s) of at most "
+        f"{sweep.cells_per_part} cells a broadcast) x {base.epochs * nb} steps + {fltrust} "
+        f"FLTrust broadcasts x {base.epochs * ROOT_STEPS} root steps = {expect}; over the "
+        f"whole sweep {out['launches']}")
+    if out["device_launches"] != expect:
+        raise AssertionError(f"matrix K3 launches {out['device_launches']}, expected {expect}")
+    return {"max_abs_err": err, "folded_ms": ms, "folded_bound_ms": bound}
+
+
+def matrix_syncs(out: dict) -> None:
+    """Phase 17 b: the host syncs of the device cells' chunks: one read a
+    chunk, besides FLTrust's root seed (one a broadcast of each FLTrust
+    cell, ROADMAP item 3a); the first chunk that captures the gradient
+    step's graph among them."""
+    for chunk in out["chunks"]:
+        seed_reads = sum(n for site, n in chunk["sites"].items() if ROOT_SEED_SITE in site)
+        fltrust = sum(1 for c in out["sweep"].device_cells if c.defense == "FLTrust")
+        log(f"[matrix] a chunk of {chunk['n']} over {chunk['cells']} cells: "
+            f"{chunk['syncs']} host syncs, {seed_reads} of them FLTrust's root seed, at "
+            f"{dict(chunk['sites'])}")
+        if chunk["syncs"] - seed_reads != 1 or seed_reads != fltrust * chunk["n"]:
+            raise AssertionError(f"matrix syncs: {chunk['syncs']} in a chunk, "
+                                 f"{seed_reads} of them FLTrust's")
+
+
+def matrix_resume(base: Config, root: str, full: dict) -> dict:
+    """Phase 17 c: the sweep stopped by its hook at the boundary after the
+    first fallback cell, then resumed: the final grid equal to a's, the
+    completed fallback cell running zero rounds.  Returns the stopped
+    sweep's record (its chunk is a's without the cost model's count)."""
+    directory = os.path.join(root, "resume")
+    cfg = matrix_base(directory, telemetry=TelemetryConfig(costmodel=False))
+    consults = []
+
+    def stop(done):
+        return "drain" if len(consults) >= 3 else None
+
+    real = MatrixRun._consult_stop
+
+    def counted(self, hook, completed):
+        consults.append(completed)
+        return real(self, hook, completed)
+
+    with unittest.mock.patch.object(MatrixRun, "_consult_stop", counted):
+        first = matrix_sweep(cfg, stop=stop)
+    done = [k for k, h in first["histories"].items()
+            if k in {c.key for c in first["sweep"].fallback_cells}]
+    resumed = matrix_sweep(cfg.replace(resume=True))
+    zero = {k: len(resumed["histories"][k]) for k in done}
+    diff = first_difference(matrix_grid_state(full), matrix_grid_state(resumed))
+    log(f"[matrix] stopped by the hook ({first['sweep'].stop_reason}, interrupted "
+        f"{first['sweep'].interrupted}) after the fallback cells {done}; resumed: device "
+        f"chunks {[c['n'] for c in resumed['chunks']]}, the completed fallback cells' rounds "
+        f"{zero}; the final grid against a's: "
+        f"{'byte-equal' if diff is None else 'DIFFERENT at ' + diff}")
+    if (not first["sweep"].interrupted or not done or set(zero.values()) != {0}
+            or resumed["chunks"] or diff is not None):
+        raise AssertionError(f"matrix resume: done {done}, zero {zero}, diff {diff}")
+    return first
+
+
+def matrix_records(base: Config, root: str) -> None:
+    """Phase 17 d: the sweep's ledger records, its matrix and science
+    events, ``matrix status`` and ``cost estimate --matrix``."""
+    events = read_events(root)
+    records = [r for r in LedgerStore(os.path.join(root, "ledger")).load()[0]
+               if r.get("source") == "matrix"]
+    ids = {r["sweep_id"] for r in records}
+    bad = [(e["kind"], validate_event(e)) for e in events
+           if e["kind"] in ("matrix", "science") and validate_event(e)]
+    actions = Counter(e["action"] for e in events if e["kind"] == "matrix")
+    science = [e for e in events if e["kind"] == "science"]
+    log(f"[matrix] {len(records)} ledger records sharing {sorted(ids)}; matrix events "
+        f"{dict(actions)}, {len(science)} science event (leaderboard "
+        f"{[(e['defense'], e['rank']) for e in science[0]['leaderboard']] if science else None}"
+        f"); invalid {bad}")
+    if len(records) != len(MATRIX_DEFENSES) * 4 or len(ids) != 1 or bad or len(science) != 1:
+        raise AssertionError(f"matrix records {len(records)}, ids {ids}, invalid {bad}")
+    path = config4_yaml(os.path.join(root, "sweep.yaml"), "xla", root)
+    import yaml
+
+    with open(path) as fh:
+        doc = yaml.safe_load(fh)
+    doc["matrix"] = {"attacks": [{"mode": a.mode, "num-clients": a.num_clients,
+                                  "attack-round": a.attack_round, "args": list(a.args)}
+                                 for a in MATRIX_ATTACKS],
+                     "defenses": list(MATRIX_DEFENSES), "seeds": list(MATRIX_SEEDS),
+                     "rounds": ROUNDS[1], "chunk": MATRIX_CHUNK}
+    with open(path, "w") as fh:
+        yaml.safe_dump(doc, fh)
+    for argv in (["matrix", "status", "--dir", os.path.join(root, "ledger")],
+                 ["cost", "estimate", "--matrix", "--config", path, "--dir",
+                  os.path.join(root, "ledger"), "--no-compile"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        lines = buf.getvalue().splitlines()
+        log(f"[matrix] {' '.join(argv[:2])}: exit {rc}; {lines[0] if lines else ''}; "
+            f"{lines[-1] if lines else ''}")
+        if rc != 0:
+            raise AssertionError(f"{argv[:2]} exited {rc}")
+
+
+def fold_costs(base: Config, out: dict) -> None:
+    """Phase 17 e: one folded local update of every device cell (a
+    broadcast's): its host-issue ms (the call's host time) and its
+    device-busy ms (torch.profiler, the union of kernel intervals)."""
+    sweep = out["sweep"]
+    programs = [sweep.programs[c.key] for c in sweep.device_cells]
+    states = [sweep.state[c.key] for c in sweep.device_cells]
+    inputs = []
+    for prog, state in zip(programs, states):
+        gen = torch.Generator(device="cuda")
+        gen.set_state(state["rng"].get_state())
+        draws = prog.draw(gen)
+        inputs.append((draws, prog.halves.prepare(draws, state["broadcasts"] + 1)[1]))
+    params = [s["global_params"] for s in states]
+    fold = lambda: matrix_program.fold_train(sweep.update, params, inputs,  # noqa: E731
+                                             base.total_clients, sweep.cells_per_part)
+    replayed = fold()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(local, "counting", lambda: True):
+        eager = fold()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for (x, _, _), (y, _, _) in zip(eager, replayed)
+               for a, b in zip(tree_leaves(x), tree_leaves(y)))
+    t0 = time.perf_counter()
+    fold()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fold()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    log(f"[matrix] the folded local update of {len(programs)} cells (one broadcast): host "
+        f"issue {host_ms:.1f} ms with the gradient's graph replayed ({eager_ms:.1f} ms with "
+        f"it issued eagerly; the two bit-equal {same}), device busy "
+        f"{busy_us(device) / 1e3:.1f} ms over {len(device)} device rows ({card_line()})")
+    if not same:
+        raise AssertionError("matrix: the graph's replays differ from the eager step")
+
+
+def matrix_phase() -> dict:
+    """Phase 17: a-e on config 4 (cut).  Returns the K3 launches of a's
+    sweep and K3's folded-shape numbers."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_matrix_")
+    try:
+        marks = [time.perf_counter()]
+        base = matrix_base(root)
+        out = matrix_sweep(base)
+        sweep = out["sweep"]
+        groups = Counter(c.group for c in sweep.cells)
+        log(f"[matrix] sweep of {len(sweep.cells)} cells {dict(groups)} in {out['wall']:.1f} "
+            f"s: device chunks {[(c['n'], c['cells'], round(c['seconds'], 3)) for c in out['chunks']]}"
+            f" (n, cells, s; the first counts its program), fallback seconds "
+            f"{ {k: round(v, 3) for k, v in out['fallback_s'].items()} }; peak "
+            f"{out['peak_gib']:.3f} GiB; the batched and mapped groups trained folded (one "
+            f"K3 launch a step for {sweep.cells_per_part}-cell parts, the gradient a cell at "
+            f"a time: eager in a's counted chunk, one captured graph's replays after)")
+        finite = all(bool(torch.isfinite(x).all()) for params in out["params"].values()
+                     for x in (tree_leaves(params) if isinstance(params, dict) else [params]))
+        for label, prof in sweep._program_profiles.items():
+            log(f"[matrix] the cost model's {label}: {prof['flops'] / 1e9:.3f} GFLOP, "
+                f"{prof['bytes_accessed'] / 1e9:.3f} GB, {prof['rounds_per_dispatch']} rounds "
+                f"x {prof['cells']} cells, peak {prof['memory']['peak'] / 2 ** 30:.3f} GiB; "
+                f"counted on the first chunk's dispatch")
+        if not finite or len(out["histories"]) != len(sweep.cells) or \
+                list(sweep._program_profiles) != [f"matrix_chunk[{MATRIX_CHUNK}]"]:
+            raise AssertionError(f"matrix: params finite {finite}, cells run "
+                                 f"{len(out['histories'])}")
+        standalone = matrix_parity(base, root, out)
+        marks.append(time.perf_counter())
+        k3 = matrix_k3(base, out)
+        matrix_syncs(out)
+        marks.append(time.perf_counter())
+        stopped = matrix_resume(base, root, out)
+        matrix_syncs(stopped)
+        marks.append(time.perf_counter())
+        matrix_records(base, root)
+        marks.append(time.perf_counter())
+        chunk = stopped["chunks"][0]
+        log(f"[matrix] s/round of the {len(sweep.device_cells)} device cells: "
+            f"{chunk['seconds'] / chunk['n']:.4f} (c's chunk: no count, the graph captured in "
+            f"it), a's {out['chunks'][0]['seconds'] / out['chunks'][0]['n']:.4f} (its count, "
+            f"eager) against the sum of "
+            f"their standalone run_fast rounds {sum(standalone.values()) / ROUNDS[1]:.4f} "
+            f"({card_line()})")
+        fold_costs(base, out)
+        marks.append(time.perf_counter())
+        log("[phase 17] " + ", ".join(f"{k} {b - a:.1f} s" for k, a, b in
+                                      zip("abcde", marks, marks[1:])))
+    finally:
+        shutil.rmtree(root)
+    return {"launches": out["launches"], **k3}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     parser.add_argument("--only", type=int, default=None, metavar="PHASE",
-                        help="after the build, run only this phase of 12-16 and print no "
+                        help="after the build, run only this phase of 12-17 and print no "
                              "result line (a development run)")
     parser.add_argument("--fixtures", type=str, default=None, metavar="DIR",
                         help="write phase 16's golden traces for the CPU tests into DIR")
@@ -3851,7 +4262,8 @@ def main(argv=None) -> int:
 
     if args.only is not None:
         phase = {12: fused_phase, 13: pipeline_phase, 14: telemetry_phase,
-                 15: numerics_phase, 16: lambda: hotspots_phase(args.fixtures)}[args.only]
+                 15: numerics_phase, 16: lambda: hotspots_phase(args.fixtures),
+                 17: matrix_phase}[args.only]
         t0 = time.perf_counter()
         log(f"[only] phase {args.only}: launches {phase()} in {time.perf_counter() - t0:.1f} "
             f"s; no result line")
@@ -3885,11 +4297,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     hotspot_launches = hotspots_phase(args.fixtures)
     log(f"[hotspots and cost model] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    matrix = matrix_phase()
+    log(f"[scenario matrix] phase done in {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] += (pipeline_launches.get(k["name"], 0)
                           + telemetry_launches.get(k["name"], 0)
                           + numerics_launches.get(k["name"], 0)
                           + hotspot_launches.get(k["name"], 0))
+        if k["name"] == "dropout_mask":
+            k["launches"] += matrix["launches"]
+            k["max_abs_err"] = max(k["max_abs_err"], matrix["max_abs_err"])
     log(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -270,9 +270,45 @@ def test_the_cost_command_exits_as_jaxs(tmp_path, capsys):
         argv = ["estimate", "--config", str(config), "--dir", directory, "--no-compile",
                 "--json"]
         assert cost_cli.main(argv) == jcost_cli.main(argv) == 2
+    # --matrix prices the grid cell by cell: each cell with a peer in the
+    # ledger (a measured record of its standalone config), as JAX's
+    sweep = tmp_path / "sweep.yaml"
+    sweep.write_text("server: {num-round: 2, clients: 3, model: TransformerModel}\n"
+                     "matrix: {attacks: [LIE, none], attack-clients: 1, "
+                     "defenses: [fedavg, krum, gmm], seeds: [1, 2], rounds: 4}\n")
+    from attackfl_tpu_torch.config import load_config
+    from attackfl_tpu_torch.ledger.store import LedgerStore
+    from attackfl_tpu_torch.matrix.grid import cell_config, expand_cells, grid_from_dict
+    from attackfl_tpu_torch.utils.fingerprint import config_fingerprint
+
+    grid = grid_from_dict({"attacks": ["LIE", "none"], "attack-clients": 1,
+                           "defenses": ["fedavg", "krum", "gmm"], "seeds": [1, 2],
+                           "rounds": 4})
+    peers = LedgerStore(str(tmp_path / "peers"))
+    for i, cell in enumerate(expand_cells(grid)):
+        fingerprint = config_fingerprint(cell_config(load_config(str(sweep)), cell, rounds=4))
+        peers.append({"ledger_schema": 1, "ts": 1.0 + i, "source": "run",
+                      "fingerprint": fingerprint, "rounds": 4,
+                      "round_device_time": 0.25 + 0.01 * i, "host_resolution_latency": 0.05})
     capsys.readouterr()
-    assert cli.main(["cost", "estimate", "--config", str(config), "--matrix"]) == 2
-    assert "item 15" in capsys.readouterr().err
+    for directory in (str(tmp_path / "peers"), str(empty)):
+        argv = ["estimate", "--matrix", "--config", str(sweep), "--dir", directory,
+                "--no-compile", "--json"]
+        ours = cost_cli.main(argv)
+        our_out = capsys.readouterr().out
+        assert ours == jcost_cli.main(argv) == 0
+        theirs = capsys.readouterr().out
+        if directory == str(empty):
+            # peerless cells: the port says why, JAX does not
+            our_out = json.dumps({**json.loads(our_out), "cells": [
+                {k: v for k, v in c.items() if k != "reason"}
+                for c in json.loads(our_out)["cells"]]})
+            theirs = json.dumps(json.loads(theirs))
+        assert json.loads(our_out) == json.loads(theirs)
+    argv = ["estimate", "--matrix", "--config", str(sweep), "--dir", str(tmp_path / "peers")]
+    assert cost_cli.main(argv) == jcost_cli.main(argv) == 0
+    text = capsys.readouterr().out.split("cost estimate")
+    assert text[1] == text[2] and "predicted sweep wall (serial bound)" in text[1]
 
 
 def test_the_cost_command_prices_a_config(tmp_path, capsys, costmodel_on, monkeypatch):
