@@ -15,7 +15,10 @@ section.
 ``metrics`` summarizes a run's ``events.jsonl``, ``watch`` polls a live
 run's monitor (``--monitor``), ``hotspots`` mines a run's profiling
 windows and ``cost`` prices a config from the ledger, as the JAX
-package's commands do.
+package's commands do.  ``audit`` checks the port's invariants (the AST
+rules, the committed event files, the round programs), ``ledger`` queries
+and gates the cross-run records and ``science`` ranks a sweep's defenses,
+with the JAX package's output and exit codes.
 """
 
 from __future__ import annotations
@@ -61,6 +64,16 @@ commands:
            [--sweep-dir DIR] [--sweep-id ID] [--resume] [--device cuda|cpu]
            (--mesh, the cell axis across GPUs, is refused: item 14);
            status [--dir D] [--sweep-id ID] [--json]
+  audit    the AST rules, the committed event files and the round programs
+           run once under a dispatch mode (--json, --skip-programs,
+           --retrace, --rules R.., --device cuda|cpu; --skip-sharded is
+           accepted; --grad is refused: item 16e)
+  ledger   the cross-run ledger: list [--sweep ID] [--json], show ID,
+           compare A [B], regress [ID] [--against ID] [--sweeps OLD NEW]
+           (exit 0 pass, 1 regression, 2 nothing to compare), import
+           FILE.. (--dir D)
+  science  a sweep's robustness leaderboard: leaderboard [--outcomes],
+           report [--out PATH], diff [OLD NEW] [--gate] (--dir D)
 """
 
 
@@ -507,9 +520,35 @@ def cost_main(argv=None) -> int:
     return _cost_main(list(sys.argv[1:] if argv is None else argv))
 
 
+def audit_main(argv=None) -> int:
+    """``audit``: the AST rules, the event-schema artifacts and the round
+    programs' invariants (JAX cli.py:741-756, ``analysis/cli.py``)."""
+    from attackfl_tpu_torch.analysis.cli import audit_main as _audit_main
+
+    return _audit_main(list(sys.argv[1:] if argv is None else argv))
+
+
+def ledger_main(argv=None) -> int:
+    """``ledger``: list, show, compare and gate the cross-run ledger's
+    records, and import bench artifacts (JAX cli.py:741-756,
+    ``ledger/cli.py``)."""
+    from attackfl_tpu_torch.ledger.cli import main as _ledger_main
+
+    return _ledger_main(list(sys.argv[1:] if argv is None else argv))
+
+
+def science_main(argv=None) -> int:
+    """``science``: a sweep's leaderboard, scoreboard and rank gate (JAX
+    cli.py:753, ``science/cli.py``)."""
+    from attackfl_tpu_torch.science.cli import main as _science_main
+
+    return _science_main(list(sys.argv[1:] if argv is None else argv))
+
+
 _SUBCOMMANDS = {"run": run_main, "server": server_main, "client": client_main,
                "metrics": metrics_main, "watch": watch_main, "hotspots": hotspots_main,
-               "cost": cost_main, "matrix": matrix_main}
+               "cost": cost_main, "matrix": matrix_main, "audit": audit_main,
+               "ledger": ledger_main, "science": science_main}
 
 
 def main(argv=None) -> int:

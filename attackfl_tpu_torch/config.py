@@ -396,6 +396,31 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
+def audit_config(scratch: str, **overrides: Any) -> Config:
+    """Representative CPU-sized config for the program audit
+    (``analysis/program_audit``) and the recompile guard (JAX
+    ``attackfl_tpu/config.py`` ``audit_config``).
+
+    Small enough to run each program in seconds on the CPU, yet it
+    exercises the full round: an active LIE attacker group, validation
+    (folded into the fused and pipelined bodies) and the default fedavg
+    aggregation.  Telemetry is off (an audit writes no event files and
+    starts no monitor) and logs and checkpoints go to ``scratch``, a
+    throwaway directory that the caller owns and removes.  Keyword
+    overrides replace any field (``mode="hyper"`` audits the
+    hypernetwork's programs)."""
+    base: dict[str, Any] = dict(
+        num_round=3, total_clients=4, mode="fedavg", model="CNNModel",
+        data_name="ICU", num_data_range=(48, 64), epochs=1, batch_size=32,
+        train_size=256, test_size=128,
+        attacks=(AttackSpec(mode="LIE", num_clients=1, attack_round=2),),
+        telemetry=TelemetryConfig(enabled=False),
+        log_path=scratch, checkpoint_dir=scratch,
+    )
+    base.update(overrides)
+    return Config(**base)
+
+
 def _get(d: dict, key: str, default: Any) -> Any:
     return d.get(key, default) if isinstance(d, dict) else default
 

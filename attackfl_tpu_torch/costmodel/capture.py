@@ -101,12 +101,27 @@ _TRANSCENDENTAL = frozenset({
 
 # the counters counting now, innermost last
 _ACTIVE: list["ProgramCounter"] = []
+# the op_by_op() blocks open now
+_OP_BY_OP: list[bool] = []
 
 
 def counting() -> bool:
-    """True inside a counted dispatch: its ops must dispatch one by one to
-    be counted, so a captured graph is not replayed there."""
-    return bool(_ACTIVE)
+    """True inside a counted dispatch or an :func:`op_by_op` block: ops
+    must dispatch one by one there to be seen, so a captured graph is not
+    replayed there."""
+    return bool(_ACTIVE or _OP_BY_OP)
+
+
+@contextmanager
+def op_by_op():
+    """Run the programs called inside op by op, as a counted dispatch
+    runs them (no captured graph's replay), for another dispatch mode that
+    must see every op (the program audit's)."""
+    _OP_BY_OP.append(True)
+    try:
+        yield
+    finally:
+        _OP_BY_OP.pop()
 
 
 _FORMULAS: dict = {}

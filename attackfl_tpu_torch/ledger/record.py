@@ -1,5 +1,6 @@
-"""Ledger record derivation: one run's events -> one cross-run record (the
-port's copy of ``attackfl_tpu/ledger/record.py:1-300``).
+"""Ledger record derivation: one run's events -> one cross-run record, and
+the bench backfill behind ``ledger import`` (the port's copy of
+``attackfl_tpu/ledger/record.py``).
 
 ``derive_record`` is pure post-processing over the run's written
 telemetry (this run's slice of ``events.jsonl`` and the tracer's spans):
@@ -26,6 +27,7 @@ remainder; the counted dispatch's own work stays in its round's spans.
 
 from __future__ import annotations
 
+import hashlib
 import os
 import subprocess
 from typing import Any
@@ -404,3 +406,191 @@ def validate_record(record: Any) -> list[str]:
         errors.append(f"ledger schema {schema} is newer than "
                       f"{LEDGER_SCHEMA_VERSION}; update the tooling")
     return errors
+
+
+# ---------------------------------------------------------------------------
+# bench backfill (`ledger import`)
+# ---------------------------------------------------------------------------
+
+def _bench_fingerprint(metric: str, variant: str, label: str) -> str:
+    """Baseline-matching key for bench records: same bench mode + variant
+    + workload label -> same fingerprint (the bench has no Config dict)."""
+    blob = f"{metric}|{variant}|{label}"
+    return "bench-" + hashlib.sha256(blob.encode()).hexdigest()[:12]
+
+
+def _bench_base(parsed: dict[str, Any], variant: str,
+                executor: str) -> dict[str, Any]:
+    metric = str(parsed.get("metric") or "")
+    detail = parsed.get("detail") if isinstance(parsed.get("detail"), dict) \
+        else {}
+    label = str(detail.get("config") or "")
+    return {
+        "ledger_schema": LEDGER_SCHEMA_VERSION,
+        "ts": parsed.get("ts"),
+        "source": "bench",
+        "run_id": None,
+        "executor": executor,
+        "resumed": False,
+        "fingerprint": _bench_fingerprint(metric, variant, label),
+        "bench_metric": metric,
+        "bench_variant": variant,
+        "config_label": label,
+        "rounds": 0,
+        "ok_rounds": 0,
+        "time_attribution": {},
+        "counts": {},
+        "final": {},
+    }
+
+
+def records_from_bench(parsed: dict[str, Any]) -> list[dict[str, Any]]:
+    """One bench metric line (or a ``BENCH_r0N.json`` wrapper with
+    a ``parsed`` field) -> ledger records.  Comparative bench modes yield
+    one record per measured variant so each variant gets its own baseline
+    trajectory.  Unrecognized/contentless lines yield []."""
+    if isinstance(parsed.get("parsed"), dict):
+        parsed = parsed["parsed"]
+    metric = str(parsed.get("metric") or "")
+    detail = parsed.get("detail") if isinstance(parsed.get("detail"), dict) \
+        else {}
+    if not metric:
+        return []
+    records: list[dict[str, Any]] = []
+
+    def rate_record(variant: str, executor: str,
+                    block: dict[str, Any]) -> dict[str, Any]:
+        record = _bench_base(parsed, variant, executor)
+        record["rounds_per_sec_steady"] = (
+            block.get("rounds_per_sec_steady")
+            or block.get("rounds_per_sec"))
+        if isinstance(block.get("rounds_per_sec_mean"), (int, float)):
+            record["rounds_per_sec_mean"] = block["rounds_per_sec_mean"]
+        if isinstance(block.get("per_rep"), list):
+            record["per_rep"] = block["per_rep"]
+        return record
+
+    if metric.startswith("fl_pipeline_vs_sync"):
+        for variant, executor in (("sync", "sync"),
+                                  ("pipelined_async_ckpt", "pipelined")):
+            block = detail.get(variant)
+            if isinstance(block, dict):
+                records.append(rate_record(variant, executor, block))
+    elif metric.startswith("fl_numerics_on"):
+        for variant in ("metrics_off", "metrics_on"):
+            block = detail.get(variant)
+            if isinstance(block, dict):
+                record = rate_record(variant, "pipelined", block)
+                if "overhead_pct" in detail:
+                    record["overhead_pct"] = detail["overhead_pct"]
+                records.append(record)
+    elif metric.startswith("fl_matrix_vs_serial"):
+        # one record per sweep variant so the serial and batched
+        # trajectories each get their own baseline
+        for variant, executor in (("serial", "fused"),
+                                  ("batched", "matrix")):
+            block = detail.get(variant)
+            if isinstance(block, dict):
+                record = rate_record(variant, executor, block)
+                record["wall_seconds"] = block.get("warm_wall_s")
+                record["cold_wall_s"] = block.get("cold_wall_s")
+                for key in ("speedup_cold", "speedup_warm",
+                            "compile_once_saving_s"):
+                    if key in detail:
+                        record[key] = detail[key]
+                records.append(record)
+    elif metric.startswith("fl_depth_sweep"):
+        # depth sweep: one record per measured depth so every
+        # k gets its own baseline trajectory — `pipeline_depth` rides the
+        # record, making depths non-peers for `ledger regress` exactly
+        # like engine-run records
+        by_depth = detail.get("by_depth")
+        if isinstance(by_depth, dict):
+            def depth_key(name: str) -> int:
+                return int(name) if str(name).lstrip("-").isdigit() else -1
+
+            for key in sorted(by_depth, key=depth_key):
+                block = by_depth[key]
+                if not isinstance(block, dict):
+                    continue
+                record = rate_record(f"depth{key}", "pipelined", block)
+                if depth_key(key) >= 0:
+                    record["pipeline_depth"] = depth_key(key)
+                    record["pipeline_depth_effective"] = depth_key(key)
+                if isinstance(detail.get("auto_pick"), dict):
+                    record["auto_pick"] = detail["auto_pick"]
+                records.append(record)
+    elif metric.startswith("fl_mesh_sweep"):
+        # mesh sweep: one record per (device count x
+        # workload) so every mesh size gets its own baseline trajectory
+        # — `mesh_devices` rides the record, making sizes non-peers for
+        # `ledger regress` exactly like engine-run records
+        by_devices = detail.get("by_devices")
+        if isinstance(by_devices, dict):
+            def dev_key(name: str) -> int:
+                return int(name) if str(name).isdigit() else -1
+
+            for key in sorted(by_devices, key=dev_key):
+                child = by_devices[key]
+                if not isinstance(child, dict):
+                    continue
+                for workload, executor in (("fused", "fused"),
+                                           ("matrix", "matrix")):
+                    block = child.get(workload)
+                    if not isinstance(block, dict):
+                        continue
+                    record = rate_record(f"{workload}@{key}dev", executor,
+                                         block)
+                    if dev_key(key) > 0:
+                        record["mesh_devices"] = dev_key(key)
+                    speedups = detail.get(f"{workload}_speedup")
+                    if isinstance(speedups, dict) and key in speedups:
+                        record["mesh_speedup"] = speedups[key]
+                    records.append(record)
+    elif metric.startswith("fl_contention"):
+        # contention bench: scheduler vs serialized dispatch
+        # over the same N-job mixed workload — one record per dispatch
+        # mode so each keeps its own baseline trajectory
+        for variant in ("serialized", "scheduler"):
+            block = detail.get(variant)
+            if not isinstance(block, dict):
+                continue
+            record = _bench_base(parsed, variant, "service")
+            record["wall_seconds"] = block.get("makespan_s_mean")
+            for key in ("mean_wait_s", "throughput_jobs_per_s",
+                        "preemptions", "jobs"):
+                if key in block:
+                    record[key] = block[key]
+            if isinstance(block.get("per_rep"), list):
+                record["per_rep"] = block["per_rep"]
+            if "throughput_ratio" in detail:
+                record["throughput_ratio"] = detail["throughput_ratio"]
+            records.append(record)
+    elif metric.startswith("fl_compile_cache"):
+        for variant in ("first_run", "warm_cache"):
+            block = detail.get(variant)
+            if not isinstance(block, dict):
+                continue
+            record = _bench_base(parsed, variant, "fused")
+            record["compile"] = {
+                "backend_compile_s": block.get("backend_compile_s"),
+                "cache_hits": block.get("cache_hits"),
+                "cache_misses": block.get("cache_misses"),
+                "seconds": block.get("backend_compile_s"),
+                "programs": 0,
+            }
+            records.append(record)
+    else:
+        # single-rate modes: fl_rounds_per_sec_100c / _configN /
+        # _1000c / fl_e2e_N — the headline value IS the rate
+        value = parsed.get("value")
+        if isinstance(value, (int, float)) and not isinstance(value, bool):
+            record = _bench_base(parsed, "headline", "fused")
+            record["rounds_per_sec_steady"] = value
+            for key in ("roc_auc_final", "roc_auc"):
+                best = detail.get(key)
+                if isinstance(best, (int, float)):
+                    record["final"] = {"roc_auc": best}
+                    break
+            records.append(record)
+    return records

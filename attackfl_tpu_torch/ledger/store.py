@@ -209,6 +209,16 @@ class LedgerStore:
                     skipped += 1
         return records, skipped
 
+    def get(self, record_id: str) -> dict[str, Any] | None:
+        """Full record by id; unambiguous id prefixes resolve too."""
+        records, _ = self.load()
+        for record in records:
+            if record.get("record_id") == record_id:
+                return record
+        matches = [r for r in records
+                   if str(r.get("record_id", "")).startswith(record_id)]
+        return matches[0] if len(matches) == 1 else None
+
     def records(self, fingerprint: str | None = None) -> list[dict[str, Any]]:
         """Every full record, or those of one config ``fingerprint``."""
         records, _ = self.load()

@@ -214,6 +214,17 @@ def auto_depth_from_records(records, fingerprint: str, window: int = 5
     }
 
 
+# What each round program consumes: the positions of the arguments it may
+# write in place (the JAX package donates them to XLA, JAX engine.py:614-636).
+# None: every program of the port leaves its inputs as they were, which
+# run_scan's contract, the pipeline's kept slot state and the synchronous
+# retry rely on.  analysis/program_audit checks it; the donation-after-use
+# rule reads this literal.
+DONATION_SPEC: dict[str, tuple[int, ...]] = {
+    "round_step": (), "aggregate": (), "generate_all": (), "hyper_update": (),
+    "fused_chunk": (), "pipeline_step": ()}
+
+
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md queue 1, {item})")
@@ -685,6 +696,78 @@ class Simulator:
         else:
             self.telemetry.counters.inc("reload_cache_hits")
         return dict(state, global_params=self._reload_cache[1])
+
+    # ------------------------------------------------------------------
+    # audit hooks (analysis/program_audit)
+    # ------------------------------------------------------------------
+
+    def donation_spec(self) -> dict[str, tuple[int, ...]]:
+        """The round programs' consumed arguments, by the JAX package's
+        program names (JAX ``donation_spec``, engine.py:614-636): each
+        entry of :data:`DONATION_SPEC` this mode runs, all empty."""
+        names = (("round_step", "generate_all", "hyper_update") if self.is_hyper
+                 else ("round_step", "aggregate")) + ("fused_chunk", "pipeline_step")
+        return {name: DONATION_SPEC[name] for name in names}
+
+    def audit_programs(self, state: dict[str, Any] | None = None) -> list[dict[str, Any]]:
+        """Every round program with example arguments, for the program
+        audit (JAX ``audit_programs``, engine.py:638-704): ``{name,
+        executor, fn, args, donate}`` per program, ``fn(*args)`` the
+        callable :meth:`_dispatch` runs under that program's label and
+        ``donate`` its :meth:`donation_spec` entry.  The JAX package's
+        names and executors: ``round_step`` and ``aggregate`` (or
+        ``hyper_update``), ``fused_chunk[2]`` (``run_scan``'s chunk of 2,
+        dispatched as ``fused_scan[2]``) and ``pipeline_step[eval=...]``
+        where :meth:`supports_fused`.
+
+        The arguments are those of the broadcast where every attacker
+        fires (a leak pool present), from ``state`` (default: a fresh
+        one).  Each program gets its own copy of the generator, so
+        nothing here advances ``state``'s; the second synchronous
+        program's inputs come from one unaudited call of the first."""
+        state = self._ensure_numerics_state(state if state is not None else self.init_state())
+        spec = self.donation_spec()
+        b = max([g.attack_round for g in self.attack_groups] or [1])
+        state = dict(state, have_genuine=True, broadcasts=b - 1)
+
+        def rng():
+            gen = torch.Generator(device=self.device)
+            gen.set_state(state["rng"].get_state())
+            return gen
+
+        programs: list[dict[str, Any]] = []
+        if self.is_hyper:
+            active = state["active_mask"].to(self.device)
+            args = (state["hnet_params"], state["prev_genuine"], True, rng(), b, active, None)
+            _, (stacked, sizes, *_) = self._drawn_round_step(*args[:3], rng(), *args[4:])
+            programs.append(dict(name="round_step", executor="sync",
+                                 fn=self._drawn_round_step, args=args,
+                                 donate=spec["round_step"]))
+            programs.append(dict(name="hyper_update", executor="sync", fn=self.hyper_update,
+                                 args=(state["hnet_params"], state["hyper_opt_state"],
+                                       stacked, active * (sizes > 0)),
+                                 donate=spec["hyper_update"]))
+        else:
+            args = (state["global_params"], state["prev_genuine"], True, rng(), b)
+            draws, (stacked, sizes, *_) = self._drawn_round_step(*args[:3], rng(), b)
+            weights = torch.ones(self.cfg.total_clients, device=self.device) * (sizes > 0)
+            programs.append(dict(name="round_step", executor="sync",
+                                 fn=self._drawn_round_step, args=args,
+                                 donate=spec["round_step"]))
+            programs.append(dict(name="aggregate", executor="sync", fn=self.aggregate,
+                                 args=(state["global_params"], stacked, sizes, weights, draws),
+                                 donate=spec["aggregate"]))
+        if self.supports_fused():
+            self._require_fused(state)
+            programs.append(dict(name="fused_chunk[2]", executor="fused",
+                                 fn=self._scan_chunk(2), args=(self._fused_state(state),),
+                                 donate=spec["fused_chunk"]))
+            include_eval = self.validation is not None and not self.cfg.validation_async
+            programs.append(dict(name=f"pipeline_step[eval={include_eval}]",
+                                 executor="pipelined", fn=self._fused_body(include_eval),
+                                 args=(self._fused_state(state),),
+                                 donate=spec["pipeline_step"]))
+        return programs
 
     # ------------------------------------------------------------------
     # telemetry
@@ -1415,6 +1498,19 @@ class Simulator:
             out.pop("numerics", None)
         return out
 
+    def _scan_chunk(self, num_broadcasts: int) -> Callable:
+        """The program of a chunk: ``chunk(carry) -> (carry, rows)``,
+        ``num_broadcasts`` calls of the fused body, one metrics row each."""
+        body = self._fused_body(include_eval=True)
+
+        def chunk(carry):
+            rows = []
+            for _ in range(num_broadcasts):
+                carry, metrics = body(carry)
+                rows.append(metrics)
+            return carry, rows
+        return chunk
+
     def run_scan(self, state: dict[str, Any], num_broadcasts: int
                  ) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
         """Run ``num_broadcasts`` broadcasts as device-side steps (JAX
@@ -1425,17 +1521,9 @@ class Simulator:
         previous params and the broadcast clock still advances, as in
         :meth:`run_round`.  The caller's ``state`` is left as it was."""
         self._require_fused(state)
-        body = self._fused_body(include_eval=True)
-
-        def chunk(carry):
-            rows = []
-            for _ in range(num_broadcasts):
-                carry, metrics = body(carry)
-                rows.append(metrics)
-            return carry, rows
-
         # the chunk is one program of num_broadcasts rounds (JAX engine.py:2016-2036)
-        carry, rows = self._dispatch(f"fused_scan[{num_broadcasts}]", chunk,
+        carry, rows = self._dispatch(f"fused_scan[{num_broadcasts}]",
+                                     self._scan_chunk(num_broadcasts),
                                      self._fused_state(state),
                                      rounds_per_dispatch=num_broadcasts)
         if "active_mask" in carry:

@@ -309,6 +309,7 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
                 adam_step_(p, m, v, grads, t0 + j + 1, lr)
         return tree_map(lambda x: x.contiguous(), unravel(p)), ok, loss_sum / nb
 
+    batched.graphs = graphs   # read by the recompile guard (analysis/retrace.py)
     return batched
 
 

@@ -247,6 +247,23 @@ class MatrixRun:
         """The grid state: every device cell's fresh state, by cell key."""
         return {c.key: self._cell_state(c) for c in self.device_cells}
 
+    def audit_programs(self, state: dict[str, dict[str, Any]] | None = None
+                       ) -> list[dict[str, Any]]:
+        """The sweep's program for the program audit, in
+        ``Simulator.audit_programs``'s form (JAX ``MatrixRun.audit_programs``,
+        matrix_exec.py:519-541): one sweep round of every device cell
+        (:meth:`_chunk` of 1, dispatched as ``matrix_chunk[1]``), from
+        ``state`` (default: a fresh grid) at the broadcast where every
+        attack fires, its leak pool present.  It consumes nothing."""
+        state = state if state is not None else self.init_state()
+        cells = list(self.device_cells)
+        b = max([a.attack_round for a in self.grid.attacks] or [1])
+        states = [dict(state[c.key], broadcasts=b - 1, have_genuine=torch.full(
+            (), True, dtype=torch.bool, device=self.device)) for c in cells]
+        return [dict(name=f"matrix_step[{len(cells)} cells]", executor="matrix",
+                     fn=lambda states: self._chunk(cells, states, 1), args=(states,),
+                     donate=())]
+
     @staticmethod
     def host_state(state: dict[str, dict[str, Any]]) -> dict[str, dict[str, Any]]:
         """The grid state as a checkpoint holds it: per cell the

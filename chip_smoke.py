@@ -191,12 +191,33 @@ no result line):
                  estimate --matrix` exit 0; e. the device cells' sweep
                  round against the sum of their standalone rounds, the
                  folded update's host-issue and device-busy ms, the peak
-                 memory, the fallback groups' seconds.
+                 memory, the fallback groups' seconds;
+ 18. audit, recompile guard, ledger and science -- a. each round
+                 program of config 4 (cut) under each backend
+                 (round_step, aggregate, fused_chunk[2],
+                 pipeline_step[eval=True]) and the sweep's program on a
+                 2 x 2 x 1 grid under xla, run once by the program audit
+                 on the card: no host sync (the dispatch mode's and
+                 set_sync_debug_mode's, with their sites), no float64
+                 output, no input written in place, K1 or K3 launched
+                 inside as many times as the program trains, its ms;
+                 b. the recompile guard over run, run_fast (chunks of 3)
+                 and the pipeline at depth 2 under each backend with the
+                 cost model on: nothing built, captured or loaded after
+                 the snapshot; c. two plain pallas runs and one with a
+                 hotspot window over rounds 2-3 into one ledger: `ledger
+                 list`, `show`, `compare`, `regress --against` the first
+                 (the plain run's exit recorded, the windowed run's 1
+                 naming rounds_per_sec); d. two sweeps of LIE and none x
+                 fedavg and median x seeds 1 and 2, 2 rounds: `ledger
+                 list --sweep`, `regress --sweeps`, `science
+                 leaderboard`, `report` and `diff --gate`, each exit 0;
+                 e. `audit --json --device cuda` on the tree: ok.
 Each of phases 4-15 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.  The kernels record's
 launches are phase 4's main path's, phase 13a's pipelined runs', phase
 14a's runs with telemetry on, phase 15a's runs with numerics on, phase
-16a's windowed runs and phase 17a's sweep.
+16a's windowed runs, phase 17a's sweep and phase 18's programs and runs.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
 toolkit, imports nothing of JAX, and fails when run outside the repository.
@@ -236,6 +257,7 @@ from attackfl_tpu_torch import cli, validate_kernels  # noqa: E402
 from attackfl_tpu_torch.config import (  # noqa: E402
     AttackSpec, Config, HyperDetectionConfig, MeshConfig, TelemetryConfig, load_config,
 )
+from attackfl_tpu_torch.analysis import program_audit, retrace  # noqa: E402
 from attackfl_tpu_torch.costmodel import cli as costcli  # noqa: E402
 from attackfl_tpu_torch.costmodel.peaks import H100  # noqa: E402
 from attackfl_tpu_torch.faults.plan import parse_fault_plan  # noqa: E402
@@ -4232,10 +4254,287 @@ def matrix_phase() -> dict:
     return {"launches": out["launches"], **k3}
 
 
+# phase 18: the audit, the recompile guard and the ledger and science
+# command lines.  a: the program audit at config 4 (cut) under each
+# backend, and the sweep's program on AUDIT_GRID; b: the guard over each
+# executor (GUARD_RUNS: the rounds before the snapshot, the rounds in all,
+# run_fast's chunk) and over a sweep of AUDIT_GRID's cells; c: the ledger
+# commands over two plain pallas runs and a run with the hotspot window
+# HOTSPOT_WINDOW; d: two sweeps of SCIENCE_GRID and the sweep views; e:
+# `audit --json --device cuda`
+AUDIT_GRID = dict(attacks=MATRIX_ATTACKS, defenses=("fedavg", "median"), seeds=(1,),
+                  rounds=2, chunk=1)
+SCIENCE_GRID = dict(attacks=MATRIX_ATTACKS, defenses=("fedavg", "median"), seeds=(1, 2),
+                    rounds=2, chunk=2)
+GUARD_RUNS = {"run": (1, 3, None), "run_fast": (3, 6, 3), "pipeline": (1, 3, None)}
+# the programs of config 4 that train, and what each trains: broadcasts
+AUDIT_TRAINS = {"round_step": 1, "aggregate": 0, "fused_chunk[2]": 2,
+                "pipeline_step[eval=True]": 1}
+
+
+def audit_programs_check(backend: str, root: str) -> dict:
+    """18a: every program of config 4 (cut) under ``backend`` audited on
+    the card: no sync, no float64, no input written in place, the
+    backend's kernel launched epochs (x steps) times a trained broadcast."""
+    cfg = cut_config(local_backend=backend, log_path=root, checkpoint_dir=root,
+                     telemetry=TelemetryConfig(enabled=False))
+    sim = Simulator(cfg, device="cuda")
+    reports = program_audit.audit_simulator(sim)
+    sim.close()
+    nb = -(-cfg.num_data_range[1] // cfg.batch_size)
+    per = cfg.epochs if backend == "pallas" else cfg.epochs * nb
+    kernel = BACKEND_KERNEL[backend]
+    total = Counter()
+    for r in reports:
+        d = r.to_dict()
+        total.update(r.launches)
+        log(f"[audit] {backend} {r.name}: {d['eqns']} ops, syncs {d['syncs']} "
+            f"{d['sync_sites']}, float64 outputs {d['f64_outputs']}, inputs written in place "
+            f"{sorted(r.writes)}, launches {r.launches}, {r.wall_ms:.1f} ms audited, "
+            f"{r.live_ms:.1f} ms as the card runs it")
+        expect = {k: 0 for k in KERNELS}
+        expect[kernel] = per * AUDIT_TRAINS[r.name]
+        if not r.ok or r.launches != expect:
+            raise AssertionError(f"audit {backend} {r.name}: problems {r.problems}, "
+                                 f"launches {r.launches}, expected {expect}")
+    if [r.name for r in reports] != list(AUDIT_TRAINS):
+        raise AssertionError(f"audit {backend}: programs {[r.name for r in reports]}")
+    return dict(total)
+
+
+def audit_controls() -> None:
+    """18a: the audit sees on the card what it must: a read of a value
+    (the dispatch mode's ``_local_scalar_dense`` and
+    ``set_sync_debug_mode``'s warning with its site, in the audited run
+    and in the run as the card runs it), and K1 writing its inputs p, m
+    and v in place from a ctypes launch, which no aten op shows (the
+    inputs' bitwise comparison).  Its K1 launch is a control's, not the
+    main path's: it is not counted in the kernels line."""
+    x = torch.ones(1024, device="cuda")
+    read = program_audit.audit_program("control .item()", "sync",
+                                       lambda t: (t * 2).sum().item(), (x,), device="cuda")
+    groups, batches, _ = kernel_inputs(4, 2, 16, masked_client=0)
+    m, v = tfs.zeros_like_groups(groups), tfs.zeros_like_groups(groups)
+    k1 = program_audit.audit_program(
+        "control K1", "sync", lambda p, m, v, b: tfs.run_epoch(p, m, v, b, 7, 0,
+                                                                **step_kwargs(STEP_RATES)),
+        (groups, m, v, batches), device="cuda")
+    written = {path.split("]")[0] + "]" for path in k1.writes}
+    log(f"[audit] control .item(): syncs {read.syncs}; control K1 epoch: {len(k1.writes)} "
+        f"input tensors written in place, in arguments {sorted(written)} (p, m, v), seen as "
+        f"{sorted({w.split(' @ ')[0] for w in k1.writes.values()})}, launches {k1.launches}")
+    card_syncs = [s for s in read.syncs if s.startswith("cuda sync")]
+    if (len(read.syncs) < 3 or sum(s.endswith("(graphs replayed)") for s in card_syncs) < 1
+            or len(card_syncs) < 2 or written != {"[0]", "[1]", "[2]"}
+            or k1.launches["fused_step"] != 1):
+        raise AssertionError(f"audit controls: syncs {read.syncs}, K1 writes {k1.writes}")
+
+
+def audit_sweep_check(root: str) -> dict:
+    """18a: the sweep's program on config 4 (cut) under xla, one sweep
+    round of AUDIT_GRID's device cells."""
+    base = matrix_base(root, telemetry=TelemetryConfig(enabled=False))
+    (r,) = program_audit.audit_matrix_program("cuda", base, GridSpec(**AUDIT_GRID))
+    d = r.to_dict()
+    log(f"[audit] xla {r.name}: {d['eqns']} ops, syncs {d['syncs']} {d['sync_sites']}, "
+        f"float64 outputs {d['f64_outputs']}, inputs written in place {sorted(r.writes)}, "
+        f"launches {r.launches}, {r.wall_ms:.1f} ms audited op by op, {r.live_ms:.1f} ms "
+        f"with its step graph captured and replayed")
+    nb = -(-base.num_data_range[1] // base.batch_size)
+    if not r.ok or r.launches != {"fused_step": 0, "dropout_mask": base.epochs * nb}:
+        raise AssertionError(f"audit {r.name}: problems {r.problems}, launches {r.launches}")
+    return r.launches
+
+
+def guard_check(backend: str, root: str) -> dict:
+    """18b: the recompile guard over each executor of config 4 (cut)
+    under ``backend``, the cost model on: nothing built, captured or
+    loaded after the snapshot."""
+    total = Counter()
+    for how, (first, rounds, chunk) in GUARD_RUNS.items():
+        directory = os.path.join(root, f"guard-{backend}-{how}")
+        cfg = cut_config(local_backend=backend, log_path=directory, checkpoint_dir=directory,
+                         pipeline_depth=TELEMETRY_DEPTH,
+                         telemetry=TelemetryConfig(ledger=False))
+        sim = Simulator(cfg, device="cuda")
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            problems = retrace.run_with_guard(sim, how, first, rounds, chunk_size=chunk)
+        wall = time.perf_counter() - t0
+        built = sorted(retrace.built_programs(sim))
+        sim.close()
+        launches = launch_counts()
+        total.update(launches)
+        log(f"[guard] {backend} {how}: snapshot after {first} round(s), {rounds} in all in "
+            f"{wall:.2f} s; built {built}; after the snapshot: {problems or 'nothing'}; "
+            f"launches {launches}")
+        require_kernel(f"guard {backend} {how}", cfg, launches, rounds)
+        if problems:
+            raise AssertionError(f"guard {backend} {how}: {problems}")
+    return dict(total)
+
+
+def guard_matrix_check(root: str) -> dict:
+    """18b: the recompile guard over a sweep of AUDIT_GRID's cells, 3
+    rounds in chunks of 1, on config 4 (cut) under xla with the cost model
+    off (a counted chunk dispatches op by op and captures no step graph):
+    the fold's step graph captured in round 1, nothing after."""
+    directory = os.path.join(root, "guard-matrix")
+    base = matrix_base(directory, telemetry=TelemetryConfig(costmodel=False, ledger=False))
+    sweep = MatrixRun(base, GridSpec(**dict(AUDIT_GRID, rounds=3)), device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        problems = retrace.run_matrix_with_guard(sweep)
+    wall = time.perf_counter() - t0
+    built = sorted(retrace.built_programs(sweep))
+    sweep.close()
+    launches = launch_counts()
+    nb = -(-base.num_data_range[1] // base.batch_size)
+    log(f"[guard] xla matrix: {len(sweep.device_cells)} cells, snapshot after 1 round, 3 in all "
+        f"in {wall:.2f} s; built {built}; after the snapshot: {problems or 'nothing'}; "
+        f"launches {launches}")
+    if (problems or not any(b.startswith("step_graph") for b in built)
+            or launches != {"fused_step": 0,
+                            "dropout_mask": sweep.fold_calls * base.epochs * nb}):
+        raise AssertionError(f"guard matrix: {problems}, built {built}, launches {launches}")
+    return launches
+
+
+def run_command(argv: list) -> tuple[int, str, float]:
+    """``python -m attackfl_tpu_torch <argv>`` in this process: exit code,
+    stdout and seconds."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def ledger_commands_check(root: str) -> dict:
+    """18c: two plain pallas runs and one with the hotspot window over
+    rounds 2-3, into one ledger; `ledger list|show|compare|regress`."""
+    ledger = os.path.join(root, "ledger")
+    total, ids = Counter(), []
+    for label, window in (("plain 1", ""), ("plain 2", ""), ("window", HOTSPOT_WINDOW)):
+        directory = os.path.join(root, label.replace(" ", ""))
+        cfg = cut_config(local_backend="pallas", log_path=directory, checkpoint_dir=directory,
+                         telemetry=TelemetryConfig(hotspots=window, ledger_dir=ledger))
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_config(cfg, f"ledger {label}")
+        total.update(launch_counts())
+        ids.append(LedgerStore(ledger).load()[0][-1]["record_id"])
+    first, second, windowed = ids
+    out = {}
+    for name, argv in (("list", ["list", "--json"]), ("show", ["show", second]),
+                       ("compare", ["compare", first, second, "--json"]),
+                       ("regress", ["regress", second, "--against", first, "--json"]),
+                       ("regress window", ["regress", windowed, "--against", first, "--json"])):
+        rc, text, seconds = run_command(["ledger", *argv, "--dir", ledger])
+        out[name] = (rc, text)
+        log(f"[ledger] {name}: exit {rc} in {seconds:.3f} s")
+    perf = json.loads(out["compare"][1])["perf"]
+    log("[ledger] compare plain 1 -> plain 2: " + ", ".join(
+        f"{k} {v.get('pct', '-')}%" for k, v in perf.items()))
+    for name in ("regress", "regress window"):
+        verdict = json.loads(out[name][1])
+        violations = "; ".join(f"{v['check']} ({v.get('baseline')} -> {v.get('candidate')})"
+                               for v in verdict["violations"])
+        log(f"[ledger] {name}: exit {out[name][0]}, {verdict['checks']} checks, rate "
+            f"threshold {verdict['rate_threshold_pct']}%, violations {violations or 'none'}")
+    listed = [e["record_id"] for e in json.loads(out["list"][1])]
+    window_checks = [v["check"] for v in json.loads(out["regress window"][1])["violations"]]
+    if (listed != ids or out["show"][0] != 0 or out["compare"][0] != 0
+            or out["regress"][0] not in (0, 1) or out["regress window"][0] != 1
+            or "rounds_per_sec" not in window_checks):
+        raise AssertionError(f"ledger commands: listed {listed}, exits "
+                             f"{ {k: v[0] for k, v in out.items()} }, window {window_checks}")
+    return dict(total)
+
+
+def science_commands_check(root: str) -> dict:
+    """18d: two sweeps of SCIENCE_GRID (config 4 cut, xla, the cost model
+    off) into one ledger; `ledger list --sweep`, `ledger regress
+    --sweeps`, `science leaderboard|report|diff --gate`."""
+    ledger = os.path.join(root, "ledger")
+    total = Counter()
+    for sweep_id in ("smoke-a", "smoke-b"):
+        base = matrix_base(os.path.join(root, sweep_id),
+                           telemetry=TelemetryConfig(costmodel=False, ledger_dir=ledger))
+        reset_launches()
+        t0 = time.perf_counter()
+        sweep = MatrixRun(base, GridSpec(**SCIENCE_GRID), sweep_id=sweep_id, device="cuda")
+        with contextlib.redirect_stdout(io.StringIO()):
+            sweep.run(save_checkpoints=False)
+        sweep.close()
+        total.update(launch_counts())
+        log(f"[science] sweep {sweep_id}: {len(sweep.cells)} cells in "
+            f"{time.perf_counter() - t0:.1f} s, launches {launch_counts()}")
+    report = os.path.join(root, "SCOREBOARD.json")
+    rcs = {}
+    for argv in (["ledger", "list", "--sweep", "smoke-a"],
+                 ["ledger", "regress", "--sweeps", "smoke-a", "smoke-b"],
+                 ["science", "leaderboard"], ["science", "report", "--out", report],
+                 ["science", "diff", "smoke-a", "smoke-b", "--gate"]):
+        rc, text, seconds = run_command([*argv, "--dir", ledger])
+        rcs[" ".join(argv[:2])] = rc
+        log(f"[science] {' '.join(argv)}: exit {rc} in {seconds:.3f} s")
+        for line in text.splitlines()[-4:]:
+            log(f"[science]   {line}")
+    with open(report) as fh:
+        board = json.load(fh)
+    if list(rcs.values()) != [0, 0, 0, 0, 0] or board["defenses"] != 2:
+        raise AssertionError(f"science commands: exits {rcs}, scoreboard {board['defenses']}")
+    return dict(total)
+
+
+def audit_command_check() -> None:
+    """18e: `audit --json --device cuda` on the tree."""
+    rc, text, seconds = run_command(["audit", "--json", "--device", "cuda"])
+    report = json.loads(text)
+    log(f"[audit] audit --json --device cuda: exit {rc} in {seconds:.1f} s, ok {report['ok']}, "
+        f"{len(report['findings'])} findings, programs "
+        + ", ".join(f"{p['name']} {p['syncs']} syncs {p['wall_ms']:.1f} ms"
+                    for p in report["programs"]))
+    if rc != 0 or not report["ok"]:
+        raise AssertionError(f"audit: exit {rc}, findings {report['findings'][:3]}")
+
+
+def audit_phase() -> dict:
+    """Phase 18: a-e.  Returns the kernels' launches in a's programs and
+    b-d's runs (not a's controls)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_audit_")
+    total = Counter()
+    try:
+        marks = [time.perf_counter()]
+        audit_controls()
+        for backend in ("pallas", "xla"):
+            total.update(audit_programs_check(backend, root))
+        total.update(audit_sweep_check(root))
+        marks.append(time.perf_counter())
+        for backend in ("pallas", "xla"):
+            total.update(guard_check(backend, root))
+        total.update(guard_matrix_check(root))
+        marks.append(time.perf_counter())
+        total.update(ledger_commands_check(root))
+        marks.append(time.perf_counter())
+        total.update(science_commands_check(root))
+        marks.append(time.perf_counter())
+        audit_command_check()
+        marks.append(time.perf_counter())
+        log("[phase 18] " + ", ".join(f"{k} {b - a:.1f} s" for k, a, b in
+                                      zip("abcde", marks, marks[1:])) + f" ({card_line()})")
+    finally:
+        shutil.rmtree(root)
+    return dict(total)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     parser.add_argument("--only", type=int, default=None, metavar="PHASE",
-                        help="after the build, run only this phase of 12-17 and print no "
+                        help="after the build, run only this phase of 12-18 and print no "
                              "result line (a development run)")
     parser.add_argument("--fixtures", type=str, default=None, metavar="DIR",
                         help="write phase 16's golden traces for the CPU tests into DIR")
@@ -4263,7 +4562,7 @@ def main(argv=None) -> int:
     if args.only is not None:
         phase = {12: fused_phase, 13: pipeline_phase, 14: telemetry_phase,
                  15: numerics_phase, 16: lambda: hotspots_phase(args.fixtures),
-                 17: matrix_phase}[args.only]
+                 17: matrix_phase, 18: audit_phase}[args.only]
         t0 = time.perf_counter()
         log(f"[only] phase {args.only}: launches {phase()} in {time.perf_counter() - t0:.1f} "
             f"s; no result line")
@@ -4300,11 +4599,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     matrix = matrix_phase()
     log(f"[scenario matrix] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    audit_launches = audit_phase()
+    log(f"[audit, guard, ledger and science] phase done in {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] += (pipeline_launches.get(k["name"], 0)
                           + telemetry_launches.get(k["name"], 0)
                           + numerics_launches.get(k["name"], 0)
-                          + hotspot_launches.get(k["name"], 0))
+                          + hotspot_launches.get(k["name"], 0)
+                          + audit_launches.get(k["name"], 0))
         if k["name"] == "dropout_mask":
             k["launches"] += matrix["launches"]
             k["max_abs_err"] = max(k["max_abs_err"], matrix["max_abs_err"])
