@@ -154,7 +154,6 @@ ALLOWED_FUNCTIONS: dict[str, dict[str, str]] = {
         "_gamma_search": "item 3a: the γ searches' while bool(torch.any(active))",
     },
     "data/partition.py": {
-        "draw_round": "item 3a: FLTrust's root_seed, drawn as a host int",
         "dirichlet_label_partition": "host numpy partitioning at build time",
     },
     "training/hyper.py": {

@@ -10,11 +10,17 @@ grad_programs, dataflow, transfer_budget, ok``).  Exit 0 when the tree is
 clean, 1 otherwise.
 
 ``--retrace`` also runs the recompile guard (it runs a few rounds on each
-executor, so it is opt-in).  Not ported yet, and said so in the report's
-rule table: the transform-safety auditor (``--grad``, refused; the
-``grad_programs`` and ``dataflow`` sections stay empty; ROADMAP.md queue 1,
-item 16e) and the sharded programs (``--skip-sharded`` is accepted; item
-14).
+executor, so it is opt-in).
+
+The transform-safety auditor runs by default whenever the programs do, as
+JAX's (``analysis/grad_audit.py``: the gradient of the post-defense damage
+objective, sync and fused, for each representative defense, and the
+double backward; ``analysis/dataflow.py``: the per-defense
+differentiability table).  ``--grad`` runs it even with
+``--skip-programs``; ``--skip-grad`` leaves it out.  Not ported yet, and
+said so in the report's rule table: the sharded programs and the mesh's
+gradient collectives (``--skip-sharded`` is accepted; ROADMAP.md queue 1,
+item 14).
 """
 
 from __future__ import annotations
@@ -25,19 +31,26 @@ import sys
 from typing import Any
 
 from attackfl_tpu_torch.analysis.findings import Finding, sort_findings
-from attackfl_tpu_torch.analysis.program_audit import GRAD_ITEM, SHARDED_ITEM
+from attackfl_tpu_torch.analysis.program_audit import SHARDED_ITEM
 from attackfl_tpu_torch.analysis.registry import AuditContext, describe_rules, run_rules
 
 REPORT_SCHEMA = 2
 
 
 def build_report(skip_programs: bool = False, retrace: bool = False,
-                 rule_ids: list[str] | None = None, device: str = "cuda") -> dict[str, Any]:
-    """Run the selected passes and assemble the audit report."""
+                 rule_ids: list[str] | None = None, device: str = "cuda",
+                 grad: bool | None = None) -> dict[str, Any]:
+    """Run the selected passes and assemble the audit report.  ``grad``
+    defaults to following the program audit (on unless ``skip_programs``);
+    True or False forces it either way."""
     ctx = AuditContext()
     findings: list[Finding] = run_rules(ctx, rule_ids)
     programs: list[dict[str, Any]] = []
+    grad_programs: list[dict[str, Any]] = []
+    dataflow_table: list[dict[str, Any]] = []
     budget: dict[str, Any] = {}
+    if grad is None:
+        grad = not skip_programs
     if not skip_programs:
         from attackfl_tpu_torch.analysis import program_audit
 
@@ -46,6 +59,12 @@ def build_report(skip_programs: bool = False, retrace: bool = False,
         programs = [r.to_dict() for r in reports]
         findings.extend(program_audit.reports_to_findings(reports))
         budget = program_audit.transfer_budget()
+    if grad:
+        from attackfl_tpu_torch.analysis.grad_audit import grad_report
+
+        document = grad_report(device=device)
+        grad_programs, dataflow_table = document["programs"], document["dataflow"]
+        findings.extend(Finding(**f) for f in document["findings"])
     if retrace:
         from attackfl_tpu_torch.analysis.retrace import guard_findings
 
@@ -57,34 +76,48 @@ def build_report(skip_programs: bool = False, retrace: bool = False,
         "rules": describe_rules(),
         "findings": [f.to_dict() for f in findings],
         "programs": programs,
-        "grad_programs": [],
-        "dataflow": [],
+        "grad_programs": grad_programs,
+        "dataflow": dataflow_table,
         "transfer_budget": budget,
         "ok": not findings,
     }
 
 
-def _format_program(p: dict[str, Any]) -> str:
+def _format_program(p: dict[str, Any], prefix: str = "program") -> str:
+    if p.get("skipped"):
+        return f"{prefix} {p['name']} [{p['executor']}]: SKIPPED — {p['skipped']}"
     status = "OK" if p["ok"] else "FAIL"
-    launches = ", ".join(f"{k} {v}" for k, v in p["launches"].items())
-    return (f"program {p['name']} [{p['executor']}, {p['device']}]: {status} — "
+    launches = ", ".join(f"{k} {v}" for k, v in p["launches"].items()) or "none"
+    return (f"{prefix} {p['name']} [{p['executor']}, {p['device']}]: {status} — "
             f"{p['eqns']} ops, syncs {p['syncs']}, f64 {p['f64_outputs']}, inputs "
-            f"written {p['aliased_leaves']} (consumed leaves {p['donated_leaves']}), "
-            f"launches {launches}, {p['wall_ms']:.1f} ms")
+            f"written {len(p['inplace_inputs'])} (consumed leaves {p['donated_leaves']}"
+            + (f", gradient tree {p['aliased_leaves']}/{p['expected_aliases']} leaves"
+               if prefix != "program" and p['donated_leaves'] else "")
+            + f"), launches {launches}, {p['wall_ms']:.1f} ms")
 
 
 def format_report(report: dict[str, Any]) -> str:
     lines = [Finding(**f).format() for f in report["findings"]]
     lines.extend(_format_program(p) for p in report["programs"])
+    lines.extend(_format_program(p, prefix="grad program")
+                 for p in report.get("grad_programs") or [])
+    for d in report.get("dataflow") or []:
+        cliffs = ",".join(sorted({c["primitive"] for c in d["cliffs"]}))
+        lines.append(
+            f"dataflow {d['name']}: {d['verdict']} — reachability "
+            f"{d['reachability']:.3f} ({d['live_eqns']}/{d['touched_eqns']} path ops), "
+            f"piecewise={','.join(d['piecewise']) or 'none'}, cliffs={cliffs or 'none'}")
     budget = report.get("transfer_budget") or {}
     if budget:
         lines.append(f"transfer budget: {budget['total']} audited host function(s), "
                      f"allowlist {'resolved' if budget['resolved'] else 'STALE'}")
-    lines.append(f"not ported yet: the grad audit and the dataflow table ({GRAD_ITEM}); "
-                 f"the sharded programs ({SHARDED_ITEM})")
+    lines.append(f"not ported yet: the sharded programs and their gradient collectives "
+                 f"({SHARDED_ITEM})")
     n = len(report["findings"])
     lines.append(f"audit: {len(report['rules'])} rule(s), {len(report['programs'])} "
-                 f"program(s), {n} finding(s) — {'OK' if report['ok'] else 'FAIL'}")
+                 f"program(s), {len(report.get('grad_programs') or [])} grad program(s), "
+                 f"{len(report.get('dataflow') or [])} dataflow verdict(s), "
+                 f"{n} finding(s) — {'OK' if report['ok'] else 'FAIL'}")
     return "\n".join(lines)
 
 
@@ -106,20 +139,24 @@ def audit_main(argv: list[str] | None = None) -> int:
                         help="accepted: the sharded programs are not ported yet "
                              f"({SHARDED_ITEM})")
     parser.add_argument("--grad", action="store_true",
-                        help=f"the transform-safety auditor: not ported yet ({GRAD_ITEM})")
+                        help="run the transform-safety auditor (the damage objectives' "
+                             "gradient and double-backward programs and the per-defense "
+                             "differentiability table): on by default whenever programs "
+                             "are audited; this flag forces it even with --skip-programs")
+    parser.add_argument("--skip-grad", action="store_true",
+                        help="skip the transform-safety auditor")
     parser.add_argument("--rules", nargs="*", default=None, metavar="RULE",
                         help="run only these rule ids (default: all)")
     args = parser.parse_args(list(sys.argv[1:] if argv is None else argv))
 
-    if args.grad:
-        print(f"audit --grad, the transform-safety auditor, is not ported yet ({GRAD_ITEM})",
-              file=sys.stderr)
-        return 2
-    if not args.skip_programs or args.retrace:
+    if args.grad and args.skip_grad:
+        parser.error("--grad and --skip-grad are mutually exclusive")
+    grad = True if args.grad else (False if args.skip_grad else None)
+    if not args.skip_programs or args.retrace or args.grad:
         from attackfl_tpu_torch.device import resolve_device
 
         resolve_device(args.device)
     report = build_report(skip_programs=args.skip_programs, retrace=args.retrace,
-                          rule_ids=args.rules, device=args.device)
+                          rule_ids=args.rules, device=args.device, grad=grad)
     print(json.dumps(report, indent=2) if args.json else format_report(report))
     return 0 if report["ok"] else 1

@@ -37,8 +37,10 @@ and ``pipeline_step[eval=...]``, and the sweep's ``matrix_chunk`` through
 Each program's K1 and K3 launches in the audited run (``ops/fused_step``'s
 counts) and its wall milliseconds (the host clock around the run, a device
 sync at each end on the card; ``live_ms`` for the second run on the card)
-are recorded beside them.  Program arguments are the
-engine's own; the run advances no generator the engine keeps.
+are recorded beside them, and on the card the allocator's peak over both
+runs (``peak_gib``; its peak statistic is reset before the audited run).
+Program arguments are the engine's own; the run advances no generator the
+engine keeps.
 """
 
 from __future__ import annotations
@@ -75,7 +77,6 @@ F64_HINT = (
     "keep round math in float32/bf16: find the promotion (a float64 numpy "
     "scalar, a .double(), torch.float64) and cast it explicitly")
 
-GRAD_ITEM = "ROADMAP.md queue 1, item 16e"
 SHARDED_ITEM = "ROADMAP.md queue 1, item 14"
 
 register_info(
@@ -85,14 +86,6 @@ register_info(
     "in-place write to an input outside Simulator.donation_spec(); the "
     f"sharded programs are skipped: not ported yet ({SHARDED_ITEM})",
     FORBIDDEN_HINT,
-)
-register_info(
-    "grad-audit",
-    "the transform-safety auditor (grad of the post-defense damage objective, "
-    f"the per-defense dataflow table) is not ported yet ({GRAD_ITEM}): the "
-    "report's grad_programs and dataflow stay empty",
-    "a differentiable round needs a functional path around the in-place Adam "
-    "step and the captured step graphs",
 )
 
 
@@ -195,7 +188,11 @@ class ProgramReport:
     the JAX report's keys: ``eqns`` are the aten ops run,
     ``forbidden_primitives`` the syncing ops, ``aliased_leaves`` the input
     tensors written in place, ``expected_aliases`` the tensors of the
-    consumed arguments that may be)."""
+    consumed arguments that may be).  A gradient program sets ``aliased``,
+    its gradient's leaves that match the perturbation's 1:1, the port's
+    counterpart of JAX's donation aliasing (``analysis/grad_audit.py``),
+    which ``aliased_leaves`` then reports; ``skipped`` names why a program
+    was not audited."""
 
     name: str
     executor: str
@@ -210,6 +207,9 @@ class ProgramReport:
     launches: dict[str, int]
     wall_ms: float
     live_ms: float | None = None
+    peak_gib: float | None = None
+    aliased: int | None = None
+    skipped: str | None = None
     problems: list[str] = field(default_factory=list)
 
     @property
@@ -224,7 +224,7 @@ class ProgramReport:
             "donated_args": list(self.donated_args),
             "donated_leaves": self.donated_leaves,
             "expected_aliases": self.donated_leaves,
-            "aliased_leaves": len(self.writes),
+            "aliased_leaves": len(self.writes) if self.aliased is None else self.aliased,
             "f64_outputs": len(self.f64),
             "collectives": [], "expected_collectives": [],
             "problems": self.problems,
@@ -232,14 +232,16 @@ class ProgramReport:
             "f64_sites": self.f64, "inplace_inputs": self.writes,
             "launches": self.launches, "wall_ms": round(self.wall_ms, 3),
             "live_ms": None if self.live_ms is None else round(self.live_ms, 3),
+            "peak_gib": None if self.peak_gib is None else round(self.peak_gib, 4),
+            "skipped": self.skipped,
         }
 
 
 def _run_watched(fn: Callable, args: tuple, device: torch.device,
-                 mode: TorchDispatchMode | None = None) -> tuple[float, list[str]]:
-    """Run ``fn(*args)`` once, under ``mode`` when given: its wall ms and,
-    on the card, the site of each sync ``set_sync_debug_mode("warn")``
-    reports (the caller's mode is restored)."""
+                 mode: TorchDispatchMode | None = None) -> tuple[float, list[str], Any]:
+    """Run ``fn(*args)`` once, under ``mode`` when given: its wall ms, on
+    the card the site of each sync ``set_sync_debug_mode("warn")`` reports
+    (the caller's mode is restored), and its result."""
     on_card = device.type == "cuda"
     if on_card:
         torch.cuda.synchronize(device)
@@ -251,7 +253,7 @@ def _run_watched(fn: Callable, args: tuple, device: torch.device,
             torch.cuda.set_sync_debug_mode("warn")
         try:
             with mode if mode is not None else contextlib.nullcontext():
-                fn(*args)
+                out = fn(*args)
         finally:
             if on_card:
                 torch.cuda.set_sync_debug_mode(previous)
@@ -260,17 +262,18 @@ def _run_watched(fn: Callable, args: tuple, device: torch.device,
     wall_ms = (time.perf_counter() - t0) * 1e3
     root = os.path.dirname(PACKAGE_DIR)
     return wall_ms, [f"cuda sync @ {os.path.relpath(w.filename, root)}:{w.lineno}"
-                     for w in caught if "synchronizing CUDA operation" in str(w.message)]
+                     for w in caught if "synchronizing CUDA operation" in str(w.message)], out
 
 
 def audit_program(name: str, executor: str, fn: Callable, args: tuple,
-                  donate: tuple[int, ...] = (), device: torch.device | str | None = None
-                  ) -> ProgramReport:
+                  donate: tuple[int, ...] = (), device: torch.device | str | None = None,
+                  check_output: Callable[[Any], list[str]] | None = None) -> ProgramReport:
     """Run ``fn(*args)`` once under the audit mode (see the module doc).
     The mode needs every op dispatched, so the run replays no captured
     graph (``costmodel/capture.op_by_op``); on the card the program then
     runs once more as the card runs it, its graphs replayed, under the
-    sync warnings and the inputs' bitwise comparison, which need no mode."""
+    sync warnings and the inputs' bitwise comparison, which need no mode.
+    ``check_output(out)`` gives the audited run's result's problems."""
     leaves = _tensor_leaves(args)
     device = torch.device(device) if device is not None else (
         leaves[0][1].device if leaves else torch.device("cpu"))
@@ -279,9 +282,11 @@ def audit_program(name: str, executor: str, fn: Callable, args: tuple,
         storages.setdefault(t.untyped_storage().data_ptr(), path)
     before = [(path, t, t.detach().clone()) for path, t in leaves]
     mode = _AuditMode(storages)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     launches0 = _launches()
     with op_by_op():
-        wall_ms, card_syncs = _run_watched(fn, args, device, mode)
+        wall_ms, card_syncs, out = _run_watched(fn, args, device, mode)
     launches = {k: v - launches0[k] for k, v in _launches().items()}
     writes = dict(mode.writes)
 
@@ -291,17 +296,18 @@ def audit_program(name: str, executor: str, fn: Callable, args: tuple,
                 writes[path] = how
 
     compare_inputs("a write the dispatch mode did not see (a kernel launch)")
-    live_ms = None
+    live_ms = peak_gib = None
     if device.type == "cuda":
-        live_ms, live_syncs = _run_watched(fn, args, device)
+        live_ms, live_syncs, _ = _run_watched(fn, args, device)
         card_syncs += [f"{s} (graphs replayed)" for s in live_syncs]
         compare_inputs("a write with the captured graphs replayed")
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
     donated = [p for p, _ in leaves if _arg_index(p) in donate]
     report = ProgramReport(
         name=name, executor=executor, device=device.type, ops=mode.ops,
         distinct_ops=len(mode.distinct), syncs=mode.syncs + card_syncs, f64=mode.f64,
         donated_args=tuple(donate), donated_leaves=len(donated), writes=writes,
-        launches=launches, wall_ms=wall_ms, live_ms=live_ms)
+        launches=launches, wall_ms=wall_ms, live_ms=live_ms, peak_gib=peak_gib)
     if report.syncs:
         report.problems.append(
             f"{len(report.syncs)} host sync(s) inside the program: "
@@ -316,6 +322,8 @@ def audit_program(name: str, executor: str, fn: Callable, args: tuple,
             f"in-place write to {len(undeclared)} input(s) the program does not consume "
             "(donation_spec): " + "; ".join(f"args{p} by {how}"
                                              for p, how in list(undeclared.items())[:5]))
+    if check_output is not None:
+        report.problems.extend(check_output(out))
     return report
 
 
@@ -370,9 +378,11 @@ def audit_matrix_program(device: str = "cuda", cfg=None, grid=None) -> list[Prog
             runner.close()
 
 
-def reports_to_findings(reports: list[ProgramReport]) -> list[Finding]:
-    """Program-level problems as findings (the 'file' is the program name:
-    there is no single source line; the sites are in the message)."""
+def reports_to_findings(reports: list[ProgramReport],
+                        rule: str = "program-audit") -> list[Finding]:
+    """Program-level problems as findings under ``rule`` (the 'file' is the
+    program name: there is no single source line; the sites are in the
+    message)."""
     findings = []
     for report in reports:
         for problem in report.problems:
@@ -381,7 +391,7 @@ def reports_to_findings(reports: list[ProgramReport]) -> list[Finding]:
                 hint = INPLACE_HINT
             elif "float64" in problem:
                 hint = F64_HINT
-            findings.append(Finding(rule="program-audit", file=f"<program:{report.name}>", line=0,
+            findings.append(Finding(rule=rule, file=f"<program:{report.name}>", line=0,
                                     message=problem, hint=hint))
     return findings
 

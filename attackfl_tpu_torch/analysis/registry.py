@@ -103,7 +103,7 @@ def load_rules() -> dict[str, Rule]:
     (register_info); their modules import the engine lazily, so this stays
     cheap for --skip-programs runs."""
     from attackfl_tpu_torch.analysis import (  # noqa: F401
-        artifacts, ast_rules, program_audit, retrace)
+        artifacts, ast_rules, dataflow, grad_audit, program_audit, retrace)
 
     return RULES
 

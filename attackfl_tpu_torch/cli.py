@@ -64,10 +64,12 @@ commands:
            [--sweep-dir DIR] [--sweep-id ID] [--resume] [--device cuda|cpu]
            (--mesh, the cell axis across GPUs, is refused: item 14);
            status [--dir D] [--sweep-id ID] [--json]
-  audit    the AST rules, the committed event files and the round programs
-           run once under a dispatch mode (--json, --skip-programs,
-           --retrace, --rules R.., --device cuda|cpu; --skip-sharded is
-           accepted; --grad is refused: item 16e)
+  audit    the AST rules, the committed event files, the round programs
+           run once under a dispatch mode and the transform-safety auditor
+           (the damage objectives' gradients, the per-defense dataflow
+           table) (--json, --skip-programs, --retrace, --rules R..,
+           --device cuda|cpu, --grad, --skip-grad; --skip-sharded is
+           accepted: item 14)
   ledger   the cross-run ledger: list [--sweep ID] [--json], show ID,
            compare A [B], regress [ID] [--against ID] [--sweeps OLD NEW]
            (exit 0 pass, 1 regression, 2 nothing to compare), import

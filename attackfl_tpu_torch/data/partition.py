@@ -40,7 +40,9 @@ class RoundDraws:
     noise: tuple[torch.Tensor, ...] = ()  # per Random group: (attackers, P) N(0, 1)
     uniform: torch.Tensor | None = None   # (C, P) U[0, 1): ScionFL's quantization bits
     root_perms: torch.Tensor | None = None  # (epochs, 1, n_root) int64: FLTrust's root shuffles
-    root_seed: int = 0                    # FLTrust's root dropout seed of epoch 0 (+e per epoch)
+    # FLTrust's root dropout seed of epoch 0 (+e per epoch): a 0-dim int64
+    # tensor on the round's device as drawn, like dropout_seed
+    root_seed: int | torch.Tensor = 0
 
 
 def sample_round_indices(gen: torch.Generator, num_clients: int, pool_size: int,
@@ -129,7 +131,7 @@ def draw_round(gen: torch.Generator, *, num_clients: int, pool_size: int,
     attackers an (attackers, ``num_params``) standard normal draw; with
     ``quantize`` (ScionFL) a (C, ``num_params``) uniform draw; with
     ``root_size`` (FLTrust) the root set's per-epoch shuffles and its
-    dropout seed.  A run without stragglers, Random attackers, ScionFL or
+    dropout seed, which stays on the device as the clients' does.  A run without stragglers, Random attackers, ScionFL or
     FLTrust draws nothing more."""
     idx, mask, sizes = sample_round_indices(gen, num_clients, pool_size, lo, hi,
                                             client_pools)
@@ -157,7 +159,7 @@ def draw_round(gen: torch.Generator, *, num_clients: int, pool_size: int,
         uniform = torch.rand((num_clients, num_params), generator=gen, device=gen.device)
     if root_size:
         root_perms = random_permutations(gen, (epochs, 1, root_size))
-        root_seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen, device=gen.device))
+        root_seed = torch.randint(0, 2 ** 31 - 1, (), generator=gen, device=gen.device)
     return RoundDraws(idx=idx, mask=mask, sizes=sizes, perms=perms,
                       dropout_seed=seed, leaks=leaks, kept=kept, noise=noise,
                       uniform=uniform, root_perms=root_perms, root_seed=root_seed)

@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from attackfl_tpu_torch.costmodel.capture import is_fake, kernel_work
-from attackfl_tpu_torch.ops.pytree import tree_broadcast, tree_map
+from attackfl_tpu_torch.ops.pytree import tree_broadcast, tree_map, under_gradient
 
 D = 64          # model width
 FF = 8          # ffn dim 6, padded to 8 (pad rows/cols stay zero)
@@ -632,6 +632,12 @@ def _run_epoch(p, m, v, batches, seed, t_offset, *, lr, clip, drop_attn, drop_bl
 run_epoch.launches = 0
 
 
+NO_BACKWARD = (
+    "local_backend 'pallas' has no backward: the fused kernel K1 (csrc/fused_step.cu), "
+    "like the JAX package's pallas_call, defines no gradient; differentiate through "
+    "local training under local_backend 'xla'")
+
+
 def build_fused_local_update(dataset: dict[str, torch.Tensor], *, epochs: int,
                              batch_size: int, lr: float, clip_grad_norm: float,
                              dropout=(0.1, 0.1, 0.3)) -> Callable:
@@ -643,13 +649,18 @@ def build_fused_local_update(dataset: dict[str, torch.Tensor], *, epochs: int,
     the PADDED index array is permuted by ``perms[e]``, cut into nb fixed
     minibatches (the tail padded with masked rows), and trained with
     dropout seed ``seed + e`` (``seed`` an int or the round's 0-dim int64
-    device tensor); ``loss`` is the last epoch's mean."""
+    device tensor); ``loss`` is the last epoch's mean.  K1 has no backward,
+    as the JAX package's ``pallas_call`` has none: under a gradient
+    (``pytree.under_gradient``) the update refuses
+    (:data:`NO_BACKWARD`)."""
     feats = torch.cat([dataset["vitals"], dataset["labs"],
                        dataset["label"][:, None]], dim=1).to(torch.float32)
     B = batch_size
     clip = float(clip_grad_norm) if clip_grad_norm else 0.0
 
     def batched(params, idx, mask, perms, seed):
+        if under_gradient(params):
+            raise NotImplementedError(NO_BACKWARD)
         C, hi = idx.shape
         nb = -(-hi // B)
         pad = nb * B - hi

@@ -9,6 +9,8 @@ the JAX package's.
 
 from __future__ import annotations
 
+import functools
+import operator
 from typing import Any, Callable, Iterator
 
 import torch
@@ -29,6 +31,13 @@ def tree_items(tree: Tree, prefix: str = "") -> Iterator[tuple[str, torch.Tensor
 
 def tree_leaves(tree: Tree) -> list[torch.Tensor]:
     return [leaf for _, leaf in tree_items(tree)]
+
+
+def under_gradient(tree: Tree) -> bool:
+    """Whether a computation on ``tree`` runs under a gradient: grad mode
+    on and a leaf requiring grad.  Such a computation may write nothing in
+    place that the gradient reads."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tree_leaves(tree))
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
@@ -89,6 +98,13 @@ def tree_weighted_mean(stacked: Tree, weights: torch.Tensor) -> Tree:
 # axis of the models compared; the axes before it are a batch (one per
 # attacker in the round step), the axes after it the leaf's own.
 # ---------------------------------------------------------------------------
+
+def sq_distance(a: Tree, b: Tree) -> torch.Tensor:
+    """Σ over leaves of Σ (a - b)², the leaves' sums added left to right
+    (JAX's ``jax.tree.reduce`` of the damage objectives)."""
+    return functools.reduce(operator.add, [torch.sum((x - y) ** 2) for x, y in zip(
+        tree_leaves(a), tree_leaves(b))])
+
 
 def _leaf_norm(diff: torch.Tensor, matrix_spectral: bool, lead: int = 0) -> torch.Tensor:
     """Norm of each leaf difference over its own axes (those after the

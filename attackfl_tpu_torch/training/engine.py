@@ -142,7 +142,7 @@ from attackfl_tpu_torch.faults.inject import HostFaultInjector
 from attackfl_tpu_torch.ledger.record import derive_record, git_revision
 from attackfl_tpu_torch.ledger.store import LedgerStore, resolve_ledger_dir
 from attackfl_tpu_torch.models.hyper import make_hypernetwork
-from attackfl_tpu_torch.ops import build, defenses
+from attackfl_tpu_torch.ops import build, defenses, fused_step
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.ops.metrics import Numerics, build_layout
 from attackfl_tpu_torch.profiler.capture import HotspotCapture
@@ -768,6 +768,94 @@ class Simulator:
                                  args=(self._fused_state(state),),
                                  donate=spec["pipeline_step"]))
         return programs
+
+    def damage_objective(self, state: dict[str, Any] | None = None) -> list[dict[str, Any]]:
+        """Scalar post-defense damage objectives for the transform-safety
+        auditor (JAX ``damage_objective``, engine.py:706-780): ``{name,
+        executor, objective, args, donate}`` per executor path, JAX's keys
+        and names.  Each ``objective(*args) -> 0-dim tensor`` measures how
+        far the defended aggregate moves under an additive perturbation,
+        argument 0, a tree of the shape the gradient has:
+
+        * ``sync_damage(perturb, global_params, prev_genuine, have_genuine,
+          draws, broadcast_number)``: broadcast 1's round step (under
+          ``no_grad``: the perturbation enters after it, and it runs
+          ``run``'s in-place path, so ``run``'s bits), ``perturb`` times the
+          attacker mask added to the stacked rows, the aggregate over the
+          clients that reported, and the sum of squares of the move.  Its
+          ``draws`` are the round's, drawn before the call from a copy of
+          ``state``'s generator, so no draw reads the card inside it.
+        * ``fused_damage[2]`` (where :meth:`supports_fused`):
+          ``(pool_perturb, scan_state)``, two broadcasts of the fused body
+          from ``scan_state`` with ``perturb`` added to its leak pool
+          ``prev_genuine``; the body draws from its own copy of the state's
+          generator, so every call sees the same draws.  The gradient runs
+          through the second broadcast's local training when the first
+          one attacks (the update is out of place, ``local.adam_step``).
+
+        ``state`` defaults to :meth:`init_state`, as in JAX, where the
+        first broadcast does not attack and overwrites the perturbed pool
+        before the second reads it: the fused gradient is exactly 0 there.
+        ``donate`` is ``(0,)``: the gradient has the perturbation's tree.
+        The perturbations in ``args`` are zeros; callers put their own in
+        their place.  Under ``local_backend: pallas`` the fused objective's
+        gradient is refused, as ``jax.grad`` of it raises (K1 has no
+        backward); ``sync_damage``'s runs, as JAX's does."""
+        if self.is_hyper:
+            raise NotImplementedError(
+                "hyper mode has no attack-perturbation damage objective "
+                "(no per-client aggregate to perturb)")
+        state = self._ensure_numerics_state(state if state is not None else self.init_state())
+        device, n = self.device, self.cfg.total_clients
+        gen = torch.Generator(device=device)
+        gen.set_state(state["rng"].get_state())
+        draws = self.draw_round(gen)
+        attacker_sel = torch.as_tensor(self.attacker_mask, dtype=torch.float32, device=device)
+        wmask = torch.ones(n, dtype=torch.float32, device=device)
+        round_step, aggregate = self.round_step, self.aggregate
+
+        def sync_damage(perturb, global_params, prev_genuine, have_genuine, draws,
+                        broadcast_number):
+            with torch.no_grad():
+                stacked, sizes, _, _, _ = round_step(global_params, prev_genuine, have_genuine,
+                                                     draws, broadcast_number)
+            stacked = pt.tree_map(
+                lambda s, p: s + p * attacker_sel.reshape((-1,) + (1,) * (s.ndim - 1)),
+                stacked, perturb)
+            new_global = aggregate(global_params, stacked, sizes, wmask * (sizes > 0), draws)
+            return pt.sq_distance(new_global, global_params)
+
+        perturb = pt.tree_map(lambda x: torch.zeros((n,) + tuple(x.shape), dtype=x.dtype,
+                                                    device=x.device), state["global_params"])
+        entries: list[dict[str, Any]] = [dict(
+            name="sync_damage", executor="sync", objective=sync_damage,
+            args=(perturb, state["global_params"], state["prev_genuine"],
+                  state["have_genuine"], draws, 1),
+            donate=(0,))]
+        if self.supports_fused():
+            body = self._build_fused_body()
+            pallas = self.cfg.local_backend == "pallas"
+
+            def fused_damage(pool_perturb, scan_state):
+                if pallas and pt.under_gradient(pool_perturb):
+                    # JAX's body computes the attack at every broadcast and
+                    # selects it, so the second broadcast's kernel is on the
+                    # differentiated path whatever the state
+                    raise NotImplementedError(fused_step.NO_BACKWARD)
+                rng = torch.Generator(device=device)
+                rng.set_state(scan_state["rng"].get_state())
+                s = dict(scan_state, rng=rng, prev_genuine=pt.tree_map(
+                    torch.add, scan_state["prev_genuine"], pool_perturb))
+                for _ in range(2):
+                    s, _ = body(s)
+                return pt.sq_distance(s["global_params"], scan_state["global_params"])
+
+            entries.append(dict(
+                name="fused_damage[2]", executor="fused", objective=fused_damage,
+                args=(pt.tree_map(torch.zeros_like, state["prev_genuine"]),
+                      self._fused_state(state)),
+                donate=(0,)))
+        return entries
 
     # ------------------------------------------------------------------
     # telemetry

@@ -47,7 +47,7 @@ from torch.func import grad_and_value, vmap
 from attackfl_tpu_torch.costmodel.capture import counting
 from attackfl_tpu_torch.ops import fused_step
 from attackfl_tpu_torch.ops.pytree import (
-    tree_broadcast, tree_items, tree_map, tree_ravel_stacked, unraveler,
+    tree_broadcast, tree_items, tree_map, tree_ravel_stacked, under_gradient, unraveler,
 )
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -116,14 +116,21 @@ def clip_by_global_norm(grads: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.where(norm < max_norm, grads, grads / norm * max_norm)
 
 
-def adam_step_(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
-               t: int, lr: float) -> None:
-    """optax ``adam`` then ``apply_updates`` at step ``t``, in place."""
-    m.mul_(B1).add_(g, alpha=1.0 - B1)
-    v.mul_(B2).addcmul_(g, g, value=1.0 - B2)
+def adam_step(state: dict[str, torch.Tensor], g: torch.Tensor, t: int, lr: float) -> None:
+    """optax ``adam`` then ``apply_updates`` at step ``t`` on ``state``'s
+    ``p``, ``m`` and ``v``.  Each entry is rebound to a new tensor and no
+    tensor that autograd saved is written, so the damage objectives
+    (``Simulator.damage_objective``) differentiate through local training;
+    the in-place ops run on the step's own temporaries, so the bits are
+    those of optax's step written in place.  ``state`` holds the only
+    reference to each old tensor, which is freed as its successor is
+    made: the peak is an in-place step's."""
+    state["m"] = (state["m"] * B1).add_(g, alpha=1.0 - B1)
+    state["v"] = (state["v"] * B2).addcmul_(g, g, value=1.0 - B2)
     bc1 = float(np.float32(1.0 - B1 ** t))
     bc2 = float(np.float32(1.0 - B2 ** t))
-    p.add_((m / bc1) / (torch.sqrt(v / bc2) + EPS), alpha=-lr)
+    upd = (state["m"] / bc1) / (torch.sqrt(state["v"] / bc2) + EPS)
+    state["p"] = torch.add(state["p"], upd, alpha=-lr)
 
 
 def step_masks(keys: torch.Tensor, specs) -> list[torch.Tensor] | None:
@@ -231,7 +238,11 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
     row's run's draw, and ``clients`` [C] each row's client id within its
     run.  The keys ``client_keys(seed + e, step, client)`` are elementwise,
     so every row draws the masks of its own run, all rows' in one K3
-    launch a step."""
+    launch a step.
+
+    Every step runs out of place (:func:`adam_step`), so the engine's
+    damage objective differentiates through a round's training; under a
+    gradient (``pytree.under_gradient``) ``segment`` is refused."""
     rates = tuple(float(r) for r in (model.dropout_rates if dropout is None else dropout))
     B = batch_size
     clip = float(clip_grad_norm) if clip_grad_norm else 0.0
@@ -286,8 +297,12 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
             parts = [step(*args(r)) for r in rows]
             return torch.cat([g for g, _ in parts]), torch.cat([v for _, v in parts])
 
-        p = tree_ravel_stacked(stacked)
-        m, v = torch.zeros_like(p), torch.zeros_like(p)
+        if segment is not None and under_gradient(params):
+            raise ValueError("a local update under a gradient runs no segment: a captured "
+                             "step graph writes its outputs in place")
+        # Adam's state; adam_step rebinds its entries, the only references
+        opt = {"p": tree_ravel_stacked(stacked)}
+        opt["m"], opt["v"] = torch.zeros_like(opt["p"]), torch.zeros_like(opt["p"])
         ok = torch.ones(C, dtype=torch.bool, device=idx.device)
         if clients is None:
             clients = torch.arange(C, dtype=torch.int64, device=idx.device)
@@ -300,14 +315,14 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
             t0 = e * nb
             steps = torch.arange(t0, t0 + nb, dtype=torch.int64, device=idx.device)
             keys = fused_step.client_keys(seed + e, steps[:, None], clients)   # [nb, C]
-            loss_sum = torch.zeros(C, dtype=p.dtype, device=idx.device)
+            loss_sum = torch.zeros(C, dtype=opt["p"].dtype, device=idx.device)
             for j in range(nb):
                 masks = step_masks(keys[j], specs)
-                grads, loss = grad_rows(p, binputs, by, bmsk, j, masks)
-                ok &= torch.isfinite(loss)
-                loss_sum += loss
-                adam_step_(p, m, v, grads, t0 + j + 1, lr)
-        return tree_map(lambda x: x.contiguous(), unravel(p)), ok, loss_sum / nb
+                grads, loss = grad_rows(opt["p"], binputs, by, bmsk, j, masks)
+                ok = ok & torch.isfinite(loss)
+                loss_sum = loss_sum + loss
+                adam_step(opt, grads, t0 + j + 1, lr)
+        return tree_map(lambda x: x.contiguous(), unravel(opt["p"])), ok, loss_sum / nb
 
     batched.graphs = graphs   # read by the recompile guard (analysis/retrace.py)
     return batched

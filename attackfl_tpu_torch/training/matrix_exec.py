@@ -27,7 +27,7 @@ Executor contract, as JAX's:
   among them, and their completed-round counts and leak flags, in one
   float64 copy, as ``Simulator._read_chunk`` does for one run.  A
   γ-search attack in the grid (Min-Max, Min-Sum, Opt-Fang) adds its own
-  reads, and so does FLTrust's root seed (ROADMAP item 3a).
+  reads (ROADMAP item 3a).
 * **crash safety** — the device cells' states (generators included, as
   their ``get_state()``; the consecutive failures of each) are saved
   after every chunk through the port's ``CheckpointManager``

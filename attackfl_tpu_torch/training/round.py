@@ -318,8 +318,8 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
     broadcast_number) -> (stacked, sizes, new_genuine, ok, mean_loss)``:
     ``have_genuine`` a bool or a 0-dim bool tensor on the round's device,
     ``ok`` and ``mean_loss`` 0-dim device tensors.  The step reads nothing
-    back from the card (on config 4's path; the γ searches and FLTrust's
-    root seed still do, ROADMAP.md item 3a).  It is ``finish(train(...))``
+    back from the card (on config 4's path; the γ searches still do,
+    ROADMAP.md item 3a).  It is ``finish(train(...))``
     of :func:`build_round_halves`.
 
     ``train_data`` lies on the device the round runs on; the local update

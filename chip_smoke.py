@@ -182,7 +182,7 @@ no result line):
                  version bit for bit, its time beside its bound; its
                  launches over the device cells equal to the fold's
                  steps times its parts plus FLTrust's root steps; the
-                 chunk's host syncs, one besides FLTrust's root seeds;
+                 chunk's host syncs, one, FLTrust's cells' included;
                  c. the sweep stopped by its hook after the first
                  fallback cell and resumed: a's grid byte for byte, the
                  completed fallback cell running zero rounds; d. 24
@@ -212,12 +212,39 @@ no result line):
                  fedavg and median x seeds 1 and 2, 2 rounds: `ledger
                  list --sweep`, `regress --sweeps`, `science
                  leaderboard`, `report` and `diff --gate`, each exit 0;
-                 e. `audit --json --device cuda` on the tree: ok.
+                 e. `audit --json --device cuda --skip-grad` on the
+                 tree: ok;
+ 19. transform-safety auditor -- a. the grad programs of audit_config()
+                 (CNNModel, dropout on) for fedavg, median and FLTrust on
+                 the card (grad_audit.audit_grad_programs): the six
+                 first-order programs without sync (with their sites),
+                 float64 output or input written, the gradient the
+                 perturbation's tree, K3 launched as they train, their
+                 ms and peak GiB; the three double-backward traces ok;
+                 b. config 4 (cut) under xla, fedavg, from the attacking
+                 state (a leak pool, broadcast attack_round - 1): the
+                 gradients of sync_damage and fused_damage[2], each
+                 value under the gradient equal to its value under
+                 no_grad bit for bit, ms, peak GiB, K3 launches (24 and
+                 48), non-finite entries and max |g|; against the same
+                 inputs and draws on the CPU (sync within 1e-4 of max
+                 |g|; fused the same non-finite entries, the finite ones
+                 within 1e-4); c. the local update's out-of-place Adam
+                 (local.adam_step) against the same step written in
+                 place, bit for bit, at config 4's 100 rows and over 3
+                 rounds of config 4 (cut) through run; d. FLTrust on
+                 config 4 (cut): a run_fast chunk of 3 makes 1 host sync;
+                 the root update with the drawn device seed against the
+                 same update given int(seed), bit for bit; e. `audit
+                 --json --device cuda` with the grad audit: ok, the
+                 dataflow verdicts those of
+                 tests/data/grad_audit_report.json.
 Each of phases 4-15 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.  The kernels record's
 launches are phase 4's main path's, phase 13a's pipelined runs', phase
 14a's runs with telemetry on, phase 15a's runs with numerics on, phase
-16a's windowed runs, phase 17a's sweep and phase 18's programs and runs.
+16a's windowed runs, phase 17a's sweep, phase 18's programs and runs, and
+phase 19b's gradient runs, 19c's run through adam_step and 19d's runs.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
 toolkit, imports nothing of JAX, and fails when run outside the repository.
@@ -3880,7 +3907,7 @@ MATRIX_ATTACKS = (AttackSpec(mode="LIE", num_clients=ATTACKERS, attack_round=2, 
 MATRIX_DEFENSES = ("fedavg", "krum", "median", "FLTrust", "gmm", "hyper")
 MATRIX_SEEDS, MATRIX_CHUNK = (1, 2), 3
 # FLTrust's root set, ROOT_SIZE test rows at ROOT_BATCH: K3 launches a
-# broadcast of an FLTrust cell, and the site of its one read (its seed)
+# broadcast of an FLTrust cell; the draws' file, which reads the card no more
 ROOT_STEPS = -(-tround.ROOT_SIZE // tround.ROOT_BATCH)
 ROOT_SEED_SITE = "attackfl_tpu_torch/data/partition.py"
 
@@ -4067,18 +4094,16 @@ def matrix_k3(base: Config, out: dict) -> dict:
 
 def matrix_syncs(out: dict) -> None:
     """Phase 17 b: the host syncs of the device cells' chunks: one read a
-    chunk, besides FLTrust's root seed (one a broadcast of each FLTrust
-    cell, ROADMAP item 3a); the first chunk that captures the gradient
-    step's graph among them."""
+    chunk, FLTrust's cells' included (their root seed stays on the card);
+    the first chunk that captures the gradient step's graph among them."""
     for chunk in out["chunks"]:
         seed_reads = sum(n for site, n in chunk["sites"].items() if ROOT_SEED_SITE in site)
-        fltrust = sum(1 for c in out["sweep"].device_cells if c.defense == "FLTrust")
         log(f"[matrix] a chunk of {chunk['n']} over {chunk['cells']} cells: "
-            f"{chunk['syncs']} host syncs, {seed_reads} of them FLTrust's root seed, at "
+            f"{chunk['syncs']} host syncs, {seed_reads} of them in the draws, at "
             f"{dict(chunk['sites'])}")
-        if chunk["syncs"] - seed_reads != 1 or seed_reads != fltrust * chunk["n"]:
+        if chunk["syncs"] != 1 or seed_reads:
             raise AssertionError(f"matrix syncs: {chunk['syncs']} in a chunk, "
-                                 f"{seed_reads} of them FLTrust's")
+                                 f"{seed_reads} of them in the draws")
 
 
 def matrix_resume(base: Config, root: str, full: dict) -> dict:
@@ -4491,10 +4516,12 @@ def science_commands_check(root: str) -> dict:
 
 
 def audit_command_check() -> None:
-    """18e: `audit --json --device cuda` on the tree."""
-    rc, text, seconds = run_command(["audit", "--json", "--device", "cuda"])
+    """18e: `audit --json --device cuda --skip-grad` on the tree (phase
+    19e runs it with the grad audit)."""
+    rc, text, seconds = run_command(["audit", "--json", "--device", "cuda", "--skip-grad"])
     report = json.loads(text)
-    log(f"[audit] audit --json --device cuda: exit {rc} in {seconds:.1f} s, ok {report['ok']}, "
+    log(f"[audit] audit --json --device cuda --skip-grad: exit {rc} in {seconds:.1f} s, ok "
+        f"{report['ok']}, "
         f"{len(report['findings'])} findings, programs "
         + ", ".join(f"{p['name']} {p['syncs']} syncs {p['wall_ms']:.1f} ms"
                     for p in report["programs"]))
@@ -4531,10 +4558,325 @@ def audit_phase() -> dict:
     return dict(total)
 
 
+# phase 19: the transform-safety auditor (ROADMAP item 16e).  a: the grad
+# programs of audit_config() on the card; b: config 4 (cut) under xla from
+# the attacking state, the damage objectives' gradients on the card and on
+# the CPU; c: the out-of-place Adam against the in-place step; d:
+# FLTrust's chunk syncs and its device root seed; e: `audit --json --device
+# cuda` with the grad audit
+GRAD_TOL = 1e-4            # 19b: card against CPU, of max |g| (finite entries)
+GRAD_PERTURB_STD = 1e-2
+GRAD_REPORT = os.path.join(REPO, "tests", "data", "grad_audit_report.json")
+
+
+def steps_of(cfg: Config) -> int:
+    """K3 launches of one broadcast's local training under xla."""
+    return cfg.epochs * -(-cfg.num_data_range[1] // cfg.batch_size)
+
+
+def root_steps_of(cfg: Config) -> int:
+    """K3 launches of one FLTrust root update."""
+    return cfg.epochs * -(-min(tround.ROOT_SIZE, cfg.test_size) // tround.ROOT_BATCH)
+
+
+def grad_programs_check() -> None:
+    """19a: grad_audit.audit_grad_programs() on the card."""
+    from attackfl_tpu_torch.analysis import grad_audit
+    from attackfl_tpu_torch.config import audit_config
+
+    reports = grad_audit.audit_grad_programs(device="cuda")
+    cfg = audit_config(tempfile.gettempdir())
+    names = []
+    for r in reports:
+        d = r.to_dict()
+        names.append(r.name)
+        mode, program = r.name.split(":")
+        first = program.startswith("grad[")
+        broadcasts = 2 if "fused" in program else 1
+        root = root_steps_of(cfg) if mode == "FLTrust" else 0
+        expect = {"fused_step": 0, "dropout_mask": broadcasts * (steps_of(cfg) + root)}
+        log(f"[grad] {r.name} [{r.executor}]: {d['eqns']} ops, syncs {d['syncs']} "
+            f"{d['sync_sites']}, float64 outputs {d['f64_outputs']}, inputs written in place "
+            f"{sorted(r.writes)}, gradient tree {d['aliased_leaves']}/{d['expected_aliases']} "
+            f"leaves, K3 launches {r.launches.get('dropout_mask', 0)}, "
+            + (f"{r.wall_ms:.1f} ms audited, {r.live_ms:.1f} ms as the card runs it, peak "
+               f"{r.peak_gib:.3f} GiB" if first else f"{r.wall_ms:.1f} ms traced on fake tensors")
+            + f" ({card_line()})")
+        if not r.ok or (first and (r.launches != expect or d["aliased_leaves"] == 0
+                                   or d["aliased_leaves"] != d["expected_aliases"])):
+            raise AssertionError(f"grad {r.name}: problems {r.problems}, launches "
+                                 f"{r.launches}, expected {expect}")
+    want = [f"{m}:{g}" for m in grad_audit.GRAD_MODES
+            for g in ("grad[sync_damage]", "grad2[sync_damage]", "grad[fused_damage[2]]")]
+    if names != want:
+        raise AssertionError(f"grad programs {names}")
+
+
+def to_cpu(obj):
+    """Tensors of nested lists, tuples, dicts and RoundDraws on the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if isinstance(obj, dict):
+        return {k: to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_cpu(v) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: to_cpu(getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj)})
+    return obj
+
+
+def seeded_like(tree: dict, seed: int) -> dict:
+    """A perturbation shaped like ``tree``: N(0, GRAD_PERTURB_STD) from a
+    numpy generator, on ``tree``'s device."""
+    rng = np.random.default_rng(seed)
+    return tree_map(lambda x: torch.from_numpy((GRAD_PERTURB_STD * rng.standard_normal(
+        tuple(x.shape))).astype(np.float32)).to(x.device), tree)
+
+
+def grad_stats(g: dict) -> tuple[int, float]:
+    """Non-finite entries of a gradient and its largest finite magnitude."""
+    bad = sum(int((~torch.isfinite(x)).sum()) for x in tree_leaves(g))
+    top = max(float(torch.where(torch.isfinite(x), x, 0.0).abs().max()) for x in tree_leaves(g))
+    return bad, top
+
+
+def grad_card_and_cpu(root: str) -> dict:
+    """19b: the gradients of config 4's damage objectives on the card and on
+    the CPU from the same inputs and draws.  Returns the card's launches
+    under the gradient (not those of the no_grad runs, the reference)."""
+    from attackfl_tpu_torch.analysis.grad_audit import first_order, value_and_grad
+
+    cfg = cut_config(local_backend="xla", log_path=root, checkpoint_dir=root,
+                     telemetry=TelemetryConfig(enabled=False))
+    card, cpu = Simulator(cfg, device="cuda"), Simulator(cfg, device="cpu")
+    state = dict(card.init_state(), have_genuine=True,
+                 broadcasts=cfg.attacks[0].attack_round - 1)
+    host = dict(to_cpu(state), rng=torch.Generator().manual_seed(cfg.random_seed))
+    entries, cpu_entries = card.damage_objective(state), cpu.damage_objective(host)
+    drawn, draw = [], card._drawer
+    card._drawer = lambda gen, leak_pool=None: drawn.append(draw(gen, leak_pool)) or drawn[-1]
+    total = Counter()
+    for seed, (entry, cpu_entry) in enumerate(zip(entries, cpu_entries)):
+        name, obj = entry["name"], entry["objective"]
+        args = (seeded_like(entry["args"][0], seed),) + tuple(entry["args"][1:])
+        del drawn[:]
+        reset_launches()
+        with torch.no_grad():
+            plain = obj(*args)
+        torch.cuda.synchronize()
+        launches_plain = launch_counts()
+        draws = list(drawn)
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        value, g = value_and_grad(obj)(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = launch_counts()
+        total.update(launches)
+        bad, top = grad_stats(g)
+        expect = (2 if "fused" in name else 1) * steps_of(cfg)
+        same = bool(torch.equal(plain.view(torch.int32), value.view(torch.int32)))
+        # the CPU: the card's draws, the same perturbation
+        cpu_args = to_cpu(args)
+        if "fused" in name:
+            # the CPU body draws the card's rounds; its generator is unused
+            queue = iter(to_cpu(draws))
+            cpu._drawer = lambda gen, leak_pool=None: next(queue)
+            cpu_args = (cpu_args[0], dict(cpu_args[1], rng=torch.Generator()))
+        t1 = time.perf_counter()
+        g_cpu = first_order(cpu_entry["objective"])(*cpu_args)
+        cpu_s = time.perf_counter() - t1
+        bad_cpu = sum(int((~torch.isfinite(x)).sum()) for x in tree_leaves(g_cpu))
+        masks_equal = all(torch.equal(~torch.isfinite(a.cpu()), ~torch.isfinite(b))
+                          for a, b in zip(tree_leaves(g), tree_leaves(g_cpu)))
+        err = max(float(torch.where(torch.isfinite(b), a.cpu() - b, 0.0).abs().max())
+                  for a, b in zip(tree_leaves(g), tree_leaves(g_cpu)))
+        log(f"[grad] config 4 (cut) {name} from the attacking state: value {float(value):.6f} "
+            f"(no_grad {float(plain):.6f}, {'bit-equal' if same else 'DIFFERENT'}), "
+            f"{ms:.1f} ms for the value and gradient, peak {peak:.3f} GiB, K3 "
+            f"{launches['dropout_mask']} launches (expected {expect}), non-finite "
+            f"{bad} of {sum(x.numel() for x in tree_leaves(g))} entries, max |g| {top:.6e}; "
+            f"on the CPU in {cpu_s:.1f} s: non-finite {bad_cpu}, masks "
+            f"{'equal' if masks_equal else 'DIFFERENT'}, max |card - cpu| {err:.3e} "
+            f"({err / top if top else float('nan'):.2e} of max |g|) ({card_line()})")
+        if (not same or launches != {"fused_step": 0, "dropout_mask": expect}
+                or launches_plain != launches or not masks_equal or not top > 0
+                or err > GRAD_TOL * top):
+            raise AssertionError(f"grad {name}: bits {same}, launches {launches}, masks "
+                                 f"{masks_equal}, err {err} of {top}")
+    card.close()
+    cpu.close()
+    return dict(total)
+
+
+def adam_in_place(p, m, v, g, t: int, lr: float) -> None:
+    """19c's plain version: optax ``adam`` then ``apply_updates`` written
+    in place."""
+    m.mul_(local.B1).add_(g, alpha=1.0 - local.B1)
+    v.mul_(local.B2).addcmul_(g, g, value=1.0 - local.B2)
+    bc1 = float(np.float32(1.0 - local.B1 ** t))
+    bc2 = float(np.float32(1.0 - local.B2 ** t))
+    p.add_((m / bc1) / (torch.sqrt(v / bc2) + local.EPS), alpha=-lr)
+
+
+def adam_step_check(root: str) -> dict:
+    """19c: ``local.adam_step``, the local update's out-of-place Adam,
+    against the same step written in place (:func:`adam_in_place`), bit
+    for bit on the card: p, m and v over six steps of config 4's 100 rows
+    (gradients of falling scale, some entries 0, as the inert attention
+    leaves' are), then config 4 (cut) through ``run`` for 3 rounds against
+    the same run with the in-place step patched in.  Returns the launches
+    of the run through ``adam_step`` (not the reference's)."""
+    cfg = cut_config(local_backend="xla", log_path=root, checkpoint_dir=root,
+                     telemetry=TelemetryConfig(enabled=False))
+    sim = Simulator(cfg, device="cuda")
+    flat = torch.cat([x.reshape(-1) for x in tree_leaves(sim.init_state()["global_params"])])
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    p = flat.expand(cfg.total_clients, -1).contiguous()
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    opt = {"p": p.clone(), "m": m.clone(), "v": v.clone()}
+    same = []
+    for t in range(1, 7):
+        g = torch.randn(p.shape, generator=gen, device="cuda") * 10.0 ** -t
+        g[:, : p.shape[1] // 2 : 2] = 0.0
+        adam_in_place(p, m, v, g, t, cfg.lr)
+        local.adam_step(opt, g, t, cfg.lr)
+        same.append(all(torch.equal(a.view(torch.int32), opt[k].view(torch.int32))
+                        for k, a in (("p", p), ("m", m), ("v", v))))
+    del p, m, v, opt, g
+    runs, launches = [], {}
+    for reference in (False, True):
+        patched = (unittest.mock.patch.object(
+            local, "adam_step", lambda st, g, t, lr: adam_in_place(st["p"], st["m"], st["v"],
+                                                                  g, t, lr))
+            if reference else contextlib.nullcontext())
+        state = sim.init_state()
+        reset_launches()
+        t0 = time.perf_counter()
+        with patched:
+            state, history = sim.run(state=state, save_checkpoints=False, verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not reference:
+            launches = launch_counts()
+            require_kernel("adam_step run", cfg, launches, len(history))
+        runs.append((state, history, seconds))
+    sim.close()
+    (a, ha, sa), (b, hb, sb) = runs
+    equal = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(a["global_params"]) + tree_leaves(a["prev_genuine"]),
+        tree_leaves(b["global_params"]) + tree_leaves(b["prev_genuine"])))
+    metrics = [(h["ok"], h["roc_auc"], h["train_loss"]) for h in ha] == [
+        (h["ok"], h["roc_auc"], h["train_loss"]) for h in hb]
+    log(f"[grad] local.adam_step against the in-place step at config 4's {tuple(flat.shape)} "
+        f"x {cfg.total_clients} rows, lr {cfg.lr}: p, m, v bit-equal at steps 1-6 {same}; "
+        f"config 4 (cut) xla run of {len(ha)} rounds through adam_step in {sa:.2f} s (launches "
+        f"{launches}, AUC {[round(h['roc_auc'], 4) for h in ha]}) against the in-place step "
+        f"patched in ({sb:.2f} s): params and leak pool {'bit-equal' if equal else 'DIFFERENT'}, "
+        f"metrics {'equal' if metrics else 'DIFFERENT'}")
+    if not (all(same) and equal and metrics):
+        raise AssertionError(f"adam_step differs from the in-place step: steps {same}, run "
+                             f"{equal}, metrics {metrics}")
+    return launches
+
+
+def fltrust_seed_check(root: str) -> dict:
+    """19d: FLTrust on config 4 (cut): a run_fast chunk of 3 makes one host
+    sync (its read); the root update with the drawn device seed equals the
+    same update given int(seed).  Returns the chunk's launches and the
+    device-seed update's (not the int(seed) update's, the reference)."""
+    cfg = cut_config(mode="FLTrust", log_path=root, checkpoint_dir=root,
+                     telemetry=TelemetryConfig(enabled=False))
+    sim = Simulator(cfg, device="cuda")
+    total = Counter()
+    fresh = sim.init_state()
+    reset_launches()
+    (_, history), syncs, sites = count_syncs(lambda: sim.run_fast(
+        num_rounds=FUSED_CHUNK, state=fresh, chunk_size=FUSED_CHUNK,
+        save_checkpoints=False, verbose=False))
+    chunk = launch_counts()
+    total.update(chunk)
+    expect = {"fused_step": FUSED_CHUNK * cfg.epochs,
+              "dropout_mask": FUSED_CHUNK * root_steps_of(cfg)}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    draws = sim.draw_round(gen)
+    update = local.build_root_update(
+        sim.model, cfg.data_name, {k: v[:tround.ROOT_SIZE] for k, v in sim.test_data.items()},
+        epochs=cfg.epochs, batch_size=tround.ROOT_BATCH, lr=cfg.lr,
+        clip_grad_norm=cfg.clip_grad_norm)
+    params = sim.init_state()["global_params"]
+    reset_launches()
+    on_device = update(params, draws.root_perms, draws.root_seed)
+    total.update(launch_counts())
+    seed = int(draws.root_seed)
+    as_int = update(params, draws.root_perms, seed)   # the reference: its launches not counted
+    sim.close()
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(on_device), tree_leaves(as_int)))
+    log(f"[grad] FLTrust run_fast chunk of {FUSED_CHUNK}: {len(history)} rounds ok "
+        f"{[h['ok'] for h in history]}, {syncs} host syncs at {dict(sites)}, launches {chunk} "
+        f"(expected {expect}); the root update with the device seed "
+        f"({tuple(draws.root_seed.shape)} {draws.root_seed.dtype} on "
+        f"{draws.root_seed.device}) against int(seed) {seed}: "
+        f"{'bit-equal' if same else 'DIFFERENT'}")
+    if (syncs != SYNCS_PER_CHUNK or len(history) != FUSED_CHUNK
+            or not all(h["ok"] for h in history) or chunk != expect or not same):
+        raise AssertionError(f"FLTrust chunk: {syncs} syncs at {dict(sites)}, launches {chunk}, "
+                             f"root update equal {same}")
+    return dict(total)
+
+
+def grad_command_check() -> None:
+    """19e: `audit --json --device cuda` with the grad audit on."""
+    rc, text, seconds = run_command(["audit", "--json", "--device", "cuda"])
+    report = json.loads(text)
+    with open(GRAD_REPORT) as fh:
+        golden = {d["name"]: d["verdict"] for d in json.load(fh)["dataflow"]}
+    verdicts = {d["name"]: d["verdict"] for d in report["dataflow"]}
+    programs = report["grad_programs"]
+    skipped = [p["name"] for p in programs if p["skipped"]]
+    log(f"[grad] audit --json --device cuda: exit {rc} in {seconds:.1f} s, ok {report['ok']}, "
+        f"{len(report['findings'])} findings, {len(programs)} grad programs ("
+        + ", ".join(f"{p['name']} {p['syncs']} syncs {p['wall_ms']:.1f} ms"
+                    for p in programs if not p["skipped"])
+        + f"; skipped {skipped}); dataflow " + ", ".join(
+            f"{k.removeprefix('defense:')} {v}" for k, v in sorted(verdicts.items()))
+        + f" ({'as' if verdicts == golden else 'NOT as'} the JAX package's table)")
+    if rc != 0 or not report["ok"] or verdicts != golden or len(programs) != 12:
+        raise AssertionError(f"audit --grad: exit {rc}, findings {report['findings'][:3]}, "
+                             f"verdicts {verdicts}")
+
+
+def grad_phase() -> dict:
+    """Phase 19: a-e.  Returns the kernels' launches in b's gradient runs,
+    c's run through adam_step and d's runs (not their references')."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_grad_")
+    total = Counter()
+    try:
+        marks = [time.perf_counter()]
+        grad_programs_check()
+        marks.append(time.perf_counter())
+        total.update(grad_card_and_cpu(root))
+        marks.append(time.perf_counter())
+        total.update(adam_step_check(root))
+        marks.append(time.perf_counter())
+        total.update(fltrust_seed_check(root))
+        marks.append(time.perf_counter())
+        grad_command_check()
+        marks.append(time.perf_counter())
+        log("[phase 19] " + ", ".join(f"{k} {b - a:.1f} s" for k, a, b in
+                                      zip("abcde", marks, marks[1:])) + f" ({card_line()})")
+    finally:
+        shutil.rmtree(root)
+    return dict(total)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     parser.add_argument("--only", type=int, default=None, metavar="PHASE",
-                        help="after the build, run only this phase of 12-18 and print no "
+                        help="after the build, run only this phase of 12-19 and print no "
                              "result line (a development run)")
     parser.add_argument("--fixtures", type=str, default=None, metavar="DIR",
                         help="write phase 16's golden traces for the CPU tests into DIR")
@@ -4562,7 +4904,7 @@ def main(argv=None) -> int:
     if args.only is not None:
         phase = {12: fused_phase, 13: pipeline_phase, 14: telemetry_phase,
                  15: numerics_phase, 16: lambda: hotspots_phase(args.fixtures),
-                 17: matrix_phase, 18: audit_phase}[args.only]
+                 17: matrix_phase, 18: audit_phase, 19: grad_phase}[args.only]
         t0 = time.perf_counter()
         log(f"[only] phase {args.only}: launches {phase()} in {time.perf_counter() - t0:.1f} "
             f"s; no result line")
@@ -4602,12 +4944,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     audit_launches = audit_phase()
     log(f"[audit, guard, ledger and science] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    grad_launches = grad_phase()
+    log(f"[transform-safety auditor] phase done in {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] += (pipeline_launches.get(k["name"], 0)
                           + telemetry_launches.get(k["name"], 0)
                           + numerics_launches.get(k["name"], 0)
                           + hotspot_launches.get(k["name"], 0)
-                          + audit_launches.get(k["name"], 0))
+                          + audit_launches.get(k["name"], 0)
+                          + grad_launches.get(k["name"], 0))
         if k["name"] == "dropout_mask":
             k["launches"] += matrix["launches"]
             k["max_abs_err"] = max(k["max_abs_err"], matrix["max_abs_err"])

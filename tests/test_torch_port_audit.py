@@ -19,9 +19,10 @@ command) on the CPU, against the JAX package where both have the pass.
 5. The recompile guard passes ``run``, ``run_fast``, the pipeline and a
    sweep, and flags a body rebuilt, or a step graph captured, after
    round 1.
-6. ``audit --json --device cpu`` exits 0 on the tree with the keys of
-   ``tests/data/audit_report.json``; ``audit --grad`` is refused naming
-   item 16e.
+6. ``audit --json --device cpu --skip-grad`` exits 0 on the tree with the
+   keys of ``tests/data/audit_report.json``; ``audit --grad`` runs the
+   transform-safety auditor (tests/test_torch_port_grad_audit.py holds its
+   report) and ``--grad --skip-grad`` is refused, as JAX's.
 """
 
 import json
@@ -317,7 +318,7 @@ def test_recompile_guard_flags_a_rebuilt_body(tmp_path):
 
 
 def test_audit_command_is_clean_with_jaxs_keys(capsys):
-    assert port_cli.main(["audit", "--json", "--device", "cpu"]) == 0
+    assert port_cli.main(["audit", "--json", "--device", "cpu", "--skip-grad"]) == 0
     report = json.loads(capsys.readouterr().out)
     golden = json.loads((DATA / "audit_report.json").read_text())
     assert list(report) == list(golden)
@@ -335,12 +336,17 @@ def test_audit_command_is_clean_with_jaxs_keys(capsys):
     rules = {r["id"]: r["description"] for r in report["rules"]}
     assert {"host-sync", "donation-after-use", "retrace-hazard", "emit-kind",
             "event-schema", "program-audit", "retrace-guard"} <= set(rules)
-    assert "item 16e" in rules["grad-audit"] and "item 14" in rules["program-audit"]
+    assert "item 14" in rules["grad-audit"] and "item 14" in rules["program-audit"]
 
 
-def test_audit_grad_is_refused(capsys):
-    assert port_cli.main(["audit", "--grad"]) == 2
-    assert "ROADMAP.md queue 1, item 16e" in capsys.readouterr().err
+def test_audit_grad_runs_and_skip_grad_excludes_it(capsys):
+    with pytest.raises(SystemExit) as refused:
+        port_cli.main(["audit", "--grad", "--skip-grad"])
+    assert refused.value.code == 2
+    assert "--grad and --skip-grad are mutually exclusive" in capsys.readouterr().err
+    assert port_cli.main(["audit", "--grad", "--skip-programs", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.splitlines()[-1].endswith(
+        "0 program(s), 12 grad program(s), 10 dataflow verdict(s), 0 finding(s) — OK")
     assert port_cli.main(["audit", "--skip-programs", "--skip-sharded"]) == 0
     assert capsys.readouterr().out.splitlines()[-1].endswith("0 finding(s) — OK")
 
