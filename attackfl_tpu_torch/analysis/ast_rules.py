@@ -124,6 +124,11 @@ HOST_SIDE: dict[str, str] = {
     "ops/stats.py": "numpy statistical kernels (PCA, GMM, DBSCAN, MAD) "
                     "backing the host defense halves",
     "profiler/": "trace mining and the hotspots command: stdlib JSON",
+    "scheduler/": "job admission and pricing over resolved ledger JSON and "
+                  "spool state: float() on host scalars",
+    "service/": "the run service's queue, workers, daemon and client: int() "
+                "and bool() of spool JSON, HTTP bodies and the host counts "
+                "the engine returns; it holds no device tensor",
     "science/": "outcome analytics over the ledger's resolved host values",
     "telemetry/": "host-side observability over values the audited reads "
                   "already brought to the host (numerics.py is traced-only "

@@ -58,6 +58,7 @@ from typing import Any, Callable
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from attackfl_tpu_torch import device as devices
 from attackfl_tpu_torch.analysis.findings import Finding
 from attackfl_tpu_torch.analysis.registry import register_info
 from attackfl_tpu_torch.costmodel.capture import op_by_op
@@ -244,7 +245,7 @@ def _run_watched(fn: Callable, args: tuple, device: torch.device,
     (the caller's mode is restored), and its result."""
     on_card = device.type == "cuda"
     if on_card:
-        torch.cuda.synchronize(device)
+        devices.synchronize(device)
         previous = torch.cuda.get_sync_debug_mode()
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
@@ -258,7 +259,7 @@ def _run_watched(fn: Callable, args: tuple, device: torch.device,
             if on_card:
                 torch.cuda.set_sync_debug_mode(previous)
     if on_card:
-        torch.cuda.synchronize(device)
+        devices.synchronize(device)
     wall_ms = (time.perf_counter() - t0) * 1e3
     root = os.path.dirname(PACKAGE_DIR)
     return wall_ms, [f"cuda sync @ {os.path.relpath(w.filename, root)}:{w.lineno}"

@@ -13,9 +13,11 @@ rendezvous and take the attackers from the config's ``attack-clients``
 section.
 
 ``metrics`` summarizes a run's ``events.jsonl``, ``watch`` polls a live
-run's monitor (``--monitor``), ``hotspots`` mines a run's profiling
-windows and ``cost`` prices a config from the ledger, as the JAX
-package's commands do.  ``audit`` checks the port's invariants (the AST
+run's monitor (``--monitor``) or a run service's scheduler
+(``--schedule``), ``hotspots`` mines a run's profiling windows and
+``cost`` prices a config from the ledger, as the JAX package's commands
+do.  ``serve`` is the run service, a daemon that runs submitted jobs on
+the card through the scheduler, and ``job`` its HTTP client.  ``audit`` checks the port's invariants (the AST
 rules, the committed event files, the round programs), ``ledger`` queries
 and gates the cross-run records and ``science`` ranks a sweep's defenses,
 with the JAX package's output and exit codes.
@@ -53,7 +55,18 @@ commands:
   run      server --no-wait: attackers from the config's attack-clients
   metrics  summarize a run's events.jsonl (PATH, --run-id ID, --all,
            --json, --forensics, --numerics, --programs)
-  watch    poll a live run's monitor (URL, --interval S, --once)
+  watch    poll a live run's monitor (URL, --interval S, --once), or a run
+           service's scheduler (--schedule); --fleet is refused: item 21
+  serve    the run service: a durable job queue, supervised workers on one
+           device, the preemptive scheduler and an HTTP control plane
+           (--spool DIR, --config PATH, --port N, --device cuda|cpu,
+           --max-workers N, --queue-depth N, --worker-retries N,
+           --worker-backoff S, --inject-faults PLAN, --no-run-monitors,
+           --drain-grace S, --no-scheduler, --aging-rate X, --shed-horizon S,
+           --once); SIGTERM drains
+  job      the run service's client: submit [--config PATH] [--rounds N]
+           [--name S] [--priority high|normal|low], list, status ID,
+           cancel ID, wait ID [--timeout S] (--spool DIR or --url URL)
   hotspots mine a run's profiling windows: show [DIR] [--json] [--top K],
            diff A B [--json] [--hostbound-rise X] [--share-drift X]
   cost     the cost model: estimate --config PATH [--rounds N] [--dir D]
@@ -76,6 +89,8 @@ commands:
            FILE.. (--dir D)
   science  a sweep's robustness leaderboard: leaderboard [--outcomes],
            report [--out PATH], diff [OLD NEW] [--gate] (--dir D)
+  fleet    the fleet observatory over a service spool: not ported yet,
+           refused with its ROADMAP item (21)
 """
 
 
@@ -351,6 +366,57 @@ def _watch_backoff(failures: int, interval: float, cap: float = 60.0) -> float:
     return min(interval * (2 ** max(failures - 1, 0)), cap)
 
 
+def _watch_schedule(base: str, args) -> int:
+    """``watch --schedule``: poll a run service's ``/schedule`` endpoint
+    (JAX cli.py:368-418): one line a poll with the queue depth, predicted
+    backlog and totals, and a per-job table whenever the queue's
+    composition changes.  An unreachable service gets the monitor
+    poller's capped backoff."""
+    import http.client
+    import urllib.error
+
+    failures = 0
+    last_shape: tuple | None = None
+    while True:
+        try:
+            _, snap = _http_get_json(base + "/schedule")
+        except urllib.error.HTTPError as e:
+            print(f"[watch] /schedule -> http {e.code} (scheduler disabled?)",
+                  file=sys.stderr)
+            return 2
+        except (urllib.error.URLError, http.client.HTTPException, OSError,
+                ValueError) as e:
+            failures += 1
+            delay = _watch_backoff(failures, args.interval, args.max_backoff)
+            print(f"[watch] {base} unreachable: {e} "
+                  f"(retry {failures} in {delay:.1f}s)", file=sys.stderr)
+            if args.once:
+                return 2
+            time.sleep(delay)
+            continue
+        failures = 0
+        jobs = snap.get("jobs") or []
+        print(f"[watch] sched queue={snap.get('queue_depth')} "
+              f"backlog={snap.get('backlog_seconds', 0):.1f}s "
+              f"max_wait={snap.get('max_wait_seconds', 0):.1f}s "
+              f"preempted={snap.get('preempted_total')} "
+              f"shed={snap.get('shed_total')} "
+              f"broken={snap.get('circuit_broken_total')}", flush=True)
+        shape = tuple((j.get("job_id"), j.get("state")) for j in jobs)
+        if jobs and shape != last_shape:
+            last_shape = shape
+            for job in jobs:
+                print(f"[watch]   {job.get('job_id')} "
+                      f"{job.get('state'):<7} {job.get('priority'):<6} "
+                      f"eff={job.get('effective_priority')} "
+                      f"rem~{job.get('predicted_remaining_seconds')}s "
+                      f"preempts={job.get('preemptions')} "
+                      f"wait={job.get('wait_seconds')}s", flush=True)
+        if args.once:
+            return 0
+        time.sleep(args.interval)
+
+
 def watch_main(argv=None) -> int:
     """``watch``: thin poller of a live run's monitor endpoint
     (``--monitor`` on run/server; JAX cli.py:474-637): prints each new
@@ -362,8 +428,9 @@ def watch_main(argv=None) -> int:
     than crashing mid-watch.  The round line carries the cost model's
     live utilization (``/programs``) and the latest window's host-bound
     fraction (``/hotspots``); its mesh field of JAX's comes with the
-    port's mesh (ROADMAP item 14); ``--schedule`` and ``--fleet`` watch the
-    run service, which the port does not have yet (item 18)."""
+    port's mesh (ROADMAP item 14).  ``--schedule`` polls a run service's
+    ``/schedule`` instead (:func:`_watch_schedule`); ``--fleet`` polls the
+    fleet observatory's gauges, which are not ported yet (item 21)."""
     import http.client
     import urllib.error
 
@@ -382,16 +449,21 @@ def watch_main(argv=None) -> int:
                              "2 unreachable")
     parser.add_argument("--schedule", action="store_true",
                         help="watch a run service's /schedule endpoint "
-                             "(not ported yet, ROADMAP item 18)")
+                             "instead: queue depth, backlog vs horizon, "
+                             "per-job effective priorities and "
+                             "preemption/wait accounting")
     parser.add_argument("--fleet", action="store_true",
-                        help="watch a run service's fleet gauges "
-                             "(not ported yet, ROADMAP item 18)")
+                        help="watch a run service's fleet SLO gauges "
+                             "(not ported yet, ROADMAP item 21)")
     args = parser.parse_args(argv)
     base = args.url.rstrip("/")
-    if args.schedule or args.fleet:
-        print("watch --schedule and --fleet poll the run service, which is not "
-              "ported yet (ROADMAP.md queue 1, item 18)", file=sys.stderr)
+    if args.fleet:
+        from attackfl_tpu_torch.service import FLEET_NOT_PORTED
+
+        print(FLEET_NOT_PORTED, file=sys.stderr)
         return 2
+    if args.schedule:
+        return _watch_schedule(base, args)
 
     seen_round = object()
     stalled = False
@@ -547,10 +619,38 @@ def science_main(argv=None) -> int:
     return _science_main(list(sys.argv[1:] if argv is None else argv))
 
 
+def serve_main(argv=None) -> int:
+    """``serve``: the run service (JAX cli.py:655-664): a daemon with a
+    durable job queue, supervised workers on one device (the card unless
+    ``--device cpu``), the preemptive scheduler and an HTTP control plane;
+    SIGTERM drains."""
+    from attackfl_tpu_torch.service.cli import serve_main as _serve_main
+
+    return _serve_main(list(sys.argv[1:] if argv is None else argv))
+
+
+def job_main(argv=None) -> int:
+    """``job``: the run service's client, submit/list/status/cancel/wait
+    over HTTP (JAX cli.py:667-672)."""
+    from attackfl_tpu_torch.service.cli import job_main as _job_main
+
+    return _job_main(list(sys.argv[1:] if argv is None else argv))
+
+
+def fleet_main(argv=None) -> int:
+    """``fleet``: the fleet observatory's command, refused naming its
+    ROADMAP item until it is ported."""
+    from attackfl_tpu_torch.service import FLEET_NOT_PORTED
+
+    print(FLEET_NOT_PORTED, file=sys.stderr)
+    return 2
+
+
 _SUBCOMMANDS = {"run": run_main, "server": server_main, "client": client_main,
                "metrics": metrics_main, "watch": watch_main, "hotspots": hotspots_main,
                "cost": cost_main, "matrix": matrix_main, "audit": audit_main,
-               "ledger": ledger_main, "science": science_main}
+               "ledger": ledger_main, "science": science_main, "serve": serve_main,
+               "job": job_main, "fleet": fleet_main}
 
 
 def main(argv=None) -> int:

@@ -112,7 +112,14 @@ class TelemetryConfig:
 
 @dataclass(frozen=True)
 class ServiceConfig:
-    """Run-service daemon knobs (read by no port code yet)."""
+    """Run-service daemon knobs (``python -m attackfl_tpu_torch serve``;
+    JAX config.py:190-223): the spool, the control plane's port, the
+    admission bounds (``max_workers`` concurrent runs, ``queue_depth``
+    live jobs), the worker's restart budget and backoff, the per-run
+    monitors, the SIGTERM drain's grace, and the scheduler's knobs
+    (aging, anti-thrash runtime, shed horizon, circuit breaker, default
+    price).  The daemon's device is not a config field: ``serve
+    --device`` (default ``cuda``)."""
 
     spool_dir: str = ""
     port: int = 8781

@@ -52,6 +52,7 @@ them, its bookkeeping does not.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Callable
@@ -99,17 +100,27 @@ _TRANSCENDENTAL = frozenset({
     _aten._log_softmax, _aten.logsumexp,
 })
 
-# the counters counting now, innermost last
-_ACTIVE: list["ProgramCounter"] = []
-# the op_by_op() blocks open now
-_OP_BY_OP: list[bool] = []
+class _Stacks(threading.local):
+    """This thread's open counts, as torch's dispatch-mode stack is this
+    thread's: a run service's jobs count their programs from threads of
+    one process, and a kernel launched in one must not add to another's
+    count."""
+
+    def __init__(self):
+        # the counters counting now, innermost last
+        self.active: list["ProgramCounter"] = []
+        # the op_by_op() blocks open now
+        self.op_by_op: list[bool] = []
+
+
+_STACKS = _Stacks()
 
 
 def counting() -> bool:
     """True inside a counted dispatch or an :func:`op_by_op` block: ops
     must dispatch one by one there to be seen, so a captured graph is not
     replayed there."""
-    return bool(_ACTIVE or _OP_BY_OP)
+    return bool(_STACKS.active or _STACKS.op_by_op)
 
 
 @contextmanager
@@ -117,11 +128,11 @@ def op_by_op():
     """Run the programs called inside op by op, as a counted dispatch
     runs them (no captured graph's replay), for another dispatch mode that
     must see every op (the program audit's)."""
-    _OP_BY_OP.append(True)
+    _STACKS.op_by_op.append(True)
     try:
         yield
     finally:
-        _OP_BY_OP.pop()
+        _STACKS.op_by_op.pop()
 
 
 _FORMULAS: dict = {}
@@ -252,7 +263,7 @@ def kernel_work(flops: int = 0, bytes: int = 0, transcendentals: int = 0):  # no
     kernel's plain version runs aten ops the kernel does not): the
     counting mode steps off the dispatch stack, so they run at full
     speed.  Costs nothing when no program is being counted."""
-    counter = _ACTIVE[-1] if _ACTIVE else None
+    counter = _STACKS.active[-1] if _STACKS.active else None
     if counter is None:
         yield
         return
@@ -290,13 +301,13 @@ def count_program(fn: Callable, *args, device: torch.device | str | None = None,
         before = _allocated(device)
         peak_before = torch.cuda.max_memory_allocated(device)
         counter.peak_sampled = before
-    _ACTIVE.append(counter)
+    _STACKS.active.append(counter)
     t0 = time.perf_counter()
     try:
         with _CountingMode(counter):
             result = fn(*args, **kwargs)
     finally:
-        _ACTIVE.remove(counter)
+        _STACKS.active.remove(counter)
     profile: dict[str, Any] = {
         "flops": counter.flops, "transcendentals": counter.transcendentals,
         "bytes_accessed": counter.bytes_accessed, "ops": counter.ops,

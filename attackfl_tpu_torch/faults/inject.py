@@ -8,8 +8,8 @@ returns ``broadcast_number -> (C,) bool``: a compare and a reduction on
 the device, with no device-to-host sync (JAX inject.py:248-277).
 
 Host side: :class:`HostFaultInjector` is the one object the checkpoint
-manager, the async writer's wiring and the round loop consult (JAX
-inject.py:297-398).  It owns the consumable state (the remaining
+manager, the async writer's wiring, the round loop and the run service's
+queue, workers, scheduler and pricer consult (JAX inject.py:297-398).  It owns the consumable state (the remaining
 ``ckpt_write_error`` budgets, the fired-once latches).  Each firing is
 a ``fault`` event with the ``faults_injected`` counter, as in the JAX
 package, and is also logged and kept in :attr:`HostFaultInjector.records`.
@@ -28,6 +28,12 @@ from attackfl_tpu_torch.faults.plan import DEVICE_FAULT_KINDS, FaultSpec, device
 from attackfl_tpu_torch.ops.pytree import tree_map
 
 log = logging.getLogger("attackfl_tpu_torch")
+
+
+class WorkerDeathError(RuntimeError):
+    """Injected run-service worker crash (``worker_death``): raised out of
+    the worker's per-round stop hook, so it travels through the run's
+    ``finally`` chain as a real crash Python can still observe would."""
 
 
 def build_client_fault_fn(plan: Sequence[FaultSpec], num_clients: int, kind: str,
@@ -84,9 +90,13 @@ class HostFaultInjector:
     after its round.  The async writer's thread calls the checkpoint
     seams; the round loop never calls them at the same time.
     ``monitor_stall`` fires through :meth:`maybe_stall_monitor` once a
-    round resolves, and is a no-op without a monitor.  The service and
-    scheduler kinds act on layers the port does not have, so nothing
-    fires them, as in a JAX run without those layers."""
+    round resolves, and is a no-op without a monitor.  The service kinds
+    fire at the run service's seams: ``worker_death`` in a worker's stop
+    hook, ``queue_torn`` after a status publish, ``submit_flood`` at a
+    submission; the scheduler kinds at a dispatch tick
+    (``preempt_storm``) and a pricing call (``estimate_skew``).  One
+    injector is shared by every worker of a daemon, so a one-shot kind
+    fires in whichever job reaches its seam first."""
 
     def __init__(self, plan: Sequence[FaultSpec], telemetry=None):
         self._plan = tuple(plan)
@@ -177,3 +187,80 @@ class HostFaultInjector:
             self._fired.add(key)
             seconds = monitor.simulate_hang()
             self._emit("monitor_stall", round_no, rewound_seconds=seconds)
+
+    # ---- run-service seams ------------------------------------------
+    def maybe_worker_death(self, completed_rounds: int) -> None:
+        """From a service worker's stop hook: raises
+        :class:`WorkerDeathError` once when an armed ``worker_death`` round
+        is reached; the worker's supervisor restarts the job with resume."""
+        for _spec in self._specs("worker_death", completed_rounds):
+            key = ("worker_death", completed_rounds)
+            if key in self._fired:
+                continue
+            self._fired.add(key)
+            self._emit("worker_death", completed_rounds)
+            raise WorkerDeathError(
+                f"injected worker death (fault plan, after {completed_rounds} completed rounds)")
+
+    def on_status_publish(self, seq: int, path: str) -> None:
+        """After the job queue's ``seq``-th status publish landed:
+        ``queue_torn`` truncates the entry to half its bytes.  The seal
+        keeps the honest hash, so the replay rejects the entry and requeues
+        the job from its spec and newest checkpoint."""
+        for _spec in self._specs("queue_torn", seq):
+            key = ("queue_torn", seq)
+            if key in self._fired:
+                continue
+            self._fired.add(key)
+            try:
+                size = os.path.getsize(path)
+                with open(path, "r+b") as fh:
+                    fh.truncate(max(size // 2, 1))
+            except OSError:
+                continue
+            self._emit("queue_torn", seq, path=path, truncated_to=max(size // 2, 1),
+                       original_bytes=size)
+
+    def flood_count(self, seq: int) -> int:
+        """At the queue's ``seq``-th submission: how many duplicates an
+        armed ``submit_flood`` injects (admission control must reject the
+        overflow explicitly); 0 otherwise."""
+        for spec in self._specs("submit_flood", seq):
+            key = ("submit_flood", seq)
+            if key in self._fired:
+                continue
+            self._fired.add(key)
+            self._emit("submit_flood", seq, count=spec.count)
+            return spec.count
+        return 0
+
+    # ---- scheduler seams --------------------------------------------
+    def preempt_storm_count(self, tick: int) -> int:
+        """At the scheduler's ``tick``-th dispatch tick: an armed
+        ``preempt_storm`` fires once at the first tick at or after its
+        round and returns how many running jobs to force-preempt."""
+        for spec in self._plan:
+            if spec.kind != "preempt_storm" or tick < spec.round:
+                continue
+            key = ("preempt_storm", spec.round)
+            if key in self._fired:
+                continue
+            self._fired.add(key)
+            self._emit("preempt_storm", tick, count=spec.count)
+            return spec.count
+        return 0
+
+    def estimate_skew_factor(self, seq: int) -> float:
+        """At the pricer's ``seq``-th call: from an armed
+        ``estimate_skew``'s round on, every price is multiplied by its
+        ``count`` (a wrong cost model stays wrong), evented once."""
+        factor = 1.0
+        for spec in self._plan:
+            if spec.kind != "estimate_skew" or seq < spec.round:
+                continue
+            key = ("estimate_skew", spec.round)
+            if key not in self._fired:
+                self._fired.add(key)
+                self._emit("estimate_skew", seq, factor=spec.count)
+            factor *= spec.count
+        return factor

@@ -13,9 +13,12 @@ step): ``nan_storm`` sets the selected clients' rows to NaN and clears
 their ok flags after the attack scatter; ``dropout`` forces the selected
 clients to drop the broadcast (size 0, every sample masked).  Host-side
 kinds (``faults/inject.HostFaultInjector``): ``ckpt_write_error``,
-``ckpt_torn``, ``writer_death`` and ``monitor_stall``.  The service and
-scheduler kinds parse as in the JAX package; the layers that consult
-them are not ported yet.
+``ckpt_torn``, ``writer_death`` and ``monitor_stall``, and the run
+service's and scheduler's kinds, on the service's own clocks:
+``worker_death`` (a worker's completed rounds), ``queue_torn`` (the
+queue's status-publish count), ``submit_flood`` (its submission count),
+``preempt_storm`` (the scheduler's dispatch tick) and ``estimate_skew``
+(the pricer's call count).
 """
 
 from __future__ import annotations

@@ -33,12 +33,20 @@ kernel of ``scripts/tpu_validate_pallas.py``), as views into one arena; the
 torch-autograd local update (``training/local.py``) draws its dropout masks
 with it.  The hash itself lives in ``csrc/dropout_hash.cuh``, shared by
 both kernels.
+
+Each wrapper counts its launches in a process-wide attribute
+(``run_epoch.launches``, ``fill_masks.launches``), read and reset by
+whoever measures a path.  The run service's jobs launch from several
+threads of one process, so a count is bumped under a lock
+(:func:`_count_launch`): an attribute's ``+=`` is a read and a write,
+and two threads between them lose one.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Any, Callable
 
 import numpy as np
@@ -47,6 +55,14 @@ import torch.nn.functional as F
 
 from attackfl_tpu_torch.costmodel.capture import is_fake, kernel_work
 from attackfl_tpu_torch.ops.pytree import tree_broadcast, tree_map, under_gradient
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch(wrapper) -> None:
+    """One launch more on ``wrapper.launches``, safe across threads."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 D = 64          # model width
 FF = 8          # ffn dim 6, padded to 8 (pad rows/cols stay zero)
@@ -310,7 +326,7 @@ def _fill_masks_on_card(keys: torch.Tensor, specs) -> list[torch.Tensor]:
                                     len(specs), torch.cuda.current_stream(keys.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dropout_mask kernel launch failed: CUDA error {rc}")
-    fill_masks.launches += 1
+    _count_launch(fill_masks)
     return views
 
 
@@ -625,7 +641,7 @@ def _run_epoch(p, m, v, batches, seed, t_offset, *, lr, clip, drop_attn, drop_bl
         raise ValueError(f"run_epoch runs on cuda or cpu, not {batches.device}")
     loss = _launch(p, m, v, batches, _seed_tensor(seed, batches.device), int(seed_offset),
                    int(t_offset), kw["lr"], kw["clip"], rates)
-    run_epoch.launches += 1
+    _count_launch(run_epoch)
     return p, m, v, loss
 
 

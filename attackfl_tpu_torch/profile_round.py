@@ -25,6 +25,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from attackfl_tpu_torch import device as devices
 from attackfl_tpu_torch.config import AttackSpec, Config
 from attackfl_tpu_torch.device import resolve_device
 from attackfl_tpu_torch.training.engine import Simulator
@@ -70,7 +71,7 @@ def main(argv=None) -> int:
                  num_round=rounds + 1)
     sim = Simulator(cfg, device="cuda")
     state, _ = sim.run_round(sim.init_state())          # warm-up: build, caches
-    torch.cuda.synchronize()
+    devices.synchronize("cuda")
 
     history = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -78,7 +79,7 @@ def main(argv=None) -> int:
         for _ in range(rounds):
             state, metrics = sim.run_round(state)
             history.append(metrics)
-        torch.cuda.synchronize()
+        devices.synchronize("cuda")
         wall = time.perf_counter() - t0
 
     # device-side entries only (kernels, copies): an operator's entry

@@ -6,7 +6,10 @@ port's copy of ``attackfl_tpu/profiler/capture.py``).
 ``profile_rounds``) and:
 
 * **fails open** — a missing/unwritable profile directory, another
-  profiler already active, or a raising ``start`` degrades to a
+  profiler already active, another window open in the process (the run
+  service's jobs are threads of one process, and a second
+  ``torch.profiler`` session started beside a first ends the first's and
+  crashes its stop), or a raising ``start`` degrades to a
   schema-v14 ``hotspot`` event with ``status: unavailable`` plus a
   counter; the run itself is never affected, and the window is spent so
   a broken profiler is asked exactly once, not every round;
@@ -41,14 +44,18 @@ import itertools
 import os
 import shutil
 import socket
+import threading
 import time
 from typing import Any
 
+from attackfl_tpu_torch.device import CAPTURE_LOCK
 from attackfl_tpu_torch.profiler.mine import compact_summary, find_traces, mine_trace
 from attackfl_tpu_torch.telemetry.console import print_with_color
 
 # the n of <host>.<pid>.<n>.<device>.trace.json.gz, per process
 _WINDOWS = itertools.count()
+# held while a window is open: one torch.profiler session per process
+_OPEN = threading.Lock()
 
 
 def _short(error: BaseException) -> str:
@@ -134,7 +141,11 @@ class HotspotCapture:
             return
         self._seen = frozenset(find_traces(path))
         t0 = time.perf_counter()
+        owned = False
         try:
+            owned = _OPEN.acquire(blocking=False)
+            if not owned:
+                raise RuntimeError("another profiling window is open in this process")
             if _profiler_active():
                 raise RuntimeError("another torch profiler is already active")
             from torch.profiler import ProfilerActivity, profile
@@ -145,6 +156,8 @@ class HotspotCapture:
             profiler = profile(activities=activities)
             profiler.start()
         except Exception as e:  # noqa: BLE001 — profiling is best-effort
+            if owned:
+                _OPEN.release()
             self._degrade(path, first_round, last_round, program,
                           f"start failed ({_short(e)})")
             return
@@ -184,11 +197,15 @@ class HotspotCapture:
         out = os.path.join(self._path, f"{socket.gethostname()}.{os.getpid()}."
                                        f"{next(_WINDOWS)}.{self.device}.trace.json.gz")
         try:
-            t0 = time.perf_counter()
-            profiler.stop()
-            t1 = time.perf_counter()
-            _export(profiler, out)
-            t2 = time.perf_counter()
+            try:
+                t0 = time.perf_counter()
+                with CAPTURE_LOCK:
+                    profiler.stop()
+                t1 = time.perf_counter()
+                _export(profiler, out)
+                t2 = time.perf_counter()
+            finally:
+                _OPEN.release()
         except Exception as e:  # noqa: BLE001
             reason = f"stop failed ({_short(e)})"
             self.telemetry.events.emit("profile", action="stop_failed", error=_short(e))

@@ -10,14 +10,21 @@ is off and the snapshot is always available in-process
 
 from __future__ import annotations
 
+import threading
+
 
 class Counters:
+    """The counts, bumped under a lock: the run service's workers share
+    one registry from their own threads."""
+
     def __init__(self):
         self._counts: dict[str, int] = {}
+        self._lock = threading.Lock()
 
     def inc(self, name: str, n: int = 1) -> int:
-        value = self._counts.get(name, 0) + int(n)
-        self._counts[name] = value
+        with self._lock:
+            value = self._counts.get(name, 0) + int(n)
+            self._counts[name] = value
         return value
 
     def get(self, name: str) -> int:

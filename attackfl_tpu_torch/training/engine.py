@@ -132,6 +132,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from attackfl_tpu_torch import device as devices
 from attackfl_tpu_torch.config import Config, parse_profile_rounds
 from attackfl_tpu_torch.costmodel.capture import count_program, warm
 from attackfl_tpu_torch.data.partition import dirichlet_label_partition
@@ -1143,8 +1144,7 @@ class Simulator:
                 new_state, metrics = self._run_hyper_round(state, broadcast_number, metrics)
             else:
                 new_state, metrics = self._run_plain_round(state, broadcast_number, metrics)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            devices.synchronize(self.device)
         metrics["seconds"] = time.perf_counter() - t0
         self.telemetry.events.round_event(metrics)
         return new_state, metrics
@@ -1208,8 +1208,7 @@ class Simulator:
                 new_global = self._dispatch("aggregate", self.aggregate,
                                             state["global_params"], stacked, sizes,
                                             weights_mask, draws)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                devices.synchronize(self.device)
             if self._validation_due(broadcast_number):
                 if self.cfg.validation_async:
                     self._inflight_validations.append(
@@ -1284,8 +1283,7 @@ class Simulator:
                 # dropped clients (size 0) skip their step
                 hnet, opt = self._dispatch("hyper_update", self.hyper_update, hnet, opt,
                                            stacked, active_mask * (sizes > 0))
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                devices.synchronize(self.device)
             gen = None
             if self.detector is not None:
                 with timer.phase("detect"):

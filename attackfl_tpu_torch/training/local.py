@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch.func import grad_and_value, vmap
 
 from attackfl_tpu_torch.costmodel.capture import counting
+from attackfl_tpu_torch.device import CAPTURE_LOCK
 from attackfl_tpu_torch.ops import fused_step
 from attackfl_tpu_torch.ops.pytree import (
     tree_broadcast, tree_items, tree_map, tree_ravel_stacked, under_gradient, unraveler,
@@ -175,7 +176,9 @@ class StepGraph:
     runs the kernels the eager call runs, and gives its bits: a replay
     equals the eager step bit for bit on the H100 (``PERF.md``).
     It is captured once, after two eager calls on a side stream (cuBLAS's
-    handle and workspace), with no host sync."""
+    handle and workspace), with no host sync, holding
+    ``device.CAPTURE_LOCK``: another thread's device-wide sync during the
+    capture would invalidate it."""
 
     def __init__(self, step: Callable, p: torch.Tensor, binputs, by: torch.Tensor,
                  bmsk: torch.Tensor, masks, segment: int):
@@ -191,7 +194,7 @@ class StepGraph:
         current = torch.cuda.current_stream(p.device)
         side = torch.cuda.Stream(p.device)
         side.wait_stream(current)
-        with torch.cuda.stream(side):
+        with CAPTURE_LOCK, torch.cuda.stream(side):
             for _ in range(2):
                 step(*args)
             self.graph = torch.cuda.CUDAGraph()

@@ -178,6 +178,9 @@ class MatrixRun:
         self._resumed = False
         # set by run(): True when a stop hook cut the sweep short
         self.interrupted = False
+        # extra run_header fields a wrapping executor records (the run
+        # service's worker stamps its scheduler provenance, schema v11)
+        self.header_extra: dict[str, Any] = {}
         # which seam cut it short, when the stop hook returned a string
         self.stop_reason: str | None = None
         # quarantined cells: past the per-cell retry budget
@@ -334,7 +337,8 @@ class MatrixRun:
             model=self.cfg.model, data_name=self.cfg.data_name,
             total_clients=self.cfg.total_clients, torch_version=torch.__version__,
             platform=backend, git_rev=git_revision(), sweep_id=self.sweep_id,
-            grid=self.grid.describe(), config=dataclasses.asdict(self.cfg))
+            grid=self.grid.describe(), config=dataclasses.asdict(self.cfg),
+            **self.header_extra)
 
     def _live(self, done: dict[str, int]) -> list[Cell]:
         """The device cells still running: below the round target and
@@ -565,7 +569,8 @@ class MatrixRun:
             self.telemetry.events.emit("matrix", sweep_id=self.sweep_id, action="fallback",
                                        cell=cell.key, group=cell.group)
             sim = Simulator(self._fallback_config(cell), device=self.device)
-            sim.header_extra = {"sweep_id": self.sweep_id, "cell": cell.key}
+            sim.header_extra = {"sweep_id": self.sweep_id, "cell": cell.key,
+                                **self.header_extra}
             try:
                 if sim.supports_fused():
                     # per-cell specialization: the cell's own fused path

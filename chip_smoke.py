@@ -172,11 +172,12 @@ no result line):
  16. hotspot windows and the cost model -- see hotspots_phase;
  17. scenario matrix -- a. the sweep of LIE (z 0.74, from round 2) and
                  none x fedavg, krum, median, FLTrust, gmm and hyper x
-                 seeds 1 and 2 on config 4 (cut) under xla, a chunk of 3
-                 (12 batched, 4 mapped, 4 host, 4 special cells; the 16
-                 device cells' clients trained in one folded local update
-                 a broadcast, 1,600 rows): every device cell's final state
-                 against run_fast of its cell_config and one gmm and one
+                 seeds 1 and 2 on config 4 (cut, one epoch) under xla, 2
+                 rounds in a chunk of 2 (12 batched, 4 mapped, 4 host, 4
+                 special cells; the 16 device cells' clients trained in
+                 one folded local update a broadcast, 1,600 rows): every
+                 device cell's final state against run_fast of its
+                 cell_config and one gmm and one
                  hyper cell against run, bit for bit, with the same ok
                  sequences; b. K3 at the folded shape against its plain
                  version bit for bit, its time beside its bound; its
@@ -205,10 +206,12 @@ no result line):
                  and the pipeline at depth 2 under each backend with the
                  cost model on: nothing built, captured or loaded after
                  the snapshot; c. two plain pallas runs and one with a
-                 hotspot window over rounds 2-3 into one ledger: `ledger
-                 list`, `show`, `compare`, `regress --against` the first
-                 (the plain run's exit recorded, the windowed run's 1
-                 naming rounds_per_sec); d. two sweeps of LIE and none x
+                 hotspot window over rounds 2-3 into one ledger, and a
+                 copy of the first at half its rate: `ledger list`,
+                 `show`, `compare`, `regress --against` the first, each
+                 verdict agreeing with its records' rates against its
+                 threshold, the halved copy's 1 naming rounds_per_sec;
+                 d. two sweeps of LIE and none x
                  fedavg and median x seeds 1 and 2, 2 rounds: `ledger
                  list --sweep`, `regress --sweeps`, `science
                  leaderboard`, `report` and `diff --gate`, each exit 0;
@@ -239,12 +242,31 @@ no result line):
                  --json --device cuda` with the grad audit: ok, the
                  dataflow verdicts those of
                  tests/data/grad_audit_report.json.
+ 20. run service and scheduler -- config 4 (cut) jobs on RunService
+                 daemons on the card (service_phase): a0. a pallas and an
+                 xla job as a pair in two slots, their wall seconds against
+                 their standalone runs'; a. J1 (pallas, low), J2 (xla,
+                 normal), J4 (J1's config, high) and J3 (a 2 x 2 x 1
+                 matrix, normal) in two slots under SERVICE_PLAN: J2's torn
+                 status replayed, a storm preempting J1, J4 preempting J1,
+                 the flood's duplicates rejected and /submit's 429, J3's
+                 step graph captured beside another job's thread; a2. J5
+                 killed by worker_death after round 1 and restarted, J6 (no
+                 such model) failed after 2 attempts, J7 done; every job
+                 bit-equal to its config's standalone run on the card (each
+                 matrix cell to its run_fast), K1 and K3 launched as the
+                 jobs' rounds need; b, beside a and a2: `python -m
+                 attackfl_tpu_torch serve` as a process, three `job
+                 submit`s, kill -9 mid-run, a torn queued entry, a
+                 restart: every job done and bit-equal, then SIGTERM
+                 exits 0.
 Each of phases 4-15 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.  The kernels record's
 launches are phase 4's main path's, phase 13a's pipelined runs', phase
 14a's runs with telemetry on, phase 15a's runs with numerics on, phase
-16a's windowed runs, phase 17a's sweep, phase 18's programs and runs, and
-phase 19b's gradient runs, 19c's run through adam_step and 19d's runs.
+16a's windowed runs, phase 17a's sweep, phase 18's programs and runs,
+phase 19b's gradient runs, 19c's run through adam_step and 19d's runs, and
+phase 20's service jobs (a's, a2's, and b's daemons' by their /metrics).
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
 toolkit, imports nothing of JAX, and fails when run outside the repository.
@@ -299,6 +321,7 @@ from attackfl_tpu_torch.models.icu import T_HEAD, TransformerModel  # noqa: E402
 from attackfl_tpu_torch.ops import aggregators, attacks, build, defenses  # noqa: E402
 from attackfl_tpu_torch.ops import fused_step as tfs  # noqa: E402
 from attackfl_tpu_torch.ops import metrics as tmetrics  # noqa: E402
+from attackfl_tpu_torch.ledger import compare as ledger_compare  # noqa: E402
 from attackfl_tpu_torch.ledger.store import LedgerStore  # noqa: E402
 from attackfl_tpu_torch.ops.pytree import (  # noqa: E402
     tree_broadcast, tree_items, tree_leaves, tree_map, tree_ravel_stacked, tree_take, unraveler,
@@ -3693,12 +3716,12 @@ def hotspot_fail_open(root: str, off: dict) -> None:
         raise AssertionError(f"fail-open: {windows}, counter {count}, params equal {equal}")
 
 
-def config4_yaml(path: str, backend: str, log_path: str) -> str:
-    """Config 4 (cut) under ``backend`` as a config file, for the command
-    lines."""
+def config4_yaml(path: str, backend: str, log_path: str, **kw) -> str:
+    """Config 4 (cut) under ``backend`` (and ``kw``'s epochs) as a config
+    file, for the command lines."""
     import yaml
 
-    cfg = cut_config(local_backend=backend)
+    cfg = cut_config(local_backend=backend, **kw)
     attack = cfg.attacks[0]
     doc = {"server": {"num-round": cfg.num_round, "clients": cfg.total_clients,
                       "mode": cfg.mode, "model": cfg.model, "data-name": cfg.data_name,
@@ -3898,14 +3921,18 @@ def hotspots_phase(fixtures: str | None = None) -> dict:
     return dict(total)
 
 
-# phase 17: the scenario matrix on config 4 (cut) under xla, the grid of
-# the issue: LIE (z 0.74, from round 2) and `none` x fedavg, krum, median,
-# FLTrust, gmm, hyper (HyperNetwork, no detector) x seeds 1, 2, a chunk of
-# 3: 12 batched, 4 mapped, 4 host and 4 special cells
+# phase 17: the scenario matrix on config 4 (cut) under xla: LIE (z 0.74,
+# from round 2) and `none` x fedavg, krum, median, FLTrust, gmm, hyper
+# (HyperNetwork, no detector) x seeds 1, 2 over MATRIX_ROUNDS rounds in one
+# chunk: 12 batched, 4 mapped, 4 host and 4 special cells.  Cut in depth
+# from 3 rounds (a chunk of 3) and config 4 (cut)'s 2 local epochs,
+# for the script's time beside phase 20: every shape stays (the fold's
+# 1,600 rows, its steps' batches), LIE still attacks (round 2), and the
+# sweeps of phase 18 train MATRIX_EPOCHS epochs too
 MATRIX_ATTACKS = (AttackSpec(mode="LIE", num_clients=ATTACKERS, attack_round=2, args=(0.74,)),
                   AttackSpec(mode="none", num_clients=ATTACKERS, attack_round=2))
 MATRIX_DEFENSES = ("fedavg", "krum", "median", "FLTrust", "gmm", "hyper")
-MATRIX_SEEDS, MATRIX_CHUNK = (1, 2), 3
+MATRIX_SEEDS, MATRIX_ROUNDS, MATRIX_CHUNK, MATRIX_EPOCHS = (1, 2), 2, 2, 1
 # FLTrust's root set, ROOT_SIZE test rows at ROOT_BATCH: K3 launches a
 # broadcast of an FLTrust cell; the draws' file, which reads the card no more
 ROOT_STEPS = -(-tround.ROOT_SIZE // tround.ROOT_BATCH)
@@ -3913,14 +3940,15 @@ ROOT_SEED_SITE = "attackfl_tpu_torch/data/partition.py"
 
 
 def matrix_base(root: str, **kw) -> Config:
-    """Config 4 (cut) under xla as a sweep's base: threefry, iid."""
+    """Config 4 (cut) under xla at MATRIX_EPOCHS as a sweep's base:
+    threefry, iid."""
     return cut_config(local_backend="xla", prng_impl="threefry2x32", partition="iid",
-                      log_path=root, checkpoint_dir=root, **kw)
+                      epochs=MATRIX_EPOCHS, log_path=root, checkpoint_dir=root, **kw)
 
 
 def matrix_grid() -> GridSpec:
     return GridSpec(attacks=MATRIX_ATTACKS, defenses=MATRIX_DEFENSES, seeds=MATRIX_SEEDS,
-                    rounds=ROUNDS[1], chunk=MATRIX_CHUNK)
+                    rounds=MATRIX_ROUNDS, chunk=MATRIX_CHUNK)
 
 
 def matrix_sweep(base: Config, stop=None) -> dict:
@@ -4018,7 +4046,7 @@ def matrix_parity(base: Config, root: str, out: dict) -> dict:
         picked.setdefault(cell.group, cell)
     for cell in sweep.device_cells + list(picked.values()):
         directory = os.path.join(root, "alone", cell.key)
-        cfg = cell_config(base, cell, rounds=ROUNDS[1], log_path=directory,
+        cfg = cell_config(base, cell, rounds=MATRIX_ROUNDS, log_path=directory,
                           checkpoint_dir=directory, telemetry=TelemetryConfig(enabled=False))
         sim = Simulator(cfg, device="cuda")
         device_cell = cell.group in ("batched", "mapped")
@@ -4157,9 +4185,10 @@ def matrix_records(base: Config, root: str) -> None:
         f"{dict(actions)}, {len(science)} science event (leaderboard "
         f"{[(e['defense'], e['rank']) for e in science[0]['leaderboard']] if science else None}"
         f"); invalid {bad}")
-    if len(records) != len(MATRIX_DEFENSES) * 4 or len(ids) != 1 or bad or len(science) != 1:
+    if (len(records) != len(MATRIX_DEFENSES) * len(MATRIX_ATTACKS) * len(MATRIX_SEEDS)
+            or len(ids) != 1 or bad or len(science) != 1):
         raise AssertionError(f"matrix records {len(records)}, ids {ids}, invalid {bad}")
-    path = config4_yaml(os.path.join(root, "sweep.yaml"), "xla", root)
+    path = config4_yaml(os.path.join(root, "sweep.yaml"), "xla", root, epochs=MATRIX_EPOCHS)
     import yaml
 
     with open(path) as fh:
@@ -4168,7 +4197,7 @@ def matrix_records(base: Config, root: str) -> None:
                                   "attack-round": a.attack_round, "args": list(a.args)}
                                  for a in MATRIX_ATTACKS],
                      "defenses": list(MATRIX_DEFENSES), "seeds": list(MATRIX_SEEDS),
-                     "rounds": ROUNDS[1], "chunk": MATRIX_CHUNK}
+                     "rounds": MATRIX_ROUNDS, "chunk": MATRIX_CHUNK}
     with open(path, "w") as fh:
         yaml.safe_dump(doc, fh)
     for argv in (["matrix", "status", "--dir", os.path.join(root, "ledger")],
@@ -4268,7 +4297,7 @@ def matrix_phase() -> dict:
             f"{chunk['seconds'] / chunk['n']:.4f} (c's chunk: no count, the graph captured in "
             f"it), a's {out['chunks'][0]['seconds'] / out['chunks'][0]['n']:.4f} (its count, "
             f"eager) against the sum of "
-            f"their standalone run_fast rounds {sum(standalone.values()) / ROUNDS[1]:.4f} "
+            f"their standalone run_fast rounds {sum(standalone.values()) / MATRIX_ROUNDS:.4f} "
             f"({card_line()})")
         fold_costs(base, out)
         marks.append(time.perf_counter())
@@ -4284,8 +4313,9 @@ def matrix_phase() -> dict:
 # backend, and the sweep's program on AUDIT_GRID; b: the guard over each
 # executor (GUARD_RUNS: the rounds before the snapshot, the rounds in all,
 # run_fast's chunk) and over a sweep of AUDIT_GRID's cells; c: the ledger
-# commands over two plain pallas runs and a run with the hotspot window
-# HOTSPOT_WINDOW; d: two sweeps of SCIENCE_GRID and the sweep views; e:
+# commands over two plain pallas runs, a run with the hotspot window
+# HOTSPOT_WINDOW and a copy of the first at half its rate; d: two sweeps of
+# SCIENCE_GRID and the sweep views; e:
 # `audit --json --device cuda`
 AUDIT_GRID = dict(attacks=MATRIX_ATTACKS, defenses=("fedavg", "median"), seeds=(1,),
                   rounds=2, chunk=1)
@@ -4437,9 +4467,31 @@ def run_command(argv: list) -> tuple[int, str, float]:
     return rc, buf.getvalue(), time.perf_counter() - t0
 
 
+def halved_record(ledger: str, record_id: str) -> str:
+    """A copy of the ledger's record ``record_id`` at half its rates (the
+    steady and with-compile rounds/s, the mean and every rep), appended
+    under a new id: a candidate whose rate drop is known.  Returns its id."""
+    (record,) = [r for r in LedgerStore(ledger).load()[0] if r["record_id"] == record_id]
+    record = json.loads(json.dumps(record))
+    for key in ("rounds_per_sec_steady", "rounds_per_sec_incl_compile", "rounds_per_sec_mean"):
+        if isinstance(record.get(key), (int, float)):
+            record[key] = record[key] / 2
+    if isinstance(record.get("per_rep"), list):
+        record["per_rep"] = [v / 2 for v in record["per_rep"]]
+    record["record_id"] = record["run_id"] = f"{record_id}-halved"
+    return LedgerStore(ledger).append(record)
+
+
 def ledger_commands_check(root: str) -> dict:
     """18c: two plain pallas runs and one with the hotspot window over
-    rounds 2-3, into one ledger; `ledger list|show|compare|regress`."""
+    rounds 2-3, into one ledger, and a copy of the first at half its rate;
+    `ledger list|show|compare|regress`.  Each `regress` verdict must agree
+    with its two records' own rates: exit 1 naming rounds_per_sec exactly
+    when the candidate's rate falls more than the verdict's threshold below
+    the baseline's, and the halved copy must be flagged.  Whether the
+    window costs a run more than the threshold is the card's and the host's
+    to say (it did, and it did not, on the H100), so it is logged, not
+    gated."""
     ledger = os.path.join(root, "ledger")
     total, ids = Counter(), []
     for label, window in (("plain 1", ""), ("plain 2", ""), ("window", HOTSPOT_WINDOW)):
@@ -4452,30 +4504,43 @@ def ledger_commands_check(root: str) -> dict:
         total.update(launch_counts())
         ids.append(LedgerStore(ledger).load()[0][-1]["record_id"])
     first, second, windowed = ids
+    halved = halved_record(ledger, first)
     out = {}
+    pairs = {"regress": (first, second), "regress window": (first, windowed),
+             "regress halved": (first, halved)}
     for name, argv in (("list", ["list", "--json"]), ("show", ["show", second]),
                        ("compare", ["compare", first, second, "--json"]),
-                       ("regress", ["regress", second, "--against", first, "--json"]),
-                       ("regress window", ["regress", windowed, "--against", first, "--json"])):
+                       *((name, ["regress", cand, "--against", base, "--json"])
+                         for name, (base, cand) in pairs.items())):
         rc, text, seconds = run_command(["ledger", *argv, "--dir", ledger])
         out[name] = (rc, text)
         log(f"[ledger] {name}: exit {rc} in {seconds:.3f} s")
     perf = json.loads(out["compare"][1])["perf"]
     log("[ledger] compare plain 1 -> plain 2: " + ", ".join(
         f"{k} {v.get('pct', '-')}%" for k, v in perf.items()))
-    for name in ("regress", "regress window"):
+    rates = {r["record_id"]: ledger_compare.effective_rate(r)
+             for r in LedgerStore(ledger).load()[0]}
+    disagree = []
+    for name, (base, cand) in pairs.items():
         verdict = json.loads(out[name][1])
+        checks = [v["check"] for v in verdict["violations"]]
+        drop = 100.0 * (rates[base] - rates[cand]) / rates[base]
+        threshold = verdict["rate_threshold_pct"]
         violations = "; ".join(f"{v['check']} ({v.get('baseline')} -> {v.get('candidate')})"
                                for v in verdict["violations"])
         log(f"[ledger] {name}: exit {out[name][0]}, {verdict['checks']} checks, rate "
-            f"threshold {verdict['rate_threshold_pct']}%, violations {violations or 'none'}")
+            f"{rates[base]:.4f} -> {rates[cand]:.4f} r/s ({drop:.2f}% lower), rate threshold "
+            f"{threshold}%, violations {violations or 'none'}")
+        if (out[name][0] != (1 if checks else 0)
+                or ("rounds_per_sec" in checks) != (drop > threshold)):
+            disagree.append(name)
     listed = [e["record_id"] for e in json.loads(out["list"][1])]
-    window_checks = [v["check"] for v in json.loads(out["regress window"][1])["violations"]]
-    if (listed != ids or out["show"][0] != 0 or out["compare"][0] != 0
-            or out["regress"][0] not in (0, 1) or out["regress window"][0] != 1
-            or "rounds_per_sec" not in window_checks):
+    halved_checks = [v["check"] for v in json.loads(out["regress halved"][1])["violations"]]
+    if (listed != ids + [halved] or out["show"][0] != 0 or out["compare"][0] != 0
+            or disagree or "rounds_per_sec" not in halved_checks):
         raise AssertionError(f"ledger commands: listed {listed}, exits "
-                             f"{ {k: v[0] for k, v in out.items()} }, window {window_checks}")
+                             f"{ {k: v[0] for k, v in out.items()} }, verdicts against the "
+                             f"records' rates {disagree}, halved {halved_checks}")
     return dict(total)
 
 
@@ -4873,10 +4938,584 @@ def grad_phase() -> dict:
     return dict(total)
 
 
+# phase 20: the run service and its scheduler (ROADMAP items 18 and 20).
+# a0: J1's and J2's configs as a pair on a RunService with two slots, no
+# faults, against their standalone runs' seconds.  a: the same spool (its
+# ledger now prices J1's and J2's configs by their peers) on a service
+# with two slots, the scheduler on, SERVICE_PLAN (the 2nd status publish
+# torn, 3 duplicates flooded at the 3rd submission, J4's, against a depth
+# of 3 live jobs, every price x4, one running job force-preempted at the
+# 2nd dispatch tick) and the anti-thrash runtime lowered from 2 s.  a2: a
+# second service, one slot, worker_death after round 1.  b, in a thread
+# beside a and a2: `serve` as a process, three `job submit`s, kill -9, a
+# torn entry, a restart, SIGTERM.
+SERVICE_PLAN = ("queue_torn@2;submit_flood@3:count=3;estimate_skew@1:count=4;"
+                "preempt_storm@2:count=1")
+SERVICE_MIN_RUNTIME, SERVICE_DEPTH = 0.5, 3
+# J1 and J4 (config 4 under pallas): rounds enough that J1 is still
+# running when J4 arrives and J1 or J4 when J3 captures its step graph (at
+# 40 rounds both had ended); J2 under xla; J5, J6's successor and b's 2nd
+# and 3rd jobs under pallas
+LONG_ROUNDS, XLA_ROUNDS, SHORT_ROUNDS = 60, 3, 3
+# b's first job: rounds enough to be mid-run when its first checkpoint
+# lands and the daemon is killed
+MID_ROUNDS = 10
+# J3: LIE and none x fedavg and median x seed 1, 2 rounds, chunks of 1:
+# the cost model counts the first chunk's dispatch op by op, and the
+# second captures the fold's step graph
+SERVICE_GRID = {"attacks": [{"mode": "LIE", "num-clients": ATTACKERS, "attack-round": 2,
+                             "args": [0.74]},
+                            {"mode": "none", "num-clients": ATTACKERS, "attack-round": 2}],
+                "defenses": ["fedavg", "median"], "seeds": [1], "rounds": 2, "chunk": 1}
+SERVICE_TIMEOUT = 300.0
+
+
+def config4_raw(backend: str, rounds: int) -> dict:
+    """Config 4 (cut) under ``backend`` for ``rounds`` rounds as a job
+    spec's config mapping (the YAML schema)."""
+    cfg = cut_config(local_backend=backend, num_round=rounds)
+    attack = cfg.attacks[0]
+    raw = {"server": {"num-round": rounds, "clients": cfg.total_clients, "mode": cfg.mode,
+                      "model": cfg.model, "data-name": cfg.data_name,
+                      "train-size": cfg.train_size, "test-size": cfg.test_size,
+                      "genuine-rate": cfg.genuine_rate, "random-seed": cfg.random_seed,
+                      "data-distribution": {"num-data-range": list(cfg.num_data_range)}},
+           "learning": {"epoch": cfg.epochs, "batch-size": cfg.batch_size,
+                        "learning-rate": cfg.lr, "clip-grad-norm": cfg.clip_grad_norm},
+           "tpu": {"local-backend": backend},
+           "attack-clients": [{"mode": attack.mode, "num-clients": attack.num_clients,
+                               "attack-round": attack.attack_round,
+                               "args": list(attack.args)}]}
+    from attackfl_tpu_torch.config import config_from_dict
+
+    if config_fingerprint(config_from_dict(raw)) != config_fingerprint(cfg):
+        raise AssertionError(f"the {backend} job config is not config 4 (cut)")
+    return raw
+
+
+def wait_until(predicate, what: str, timeout: float = SERVICE_TIMEOUT, interval: float = 0.05):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        value = predicate()
+        if value:
+            return value
+        time.sleep(interval)
+    raise AssertionError(f"phase 20: timed out waiting for {what}")
+
+
+def terminal(service, job_id: str):
+    job = service.queue.get(job_id)
+    return job if job is not None and job.state in ("done", "failed", "cancelled") else None
+
+
+def state_gap(a: dict, b: dict) -> str | None:
+    """Where two host states differ (None: bit for bit the same)."""
+    return first_difference(to_cpu(a), to_cpu(b))
+
+
+def final_state(directory: str, name: str = "TransformerModel.pth") -> dict:
+    return torch.load(os.path.join(directory, name), weights_only=True, map_location="cpu")
+
+
+def standalone(raw: dict, root: str, label: str) -> tuple[dict, float]:
+    """The job's config run alone in this process (no service), saving as a
+    job does: the final checkpointed state and the seconds, construction
+    included.  A reference: its launches are not counted."""
+    from attackfl_tpu_torch.config import config_from_dict
+
+    directory = os.path.join(root, "alone", label)
+    cfg = config_from_dict(raw).replace(log_path=directory, checkpoint_dir=directory,
+                                        telemetry=TelemetryConfig(enabled=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, device="cuda")
+    _, history = sim.run(verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sim.close()
+    if not all(h["ok"] for h in history):
+        raise AssertionError(f"standalone {label}: a round failed")
+    return final_state(directory), seconds
+
+
+def matrix_standalone(raw: dict, root: str) -> dict:
+    """Each cell of J3's grid through ``run_fast`` of its cell_config on the
+    card (threefry, as the worker forces it): its host state."""
+    from attackfl_tpu_torch.config import config_from_dict
+    from attackfl_tpu_torch.matrix.grid import expand_cells, grid_from_dict
+
+    grid = grid_from_dict(SERVICE_GRID)
+    base = config_from_dict(raw).replace(prng_impl="threefry2x32")
+    out = {}
+    for cell in expand_cells(grid):
+        directory = os.path.join(root, "alone", cell.key)
+        cfg = cell_config(base, cell, rounds=grid.rounds, log_path=directory,
+                          checkpoint_dir=directory, telemetry=TelemetryConfig(enabled=False))
+        sim = Simulator(cfg, device="cuda")
+        with contextlib.redirect_stdout(io.StringIO()):
+            state, _ = sim.run_fast(state=sim.init_state(), chunk_size=grid.chunk,
+                                    save_checkpoints=False, verbose=False)
+        out[cell.key] = sim.host_state(dict(state, completed_rounds=int(state["completed_rounds"]),
+                                            have_genuine=bool(state["have_genuine"])))
+        sim.close()
+    return out
+
+
+def service_events(spool: str) -> list:
+    with open(os.path.join(spool, "service.events.jsonl")) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def job_report(label: str, service, job_id: str, events: list, note: str = "") -> dict:
+    """One job's line: its price and the method against the seconds its
+    runs took (the job's run_end events, every event valid), its queue
+    wait, preemptions and restarts."""
+    job = service.queue.get(job_id)
+    status = job.status
+    admit = next((e for e in events if e["kind"] == "schedule" and e["action"] == "admit"
+                  and e.get("job_id") == job_id), {})
+    directory = os.path.join(service.spool, "jobs", job_id)
+    ran = (sum(e["seconds"] for e in read_events(directory) if e["kind"] == "run_end")
+           if os.path.exists(os.path.join(directory, "events.jsonl")) else 0.0)
+    row = {"state": job.state, "price": admit.get("predicted_seconds"),
+           "method": admit.get("reason"), "ran": ran,
+           "wait": status.get("wait_seconds", 0.0),
+           "preemptions": int(status.get("preemptions", 0) or 0),
+           "restarts": int(status.get("attempts", 0) or 0)}
+    log(f"[service] {label} {job_id} {job.state}: price {row['price']} s ({row['method']}"
+        f"{note}) against {ran:.3f} s run (its run_end events), queue wait {row['wait']} s, "
+        f"preemptions {row['preemptions']}, restarts {row['restarts']}"
+        + (f" (last error: {status.get('error')})" if row["restarts"] else "")
+        + f" ({card_line()})")
+    return row
+
+
+def pair_run(root: str, raws: dict, alone_s: dict) -> None:
+    """a0: J1's and J2's configs submitted together to two slots with no
+    faults: the wall seconds from the submits to both done against the sum
+    of the standalone runs'; both bit-equal to their standalone runs."""
+    from attackfl_tpu_torch.service.daemon import RunService
+
+    spool = os.path.join(root, "a")
+    service = RunService(spool, port=0, max_workers=2, device="cuda")
+    service.start()
+    try:
+        t0 = time.perf_counter()
+        ids = {label: service.submit({"config": raws[label], "name": f"pair-{label}"})
+               for label in ("long", "xla")}
+        for job_id in ids.values():
+            wait_until(lambda j=job_id: terminal(service, j), f"pair job {job_id}")
+        wall = time.perf_counter() - t0
+    finally:
+        service.drain(timeout=60)
+        service.close()
+    gaps = {label: state_gap(final_state(os.path.join(spool, "jobs", job_id)),
+                             alone_s[label][0]) for label, job_id in ids.items()}
+    states = {label: service.queue.get(job_id).state for label, job_id in ids.items()}
+    total = alone_s["long"][1] + alone_s["xla"][1]
+    log(f"[service] a0: J1's config (pallas, {LONG_ROUNDS} rounds) and J2's (xla, {XLA_ROUNDS} "
+        f"rounds) as a pair at max_workers 2: {wall:.3f} s from the submits to both done "
+        f"against {alone_s['long'][1]:.3f} + {alone_s['xla'][1]:.3f} = {total:.3f} s run "
+        f"alone one after the other (construction included in both), ratio "
+        f"{wall / total:.3f}; states {states}; bits {gaps} ({card_line()})")
+    if set(states.values()) != {"done"} or any(gaps.values()):
+        raise AssertionError(f"pair: states {states}, gaps {gaps}")
+
+
+def capture_watch():
+    """Record each StepGraph capture: its seconds, the thread and the K1
+    launches other threads made meanwhile."""
+    captures = []
+    real_init = local.StepGraph.__init__
+
+    def init(self, *a, **k):
+        import threading
+
+        k1 = tfs.run_epoch.launches
+        t0 = time.perf_counter()
+        real_init(self, *a, **k)
+        torch.cuda.synchronize()
+        captures.append({"seconds": time.perf_counter() - t0,
+                         "thread": threading.current_thread().name,
+                         "k1_meanwhile": tfs.run_epoch.launches - k1,
+                         "threads": sorted(t.name for t in threading.enumerate()
+                                           if t.name.startswith("attackfl-worker-"))})
+
+    return captures, unittest.mock.patch.object(local.StepGraph, "__init__", init)
+
+
+def scheduling_run(root: str, raws: dict, refs: dict, cells: dict) -> dict:
+    """a: J1-J4 on one service, two slots.  Returns its K1 and K3
+    launches and the launches its jobs must make."""
+    from attackfl_tpu_torch.service.daemon import RunService
+
+    spool = os.path.join(root, "a")
+    service = RunService(spool, port=0, max_workers=2, queue_depth=SERVICE_DEPTH,
+                         device="cuda", sched_min_runtime=SERVICE_MIN_RUNTIME,
+                         fault_plan=parse_fault_plan(SERVICE_PLAN))
+    captures, patched = capture_watch()
+    reset_launches()
+    t0 = time.perf_counter()
+    with patched:
+        # J1 and J2 spooled before the daemon starts: J2's status publish,
+        # the 2nd, is torn and the start's replay requeues it; both start,
+        # and the storm at the 2nd tick preempts J1, the first running
+        j1 = service.submit({"config": raws["long"], "name": "J1", "priority": "low"})
+        j2 = service.submit({"config": raws["xla"], "name": "J2", "priority": "normal"})
+        service.start()
+        try:
+            wait_until(lambda: service.queue.get(j1).state == "running"
+                       and int(service.queue.get(j1).status.get("preemptions") or 0) >= 1,
+                       "J1 to resume after the storm")
+            # past the anti-thrash runtime, J4 (the 3rd submission, with the
+            # flood's 3 duplicates of it) arrives while J1 and J2 hold both
+            # slots; then one submit over HTTP
+            time.sleep(SERVICE_MIN_RUNTIME + 0.2)
+            slots = sorted(j.job_id for j in service.queue.jobs() if j.state == "running")
+            j4 = service.submit({"config": raws["long"], "name": "J4", "priority": "high"})
+            code, body = http_post(service.port, "/submit", {"config": raws["long"],
+                                                            "name": "probe"})
+            live = [j.job_id for j in service.queue.jobs() if j.state in ("queued", "running")]
+            rejected = service.telemetry.counters.get("jobs_rejected")
+            held = {j1: "J1", j2: "J2"}
+            log(f"[service] a: J4 submitted while {[held.get(j, j) for j in slots]} held the "
+                f"slots (J2 must still run: its 3 xla rounds outlast J1's resume); the flood "
+                f"at its submission: live jobs {len(live)}/{SERVICE_DEPTH}, rejected "
+                f"{rejected} (3 duplicates and the /submit); /submit answered {code}: "
+                f"{json.loads(body).get('error')}")
+            if (code != 429 or sorted(live) != sorted([j1, j2, j4]) or rejected != 4
+                    or slots != sorted([j1, j2])):
+                raise AssertionError(f"a: /submit answered {code}, live jobs {live}, "
+                                     f"rejected {rejected}, slots {slots}")
+            # J3 once J2 is done: it runs beside J4
+            wait_until(lambda: service.queue.get(j2).state == "done", "J2 to end")
+            j3 = service.submit({"type": "matrix", "config": raws["xla"], "grid": SERVICE_GRID,
+                                 "name": "J3", "priority": "normal", "sweep_id": "service-j3"})
+            ids = {"J1": j1, "J2": j2, "J3": j3, "J4": j4}
+            for label, job_id in ids.items():
+                wait_until(lambda j=job_id: terminal(service, j), f"{label} to end")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            health = health_code(service.port)
+        finally:
+            service.drain(timeout=60)
+            service.close()
+    events = service_events(spool)
+    rows = {label: job_report(f"a {label}", service, job_id, events, ", priced x4")
+            for label, job_id in ids.items()}
+    schedule = [(e["action"], e.get("job_id"), e.get("reason")) for e in events
+                if e["kind"] == "schedule" and e.get("job_id") in ids.values()]
+    faults = [e["fault"] for e in events if e["kind"] == "fault"]
+    replayed = [e.get("job_id") for e in events
+                if e["kind"] == "job" and e["action"] == "requeued"
+                and e.get("reason") == "status_torn"]
+    log(f"[service] a: {wall:.3f} s; schedule events of J1: "
+        f"{[(a, r) for a, j, r in schedule if j == j1]}; of J4: "
+        f"{[(a, r) for a, j, r in schedule if j == j4]}; faults {faults}; the torn status "
+        f"requeued {replayed}; /healthz {health}")
+    names = {f"attackfl-worker-{v}": k for k, v in ids.items()}
+    for c in captures:
+        log(f"[service] a: J3's step graph captured in {c['seconds']:.3f} s in "
+            f"{names.get(c['thread'], c['thread'])} beside "
+            f"{[names.get(t, t) for t in c['threads'] if t != c['thread']]}, K1 launched "
+            f"{c['k1_meanwhile']} times meanwhile from the other thread")
+    # bits: J1, J2 and J4 against their standalone runs, J3's cells
+    gaps = {label: state_gap(final_state(os.path.join(spool, "jobs", ids[label])),
+                             refs[key][0])
+            for label, key in (("J1", "long"), ("J2", "xla"), ("J4", "long"))}
+    sweep = torch.load(os.path.join(spool, "jobs", j3, matrix_exec.MATRIX_STATE_FILE),
+                       weights_only=True, map_location="cpu")
+    for key in cells:
+        mine = dict(sweep[key])
+        mine.pop("failures")
+        gaps[f"J3 {key}"] = state_gap(mine, cells[key])
+    log(f"[service] a: final states against the standalone runs: "
+        + ", ".join(f"{k} {'bit-equal' if v is None else 'DIFFERENT at ' + v}"
+                    for k, v in gaps.items()))
+    problems = []
+    if {r["state"] for r in rows.values()} != {"done"}:
+        problems.append({k: r["state"] for k, r in rows.items()})
+    if any(gaps.values()):
+        problems.append(gaps)
+    if ("preempt", j1, "priority") not in schedule or not any(
+            a == "resume" and j == j1 for a, j, _ in schedule):
+        problems.append("no priority preemption and resume of J1")
+    if sorted(faults) != sorted(["queue_torn", "submit_flood", "estimate_skew", "preempt_storm"]):
+        problems.append(f"faults {faults}")
+    if replayed != [j2] or health != 200:
+        problems.append(f"replayed {replayed}, /healthz {health}")
+    if not captures or any(len(c["threads"]) < 2 for c in captures):
+        problems.append(f"J3's capture ran beside no other job: {captures}")
+    if problems:
+        raise AssertionError(f"a: {problems}")
+    base = cut_config()
+    nb = -(-base.num_data_range[1] // base.batch_size)
+    grid_rounds = SERVICE_GRID["rounds"]
+    expect = {"fused_step": 2 * LONG_ROUNDS * base.epochs,
+              "dropout_mask": (XLA_ROUNDS + grid_rounds) * base.epochs * nb}
+    return {"launches": launches, "expect": expect, "wall": wall}
+
+
+def supervision_run(root: str, raws: dict, refs: dict) -> dict:
+    """a2: J5 under worker_death, J6 with no such model, J7 after it."""
+    from attackfl_tpu_torch.service.daemon import RunService
+
+    spool = os.path.join(root, "a2")
+    service = RunService(spool, port=0, max_workers=1, worker_retries=1, worker_backoff=0.05,
+                         worker_backoff_cap=0.1, device="cuda",
+                         fault_plan=parse_fault_plan("worker_death@1"))
+    reset_launches()
+    service.start()
+    try:
+        bad = json.loads(json.dumps(raws["short"]))
+        bad["server"]["model"] = "NoSuchModel"
+        bad["tpu"]["local-backend"] = "xla"   # pallas refuses any model but one first
+        ids = {"J5": service.submit({"config": raws["short"], "name": "J5"}),
+               "J6": service.submit({"config": bad, "name": "J6"}),
+               "J7": service.submit({"config": raws["short"], "name": "J7"})}
+        for label, job_id in ids.items():
+            wait_until(lambda j=job_id: terminal(service, j), f"{label} to end")
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        health = health_code(service.port)
+    finally:
+        service.drain(timeout=60)
+        service.close()
+    events = service_events(spool)
+    rows = {label: job_report(f"a2 {label}", service, job_id, events)
+            for label, job_id in ids.items()}
+    j6 = service.queue.get(ids["J6"]).status
+    job_events = read_events(os.path.join(spool, "jobs", ids["J5"]))
+    resumed = [e["round"] for e in job_events if e["kind"] == "resume"]
+    gaps = {label: state_gap(final_state(os.path.join(spool, "jobs", ids[label])),
+                             refs["short"][0]) for label in ("J5", "J7")}
+    log(f"[service] a2: J5 killed by worker_death after round 1, resumed from round "
+        f"{resumed}, {rows['J5']['restarts']} restart; J6 {j6['state']} after "
+        f"{j6.get('attempts')} attempts: {j6.get('error')}; J7 {rows['J7']['state']}; final "
+        f"states against the standalone run: "
+        + ", ".join(f"{k} {'bit-equal' if v is None else 'DIFFERENT at ' + v}"
+                    for k, v in gaps.items()) + f"; /healthz {health}")
+    if (rows["J5"]["state"] != "done" or rows["J5"]["restarts"] != 1 or resumed != [1]
+            or j6["state"] != "failed" or j6.get("attempts") != 2
+            or "NoSuchModel" not in str(j6.get("error")) or rows["J7"]["state"] != "done"
+            or any(gaps.values()) or health != 200):
+        raise AssertionError(f"a2: {rows}, J6 {j6}, resumed {resumed}, gaps {gaps}")
+    base = cut_config()
+    return {"launches": launches,
+            "expect": {"fused_step": 2 * SHORT_ROUNDS * base.epochs, "dropout_mask": 0}}
+
+
+def http_post(port: int, path: str, body: dict) -> tuple[int, bytes]:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body).encode(), method="POST")
+    req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def daemon_launches(url: str) -> dict:
+    """The daemon's /metrics kernel launch counts."""
+    with urllib.request.urlopen(url + "/metrics", timeout=10) as resp:
+        text = resp.read().decode()
+    out = {}
+    for name in KERNELS:
+        m = re.search(rf'attackfl_kernel_launches_total{{kernel="{name}"}} (\d+)', text)
+        out[name] = int(m.group(1)) if m else 0
+    return out
+
+
+def job_command(argv: list) -> tuple[int, str]:
+    """``python -m attackfl_tpu_torch job <argv>`` as a process of its own
+    (the `job` client imports no torch): exit code and stdout.  b runs
+    beside a and a2 in a thread, so it cannot redirect this process's
+    stdout as ``run_command`` does."""
+    done = subprocess.run([sys.executable, "-m", "attackfl_tpu_torch", "job", *argv], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+                          text=True, timeout=SERVICE_TIMEOUT + 60)
+    return done.returncode, done.stdout
+
+
+def daemon_run(root: str, raws: dict, refs: dict) -> dict:
+    """b: `serve` as a process on the card, three `job submit`s, kill -9
+    once the first job's manifest exists, a queued entry torn, a restart;
+    then SIGTERM.  Returns the daemons' kernel launches (/metrics)."""
+    import yaml
+
+    spool = os.path.join(root, "b")
+    paths = {}
+    for label in ("mid", "short"):
+        paths[label] = os.path.join(root, f"b-{label}.yaml")
+        with open(paths[label], "w") as fh:
+            yaml.safe_dump(raws[label], fh)
+    argv = [sys.executable, "-m", "attackfl_tpu_torch", "serve", "--spool", spool, "--port", "0",
+            "--max-workers", "1", "--worker-backoff", "0.05"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    logs = open(os.path.join(root, "serve.log"), "w")
+
+    def start():
+        proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=logs, stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+
+        def up():
+            if proc.poll() is not None:
+                raise AssertionError(f"serve exited {proc.returncode}")
+            try:
+                with open(os.path.join(spool, "service.json")) as fh:
+                    disc = json.load(fh)
+            except (OSError, ValueError):
+                return None
+            return disc["url"] if disc.get("pid") == proc.pid else None
+
+        url = wait_until(up, "serve's discovery file", interval=0.1)
+        return proc, url, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    marks = {}
+    proc, url, up_s = start()
+    first = None
+    launches = Counter()
+    try:
+        ids = []
+        for i, label in enumerate(("mid", "short", "short")):
+            rc, out = job_command(["submit", "--spool", spool, "--config", paths[label],
+                                   "--name", f"b{i + 1}"])
+            if rc != 0:
+                raise AssertionError(f"job submit exit {rc}")
+            ids.append(out.strip())
+        marks["submitted"] = time.perf_counter() - t0
+        wait_until(lambda: os.path.exists(os.path.join(spool, "jobs", ids[0], "manifest.json")),
+                   "b1's first checkpoint")
+        marks["first checkpoint"] = time.perf_counter() - t0
+        # a lower bound of the first daemon's launches: K1 may launch again
+        # between this read and the kill
+        first = daemon_launches(url)
+        proc.kill()
+        proc.wait(timeout=60)
+        marks["killed"] = time.perf_counter() - t0
+        status = os.path.join(spool, "queue", f"{ids[1]}.status.json")
+        with open(status, "rb") as fh:
+            data = fh.read()
+        with open(status, "wb") as fh:
+            fh.write(data[:len(data) // 2])
+        proc, url, up2_s = start()
+        marks["restarted"] = time.perf_counter() - t0
+        for job_id in ids:
+            rc, out = job_command(["wait", job_id, "--spool", spool, "--timeout",
+                                   str(int(SERVICE_TIMEOUT)), "--interval", "0.1"])
+            if rc != 0:
+                raise AssertionError(f"job wait {job_id}: exit {rc}: {out}")
+        marks["all done"] = time.perf_counter() - t0
+        launches.update(daemon_launches(url))
+        rc, listing = job_command(["list", "--spool", spool])
+        proc.terminate()
+        exit_code = proc.wait(timeout=120)
+        marks["drained"] = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        logs.close()
+    events = service_events(spool)
+    requeued = {e["job_id"]: e["reason"] for e in events
+                if e["kind"] == "job" and e["action"] == "requeued"}
+    gaps = {job_id: state_gap(final_state(os.path.join(spool, "jobs", job_id)),
+                              refs[label][0])
+            for job_id, label in zip(ids, ("mid", "short", "short"))}
+    log(f"[service] b: serve up in {up_s:.1f} s and {up2_s:.1f} s after the kill -9; "
+        f"the replay requeued {requeued}; `job list`: {' | '.join(listing.splitlines())}; "
+        f"SIGTERM exit {exit_code}; K1/K3 launches of the first daemon by its last /metrics "
+        f"before the kill (a lower bound) {first}, of the second {dict(launches)}; seconds "
+        f"from the first start: {', '.join(f'{k} {v:.1f}' for k, v in marks.items())}; "
+        f"final states against the "
+        f"standalone runs: " + ", ".join(f"{k} {'bit-equal' if v is None else 'DIFFERENT at ' + v}"
+                                         for k, v in gaps.items()) + f" ({card_line()})")
+    if (exit_code != 0 or requeued.get(ids[0]) != "interrupted"
+            or requeued.get(ids[1]) != "status_torn" or any(gaps.values())
+            or launches["fused_step"] == 0):
+        raise AssertionError(f"b: exit {exit_code}, requeued {requeued}, gaps {gaps}, "
+                             f"launches {dict(launches)}")
+    launches.update(first)
+    return dict(launches)
+
+
+def service_phase() -> dict:
+    """Phase 20: a0, then a and a2 in this thread beside b in another (b
+    waits on its `serve` processes most of its time).  Returns the
+    kernels' launches in a's and a2's jobs and b's daemons (not the
+    standalone runs', nor a0's)."""
+    import threading
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    try:
+        marks = [time.perf_counter()]
+        raws = {"long": config4_raw("pallas", LONG_ROUNDS), "xla": config4_raw("xla", XLA_ROUNDS),
+                "short": config4_raw("pallas", SHORT_ROUNDS),
+                "mid": config4_raw("pallas", MID_ROUNDS)}
+        log(f"[service] jobs: config 4 (cut: {DEPTH['cut']}) at full width under pallas for "
+            f"{LONG_ROUNDS} rounds (J1, J4), {MID_ROUNDS} (b1) and {SHORT_ROUNDS} (J5, J7, b2, b3), "
+            f"under xla "
+            f"for {XLA_ROUNDS} rounds (J2), and J3 a 2 x 2 x 1 matrix of J2's config and depth "
+            f"over {SERVICE_GRID['rounds']} rounds")
+        with contextlib.redirect_stdout(io.StringIO()):
+            refs = {label: standalone(raw, root, label) for label, raw in raws.items()}
+            cells = matrix_standalone(raws["xla"], root)
+        log("[service] standalone runs: " + ", ".join(
+            f"{k} {v[1]:.3f} s" for k, v in refs.items()) + f" ({card_line()})")
+        marks.append(time.perf_counter())
+        pair_run(root, raws, refs)
+        marks.append(time.perf_counter())
+        b = {}
+
+        def run_b():
+            t0 = time.perf_counter()
+            try:
+                b["launches"] = daemon_run(root, raws, refs)
+            except BaseException as e:  # noqa: BLE001 -- raised again in the phase's thread
+                b["error"] = e
+            b["seconds"] = time.perf_counter() - t0
+
+        side = threading.Thread(target=run_b, name="phase20-b", daemon=True)
+        side.start()
+        try:
+            a = scheduling_run(root, raws, refs, cells)
+            marks.append(time.perf_counter())
+            a2 = supervision_run(root, raws, refs)
+            marks.append(time.perf_counter())
+        finally:
+            side.join(timeout=3 * SERVICE_TIMEOUT)
+        if side.is_alive():
+            raise AssertionError("phase 20 b did not end")
+        if "error" in b:
+            raise b["error"]
+        marks.append(time.perf_counter())
+        total = Counter(a["launches"])
+        total.update(a2["launches"])
+        expect = Counter(a["expect"])
+        expect.update(a2["expect"])
+        log(f"[service] K1 and K3 launches over a and a2: {dict(total)} (a {a['launches']}, a2 "
+            f"{a2['launches']}), the jobs' rounds x epochs and rounds x steps {dict(expect)}; "
+            f"counted process-wide from every worker thread")
+        if total != expect:
+            raise AssertionError(f"service launches {dict(total)}, expected {dict(expect)}")
+        total.update(b["launches"])
+        log("[phase 20] " + ", ".join(f"{k} {y - x:.1f} s" for k, x, y in
+                                      zip(("references", "a0", "a", "a2", "b's wait after a2"),
+                                          marks, marks[1:]))
+            + f" (b {b['seconds']:.1f} s beside a and a2), in all {marks[-1] - marks[0]:.1f} s "
+            f"({card_line()})")
+    finally:
+        shutil.rmtree(root)
+    return dict(total)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     parser.add_argument("--only", type=int, default=None, metavar="PHASE",
-                        help="after the build, run only this phase of 12-19 and print no "
+                        help="after the build, run only this phase of 12-20 and print no "
                              "result line (a development run)")
     parser.add_argument("--fixtures", type=str, default=None, metavar="DIR",
                         help="write phase 16's golden traces for the CPU tests into DIR")
@@ -4904,7 +5543,8 @@ def main(argv=None) -> int:
     if args.only is not None:
         phase = {12: fused_phase, 13: pipeline_phase, 14: telemetry_phase,
                  15: numerics_phase, 16: lambda: hotspots_phase(args.fixtures),
-                 17: matrix_phase, 18: audit_phase, 19: grad_phase}[args.only]
+                 17: matrix_phase, 18: audit_phase, 19: grad_phase,
+                 20: service_phase}[args.only]
         t0 = time.perf_counter()
         log(f"[only] phase {args.only}: launches {phase()} in {time.perf_counter() - t0:.1f} "
             f"s; no result line")
@@ -4947,13 +5587,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     grad_launches = grad_phase()
     log(f"[transform-safety auditor] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    service_launches = service_phase()
+    log(f"[run service and scheduler] phase done in {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] += (pipeline_launches.get(k["name"], 0)
                           + telemetry_launches.get(k["name"], 0)
                           + numerics_launches.get(k["name"], 0)
                           + hotspot_launches.get(k["name"], 0)
                           + audit_launches.get(k["name"], 0)
-                          + grad_launches.get(k["name"], 0))
+                          + grad_launches.get(k["name"], 0)
+                          + service_launches.get(k["name"], 0))
         if k["name"] == "dropout_mask":
             k["launches"] += matrix["launches"]
             k["max_abs_err"] = max(k["max_abs_err"], matrix["max_abs_err"])

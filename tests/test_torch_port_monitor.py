@@ -350,7 +350,7 @@ def test_watch_once_prints_jaxs_lines(monitor, capsys):
     assert rc == 1 and "STALL detected" in out
     assert cli.main(["watch", "http://127.0.0.1:9", "--once"]) == 2
     assert cli.main(["watch", url, "--once", "--fleet"]) == 2
-    assert "item 18" in capsys.readouterr().err
+    assert "item 21" in capsys.readouterr().err
 
 
 @pytest.fixture(scope="module")
