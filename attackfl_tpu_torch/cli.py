@@ -13,14 +13,16 @@ rendezvous and take the attackers from the config's ``attack-clients``
 section.
 
 ``metrics`` summarizes a run's ``events.jsonl``, ``watch`` polls a live
-run's monitor (``--monitor``) or a run service's scheduler
-(``--schedule``), ``hotspots`` mines a run's profiling windows and
-``cost`` prices a config from the ledger, as the JAX package's commands
-do.  ``serve`` is the run service, a daemon that runs submitted jobs on
-the card through the scheduler, and ``job`` its HTTP client.  ``audit`` checks the port's invariants (the AST
-rules, the committed event files, the round programs), ``ledger`` queries
-and gates the cross-run records and ``science`` ranks a sweep's defenses,
-with the JAX package's output and exit codes.
+run's monitor (``--monitor``), a run service's scheduler (``--schedule``)
+or its SLO gauges (``--fleet``), ``hotspots`` mines a run's profiling
+windows and ``cost`` prices a config from the ledger, as the JAX
+package's commands do.  ``serve`` is the run service, a daemon that runs
+submitted jobs on the card through the scheduler, ``job`` its HTTP client
+and ``fleet`` the observatory over its spool.  ``audit`` checks the
+port's invariants (the AST rules, the committed event files, the round
+programs), ``ledger`` queries and gates the cross-run records and
+``science`` ranks a sweep's defenses, with the JAX package's output and
+exit codes.
 """
 
 from __future__ import annotations
@@ -54,9 +56,10 @@ commands:
            [True], --attack_mode MODE, --attack_round N, --attack_args X..)
   run      server --no-wait: attackers from the config's attack-clients
   metrics  summarize a run's events.jsonl (PATH, --run-id ID, --all,
-           --json, --forensics, --numerics, --programs)
+           --json, --forensics, --numerics, --programs, --merge: a run
+           directory's events.<i>.jsonl or a service spool's streams)
   watch    poll a live run's monitor (URL, --interval S, --once), or a run
-           service's scheduler (--schedule); --fleet is refused: item 21
+           service's scheduler (--schedule) or SLO gauges (--fleet)
   serve    the run service: a durable job queue, supervised workers on one
            device, the preemptive scheduler and an HTTP control plane
            (--spool DIR, --config PATH, --port N, --device cuda|cpu,
@@ -89,8 +92,9 @@ commands:
            FILE.. (--dir D)
   science  a sweep's robustness leaderboard: leaderboard [--outcomes],
            report [--out PATH], diff [OLD NEW] [--gate] (--dir D)
-  fleet    the fleet observatory over a service spool: not ported yet,
-           refused with its ROADMAP item (21)
+  fleet    the fleet observatory over a service spool: report [SPOOL]
+           [--json] (the SLO gauges and the per-tenant device-time ledger,
+           whose books must close), trace [SPOOL] [--out PATH]
 """
 
 
@@ -417,6 +421,66 @@ def _watch_schedule(base: str, args) -> int:
         time.sleep(args.interval)
 
 
+def _watch_fleet(base: str, args) -> int:
+    """``watch --fleet``: poll a run service's Prometheus ``/metrics``
+    endpoint (JAX cli.py:420-478) and render the scheduler and SLO gauges
+    one line per poll: queue depth, running jobs, per-priority p95 waits,
+    preemption and shed rates.  Same capped backoff as every other
+    watcher."""
+    import http.client
+    import urllib.error
+
+    failures = 0
+    while True:
+        try:
+            _, text = _http_get_text(base + "/metrics")
+        except urllib.error.HTTPError as e:
+            print(f"[watch] /metrics -> http {e.code}", file=sys.stderr)
+            return 2
+        except (urllib.error.URLError, http.client.HTTPException, OSError,
+                ValueError) as e:
+            failures += 1
+            delay = _watch_backoff(failures, args.interval,
+                                   args.max_backoff)
+            print(f"[watch] {base} unreachable: {e} "
+                  f"(retry {failures} in {delay:.1f}s)", file=sys.stderr)
+            if args.once:
+                return 2
+            time.sleep(delay)
+            continue
+        failures = 0
+        gauges = _parse_prom(text)
+
+        def g(name: str, default: float = 0.0) -> float:
+            return gauges.get(name, default)
+
+        line = (f"[watch] fleet queue={g('attackfl_sched_queue_depth'):.0f} "
+                f"running={g('attackfl_sched_running_jobs'):.0f} "
+                f"backlog={g('attackfl_sched_backlog_seconds'):.1f}s "
+                f"preempted={g('attackfl_sched_preempted_total'):.0f} "
+                f"shed={g('attackfl_sched_shed_total'):.0f}")
+        slo_parts = []
+        for name, value in sorted(gauges.items()):
+            if name.startswith("attackfl_slo_queue_wait_p95_seconds{"):
+                prio = name.split('priority="', 1)[-1].rstrip('"}')
+                slo_parts.append(f"p95[{prio}]={value:.1f}s")
+        if "attackfl_slo_preemption_rate" in gauges:
+            slo_parts.append(
+                f"preempt-rate={gauges['attackfl_slo_preemption_rate']}")
+        if "attackfl_slo_shed_rate" in gauges:
+            slo_parts.append(
+                f"shed-rate={gauges['attackfl_slo_shed_rate']}")
+        margin = gauges.get("attackfl_slo_starvation_bound_margin_seconds")
+        if margin is not None:
+            slo_parts.append(f"starv-margin={margin:.1f}s")
+        if slo_parts:
+            line += "  slo: " + " ".join(slo_parts)
+        print(line, flush=True)
+        if args.once:
+            return 0
+        time.sleep(args.interval)
+
+
 def watch_main(argv=None) -> int:
     """``watch``: thin poller of a live run's monitor endpoint
     (``--monitor`` on run/server; JAX cli.py:474-637): prints each new
@@ -429,8 +493,9 @@ def watch_main(argv=None) -> int:
     live utilization (``/programs``) and the latest window's host-bound
     fraction (``/hotspots``); its mesh field of JAX's comes with the
     port's mesh (ROADMAP item 14).  ``--schedule`` polls a run service's
-    ``/schedule`` instead (:func:`_watch_schedule`); ``--fleet`` polls the
-    fleet observatory's gauges, which are not ported yet (item 21)."""
+    ``/schedule`` instead (:func:`_watch_schedule`), ``--fleet`` its
+    Prometheus ``/metrics`` with the fleet's SLO gauges
+    (:func:`_watch_fleet`)."""
     import http.client
     import urllib.error
 
@@ -453,17 +518,17 @@ def watch_main(argv=None) -> int:
                              "per-job effective priorities and "
                              "preemption/wait accounting")
     parser.add_argument("--fleet", action="store_true",
-                        help="watch a run service's fleet SLO gauges "
-                             "(not ported yet, ROADMAP item 21)")
+                        help="watch a run service's Prometheus /metrics "
+                             "endpoint instead: scheduler gauges + the "
+                             "fleet SLO gauges (per-priority p95 queue "
+                             "wait, preemption/shed rates, starvation "
+                             "margin)")
     args = parser.parse_args(argv)
     base = args.url.rstrip("/")
-    if args.fleet:
-        from attackfl_tpu_torch.service import FLEET_NOT_PORTED
-
-        print(FLEET_NOT_PORTED, file=sys.stderr)
-        return 2
     if args.schedule:
         return _watch_schedule(base, args)
+    if args.fleet:
+        return _watch_fleet(base, args)
 
     seen_round = object()
     stalled = False
@@ -638,12 +703,13 @@ def job_main(argv=None) -> int:
 
 
 def fleet_main(argv=None) -> int:
-    """``fleet``: the fleet observatory's command, refused naming its
-    ROADMAP item until it is ported."""
-    from attackfl_tpu_torch.service import FLEET_NOT_PORTED
+    """``fleet``: the fleet observatory over a service spool (JAX
+    cli.py:697-705): ``report`` prints the SLO gauges and the per-tenant
+    device-time ledger (the books must close: busy + idle = wall x
+    slots), ``trace`` writes the Perfetto-loadable cross-job trace."""
+    from attackfl_tpu_torch.telemetry.fleet import main as _fleet_main
 
-    print(FLEET_NOT_PORTED, file=sys.stderr)
-    return 2
+    return _fleet_main(list(sys.argv[1:] if argv is None else argv))
 
 
 _SUBCOMMANDS = {"run": run_main, "server": server_main, "client": client_main,

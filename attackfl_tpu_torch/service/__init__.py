@@ -12,6 +12,9 @@ layer that turns a script you run into a system that serves.
   scheduler's dispatch and the HTTP control plane;
 * :mod:`.cli` — ``serve`` (the daemon) and the ``job`` client.
 
+The fleet observatory over a spool (``fleet report|trace``, ``/fleet``,
+the SLO gauges) is :mod:`attackfl_tpu_torch.telemetry.fleet`.
+
 The daemon resolves its device once and every job runs there: the card
 unless ``--device cpu`` is given.  Every recovery path is driven by the
 fault plan's service kinds (``worker_death``, ``queue_torn``,
@@ -19,8 +22,3 @@ fault plan's service kinds (``worker_death``, ``queue_torn``,
 """
 
 from attackfl_tpu_torch.service.queue import Job, JobQueue, QueueFullError  # noqa: F401
-
-# what the fleet observatory's entry points answer (the `fleet` command,
-# `watch --fleet`, the daemon's /fleet route) until it is ported
-FLEET_NOT_PORTED = ("the fleet observatory (`fleet report|trace`, `watch --fleet`, /fleet, "
-                    "the SLO gauges) is not ported yet (ROADMAP.md queue 1, item 21)")

@@ -42,9 +42,10 @@ submit/status/cancel endpoints beside the monitor-style ones, and the
 service-level ``/healthz`` aggregates every running job's
 healthy/degraded/stalled state (one stalled run flips the service to
 503 — same "no progress beats slow progress" precedence the run monitor
-keeps).  The fleet observatory is not ported (ROADMAP item 21): ``/fleet``
-answers 200 with an ``error`` naming it, as the JAX package's route
-answers when its import fails, and ``/metrics`` carries no SLO gauges.
+keeps).  ``/fleet`` answers the fleet observatory's SLO report and
+per-tenant device-time ledger, stitched live from the spool
+(:mod:`attackfl_tpu_torch.telemetry.fleet`), and ``/metrics`` carries its
+SLO gauges beside the scheduler's.
 """
 
 from __future__ import annotations
@@ -57,20 +58,20 @@ import uuid
 from typing import Any
 
 from attackfl_tpu_torch.device import resolve_device
-from attackfl_tpu_torch.service import FLEET_NOT_PORTED
 from attackfl_tpu_torch.scheduler.core import JobScheduler, OverloadShedError
 from attackfl_tpu_torch.service.queue import JobQueue, QueueFullError
 from attackfl_tpu_torch.service.worker import JobWorker
 from attackfl_tpu_torch.telemetry.core import Telemetry
 from attackfl_tpu_torch.telemetry.counters import Counters
 from attackfl_tpu_torch.telemetry.events import EventLog
+from attackfl_tpu_torch.telemetry.fleet import (
+    JOBS_DIRNAME, SERVICE_EVENTS_NAME, device_time_ledger, load_service_events, slo_report,
+)
 from attackfl_tpu_torch.telemetry.monitor import JsonHTTPServer, _sanitize
 from attackfl_tpu_torch.telemetry.trace import NullTracer
 from attackfl_tpu_torch.utils.atomicio import write_json_atomic
 
-SERVICE_EVENTS_NAME = "service.events.jsonl"
 DISCOVERY_NAME = "service.json"
-JOBS_DIRNAME = "jobs"
 LEDGER_DIRNAME = "ledger"
 
 
@@ -364,8 +365,9 @@ class RunService:
         return (503 if stalled else 200), payload
 
     def metrics_text(self) -> str:
-        """Prometheus exposition: job-state gauges, the scheduler's gauges,
-        the kernels' launch counts and the service counters."""
+        """Prometheus exposition: job-state gauges, the scheduler's and the
+        fleet's SLO gauges, the kernels' launch counts and the service
+        counters."""
         jobs = self.queue.jobs()
         by_state: dict[str, int] = {}
         for job in jobs:
@@ -417,6 +419,35 @@ class RunService:
                             f'attackfl_sched_wait_seconds'
                             f'{{priority="{tag}",stat="{stat}"}} '
                             f'{bucket[f"{stat}_seconds"]}')
+            # service-level SLO gauges: stitched from this daemon's own
+            # event stream, so the exported p95s cover the whole session,
+            # not just the jobs currently queued
+            try:
+                slo = slo_report(load_service_events(self.spool))
+            except Exception:  # noqa: BLE001 — observational endpoint
+                slo = None
+            if slo is not None:
+                lines.append(
+                    "# TYPE attackfl_slo_queue_wait_p95_seconds gauge")
+                for prio in sorted(slo.get("queue_wait_p95_seconds", {})):
+                    lines.append(
+                        f'attackfl_slo_queue_wait_p95_seconds'
+                        f'{{priority="{_sanitize(prio)}"}} '
+                        f'{slo["queue_wait_p95_seconds"][prio]}')
+                lines += [
+                    "# TYPE attackfl_slo_preemption_rate gauge",
+                    f"attackfl_slo_preemption_rate "
+                    f"{slo['preemption_rate']}",
+                    "# TYPE attackfl_slo_shed_rate gauge",
+                    f"attackfl_slo_shed_rate {slo['shed_rate']}",
+                ]
+                if slo.get("starvation_bound_margin_seconds") is not None:
+                    lines += [
+                        "# TYPE attackfl_slo_starvation_bound_margin_"
+                        "seconds gauge",
+                        f"attackfl_slo_starvation_bound_margin_seconds "
+                        f"{slo['starvation_bound_margin_seconds']}",
+                    ]
         # the port's hand-written kernels launched in this process so far
         # (every job's: the workers are this process's threads)
         from attackfl_tpu_torch.ops import fused_step
@@ -466,10 +497,17 @@ class RunService:
         return 200, self.scheduler.snapshot()
 
     def _route_fleet(self, query, body):
-        """The fleet observatory's route: 200 with an ``error`` naming its
-        ROADMAP item, as the JAX package's route answers when
-        ``telemetry.fleet`` does not import."""
-        return 200, {"error": FLEET_NOT_PORTED}
+        """The fleet observatory: the SLO report and the per-tenant
+        device-time ledger, stitched live from this daemon's own spool.
+        Books only fully close once the session ends (the wall clock keeps
+        running), so ``books_close`` here is advisory.  Fail-open: an
+        error is a 200 with the error in it."""
+        try:
+            events = load_service_events(self.spool)
+            return 200, {"slo": slo_report(events),
+                         "ledger": device_time_ledger(self.spool, events=events)}
+        except Exception as e:  # noqa: BLE001 — observational endpoint
+            return 200, {"error": f"{type(e).__name__}: {e}"[:300]}
 
     def _route_science(self, query, body):
         """The scenario science observatory: the defense

@@ -9,7 +9,10 @@ and the lifecycle lists the ledger record reads.  ``--forensics`` gives
 the defense's TPR/FPR from ``attribution`` events, ``--numerics`` the
 device-side round metrics, ``--programs`` the cost model's per-program
 profiles and roofline estimate, ``--json`` the summary as JSON.
-``--merge`` (multi-host, ROADMAP item 14) is refused.
+``--merge`` interleaves a run directory's per-process ``events.<i>.jsonl``
+files, or a run service spool's service and per-job streams, by ``ts``
+and reports the cross-process round skew (:mod:`.merge`); the other
+reports then read the merged stream.
 
 It reads JSON and does percentile arithmetic only, so it runs anywhere
 the file is.
@@ -300,9 +303,31 @@ def _select_runs(events: list[dict[str, Any]], run_id: str | None,
     return runs
 
 
-def _refused(what: str, item: str) -> int:
-    print(f"{what} is not ported yet (ROADMAP.md queue 1, {item})", file=sys.stderr)
-    return 2
+def _merge_main(args) -> int:
+    from attackfl_tpu_torch.telemetry import merge as merge_mod
+
+    try:
+        merged, per_process = merge_mod.merge_events(args.path)
+    except (FileNotFoundError, NotADirectoryError):
+        merged, per_process = [], {}
+    if not merged:
+        print(f"no events*.jsonl under {args.path!r}", file=sys.stderr)
+        return 2
+    if args.forensics:
+        return _forensics_main(args, merged, merged_stream=True)
+    if args.numerics:
+        return _numerics_main(args, merged)
+    if args.programs:
+        return _programs_main(args, merged)
+    skew = merge_mod.skew_summary(merged)
+    if args.json:
+        print(json.dumps({
+            "events_per_process": {str(k): v for k, v in per_process.items()},
+            "skew": skew,
+        }, indent=1))
+    else:
+        print(merge_mod.format_merge_report(merged, per_process, skew))
+    return 0
 
 
 def _numerics_main(args, events: list[dict[str, Any]]) -> int:
@@ -366,8 +391,23 @@ def _programs_main(args, events: list[dict[str, Any]]) -> int:
     return 0
 
 
-def _forensics_main(args, events: list[dict[str, Any]]) -> int:
-    from attackfl_tpu_torch.telemetry.forensics import forensics_summary, format_forensics
+def _forensics_main(args, events: list[dict[str, Any]],
+                    merged_stream: bool = False) -> int:
+    from attackfl_tpu_torch.telemetry.forensics import (
+        forensics_by_defense, forensics_summary, format_forensics,
+    )
+
+    if merged_stream and not args.run_id:
+        # a merged multi-stream spool (a service spool, a sweep's cell
+        # spools) is one cross-run aggregate with a per-defense breakdown
+        summary = forensics_by_defense(events)
+        if summary is None:
+            print("no attribution events found in the merged stream",
+                  file=sys.stderr)
+            return 2
+        print(json.dumps(summary, indent=1) if args.json
+              else format_forensics(summary))
+        return 0
 
     runs = _select_runs(events, args.run_id, args.all)
     if not runs:
@@ -403,8 +443,9 @@ def main(argv: list[str] | None = None) -> int:
                     "from attribution events; --numerics reports the "
                     "device-side round metrics; --programs reports the "
                     "cost model's per-program flops/bytes/memory profiles "
-                    "and roofline estimate.  --merge is not ported yet "
-                    "(ROADMAP item 14).")
+                    "and roofline estimate.  --merge interleaves a run "
+                    "directory's per-process events.<i>.jsonl files by ts "
+                    "and reports cross-process round skew.")
     parser.add_argument("path", nargs="?", default=".",
                         help="events.jsonl or a directory containing it")
     parser.add_argument("--run-id", type=str, default=None,
@@ -414,8 +455,11 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--json", action="store_true",
                         help="emit the summary as JSON instead of a table")
     parser.add_argument("--merge", action="store_true",
-                        help="per-process event files of a multi-host run "
-                             "(not ported yet, ROADMAP item 14)")
+                        help="interleave per-process event files "
+                             "(multi-process run) or a service spool's "
+                             "service + per-job streams (each job event "
+                             "stamped with its job_id) and report round "
+                             "skew")
     parser.add_argument("--forensics", action="store_true",
                         help="defense detection quality (TPR/FPR) from "
                              "attribution events")
@@ -432,8 +476,7 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
 
     if args.merge:
-        return _refused("--merge (the per-process event files of a multi-host run)",
-                        "item 14")
+        return _merge_main(args)
 
     try:
         events = load_events(args.path)

@@ -259,7 +259,18 @@ no result line):
                  attackfl_tpu_torch serve` as a process, three `job
                  submit`s, kill -9 mid-run, a torn queued entry, a
                  restart: every job done and bit-equal, then SIGTERM
-                 exits 0.
+                 exits 0; c. the fleet observatory on those spools: a's
+                 /fleet (no error) and SLO gauges (a p95 queue wait per
+                 priority class, the preemption rate above 0, the shed
+                 rate the stream's) before its service closes, `watch
+                 --fleet --once` against b's second daemon, then `fleet
+                 report --json` (books closed, the slots, a row for every
+                 dispatched job, J6 failed and the rest completed, J1
+                 preempted, every row priced) and `fleet trace` on a's,
+                 a2's and b's spools, `metrics --merge` (and
+                 `--forensics`) on a's, and the bill of b's killed job
+                 beside its slot events and its runs; no job, no kernel
+                 launch.
 Each of phases 4-15 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.  The kernels record's
 launches are phase 4's main path's, phase 13a's pipelined runs', phase
@@ -328,7 +339,9 @@ from attackfl_tpu_torch.ops.pytree import (  # noqa: E402
 )
 from attackfl_tpu_torch.profile_round import CONFIG4, DEPTH, self_device_us  # noqa: E402
 from attackfl_tpu_torch.profiler import mine  # noqa: E402
+from attackfl_tpu_torch.telemetry import merge  # noqa: E402
 from attackfl_tpu_torch.telemetry.events import validate_event  # noqa: E402
+from attackfl_tpu_torch.telemetry.summary import load_events  # noqa: E402
 from attackfl_tpu_torch.training import local  # noqa: E402
 from attackfl_tpu_torch.training import matrix_exec  # noqa: E402
 from attackfl_tpu_torch.training.matrix_exec import MatrixRun  # noqa: E402
@@ -5008,6 +5021,23 @@ def terminal(service, job_id: str):
     return job if job is not None and job.state in ("done", "failed", "cancelled") else None
 
 
+def settle_slots(service, label: str) -> None:
+    """Wait, its jobs ended, until the scheduler's next tick has released
+    their slots.  A drain stops the ticks, so a job that ended after the
+    last one keeps its acquire unreleased in the stream, and the fleet
+    ledger stretches that open span to the stream's last stop, over a
+    later session of the same spool (a fault of the reference, replicated:
+    ROADMAP.md §3).  a's spool holds a0's session and a's, so each session
+    ends with its books settled."""
+    t0 = time.perf_counter()
+    pending = len(service.scheduler.snapshot()["jobs"])
+    wait_until(lambda: not service.scheduler.snapshot()["jobs"], f"{label}'s slot releases",
+               interval=0.01)
+    log(f"[service] {label}: {pending} ended job(s) still held a slot when the jobs were "
+        f"seen ended; released by the scheduler's tick in {time.perf_counter() - t0:.3f} s, "
+        f"before the drain")
+
+
 def state_gap(a: dict, b: dict) -> str | None:
     """Where two host states differ (None: bit for bit the same)."""
     return first_difference(to_cpu(a), to_cpu(b))
@@ -5106,6 +5136,7 @@ def pair_run(root: str, raws: dict, alone_s: dict) -> None:
         for job_id in ids.values():
             wait_until(lambda j=job_id: terminal(service, j), f"pair job {job_id}")
         wall = time.perf_counter() - t0
+        settle_slots(service, "a0")
     finally:
         service.drain(timeout=60)
         service.close()
@@ -5197,7 +5228,9 @@ def scheduling_run(root: str, raws: dict, refs: dict, cells: dict) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = launch_counts()
+            settle_slots(service, "a")
             health = health_code(service.port)
+            fleet_live = fleet_live_check(service)
         finally:
             service.drain(timeout=60)
             service.close()
@@ -5254,7 +5287,8 @@ def scheduling_run(root: str, raws: dict, refs: dict, cells: dict) -> dict:
     grid_rounds = SERVICE_GRID["rounds"]
     expect = {"fused_step": 2 * LONG_ROUNDS * base.epochs,
               "dropout_mask": (XLA_ROUNDS + grid_rounds) * base.epochs * nb}
-    return {"launches": launches, "expect": expect, "wall": wall}
+    return {"launches": launches, "expect": expect, "wall": wall, "ids": ids,
+            "fleet_live": fleet_live}
 
 
 def supervision_run(root: str, raws: dict, refs: dict) -> dict:
@@ -5278,6 +5312,7 @@ def supervision_run(root: str, raws: dict, refs: dict) -> dict:
             wait_until(lambda j=job_id: terminal(service, j), f"{label} to end")
         torch.cuda.synchronize()
         launches = launch_counts()
+        settle_slots(service, "a2")
         health = health_code(service.port)
     finally:
         service.drain(timeout=60)
@@ -5302,7 +5337,7 @@ def supervision_run(root: str, raws: dict, refs: dict) -> dict:
             or any(gaps.values()) or health != 200):
         raise AssertionError(f"a2: {rows}, J6 {j6}, resumed {resumed}, gaps {gaps}")
     base = cut_config()
-    return {"launches": launches,
+    return {"launches": launches, "ids": ids,
             "expect": {"fused_step": 2 * SHORT_ROUNDS * base.epochs, "dropout_mask": 0}}
 
 
@@ -5411,6 +5446,7 @@ def daemon_run(root: str, raws: dict, refs: dict) -> dict:
         marks["all done"] = time.perf_counter() - t0
         launches.update(daemon_launches(url))
         rc, listing = job_command(["list", "--spool", spool])
+        watch = watch_fleet_command(url)
         proc.terminate()
         exit_code = proc.wait(timeout=120)
         marks["drained"] = time.perf_counter() - t0
@@ -5439,12 +5475,260 @@ def daemon_run(root: str, raws: dict, refs: dict) -> dict:
         raise AssertionError(f"b: exit {exit_code}, requeued {requeued}, gaps {gaps}, "
                              f"launches {dict(launches)}")
     launches.update(first)
-    return dict(launches)
+    return {"launches": dict(launches), "ids": ids, "watch": watch}
+
+
+# phase 20c: the fleet observatory on phase 20's spools (ROADMAP item 21).
+# Live: /fleet and the SLO gauges on /metrics of a's service before it
+# closes, `watch --fleet --once` against b's second daemon before its
+# drain.  Then `fleet report --json`, `fleet trace` and `metrics --merge`
+# over a's spool (a0's session and a's), a2's and b's (its killed daemon
+# and the restart).  It submits no job and launches neither kernel.
+FLEET_SLOTS = {"a": 2, "a2": 1, "b": 1}
+SLO_PRIORITIES = {"low", "normal", "high"}
+
+
+def fleet_live_check(service) -> dict:
+    """20c in a, its jobs ended and its service still up: /fleet answers
+    the SLO report and the ledger with no error; /metrics carries a p95
+    queue wait for each priority class a used and the preemption rate,
+    shed rate and starvation margin; the preemption rate is above 0 (J1
+    was preempted) and the shed rate is the stream's sheds over its admits
+    and sheds: the flood's 429s are depth rejections, which no shed
+    horizon priced."""
+    t0 = time.perf_counter()
+    code, body = http_get(service.port, "/fleet")
+    payload = json.loads(body)
+    _, text = http_get(service.port, "/metrics")
+    gauges = cli._parse_prom(text.decode())
+    events = load_events(os.path.join(service.spool, "service.events.jsonl"))
+    seconds = time.perf_counter() - t0
+    admits = sum(e.get("kind") == "schedule" and e.get("action") == "admit" for e in events)
+    sheds = sum(e.get("kind") == "schedule" and e.get("action") == "shed" for e in events)
+    rejected = service.telemetry.counters.get("jobs_rejected")
+    slo = {k: v for k, v in gauges.items() if k.startswith("attackfl_slo_")}
+    p95 = {k.split('priority="', 1)[1].rstrip('"}'): v for k, v in slo.items()
+           if k.startswith("attackfl_slo_queue_wait_p95_seconds{")}
+    shed_rate = round(sheds / (admits + sheds), 4) if admits + sheds else 0.0
+    ledger = payload.get("ledger") or {}
+    log(f"[20c] a live: /fleet {code} with {sorted(payload)}, books "
+        f"{'closed' if ledger.get('books_close') else 'OPEN'} at "
+        f"{ledger.get('identity_error_pct')}% so far; /metrics SLO gauges: "
+        + ", ".join(f"{k} {v}" for k, v in sorted(slo.items()))
+        + f"; shed rate {gauges.get('attackfl_slo_shed_rate')} against the stream's {sheds} "
+        f"sheds over {admits} admits ({shed_rate}), the flood's {rejected} rejections "
+        f"answered 429 at the queue's depth, not shed; {seconds:.3f} s ({card_line()})")
+    problems = []
+    if code != 200 or sorted(payload) != ["ledger", "slo"]:
+        problems.append(f"/fleet {code} {payload.get('error') or sorted(payload)}")
+    if set(p95) != SLO_PRIORITIES or any(
+            name not in gauges for name in ("attackfl_slo_preemption_rate",
+                                             "attackfl_slo_shed_rate",
+                                             "attackfl_slo_starvation_bound_margin_seconds")):
+        problems.append(f"SLO gauges {sorted(slo)}")
+    if not gauges.get("attackfl_slo_preemption_rate", 0) > 0:
+        problems.append("preemption rate 0")
+    if gauges.get("attackfl_slo_shed_rate") != shed_rate or sheds or rejected != 4:
+        problems.append(f"shed rate {gauges.get('attackfl_slo_shed_rate')}, sheds {sheds}, "
+                        f"admits {admits}, rejected {rejected}")
+    if problems:
+        raise AssertionError(f"20c a live: {problems}")
+    return seconds
+
+
+def watch_fleet_command(url: str) -> dict:
+    """20c in b: ``python -m attackfl_tpu_torch watch --fleet --once`` as a
+    process against the restarted daemon: exit 0 and an ``slo:`` part."""
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "attackfl_tpu_torch", "watch", "--fleet",
+                           "--once", url], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=120)
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0 or "slo:" not in done.stdout:
+        raise AssertionError(f"20c b: watch --fleet --once exit {done.returncode}: "
+                             f"{done.stdout} {done.stderr}")
+    return {"seconds": seconds, "line": done.stdout.strip()}
+
+
+def run_command_err(argv: list) -> tuple[int, str, str]:
+    """``run_command`` with the standard error kept: code, stdout, stderr."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, out, _ = run_command(argv)
+    return rc, out, err.getvalue()
+
+
+def jsonl_count(path: str) -> int:
+    with open(path) as fh:
+        return sum(1 for line in fh if line.strip())
+
+
+def job_stream(spool: str, job_id: str) -> list:
+    """A job's own events as the fleet trace reads them (a line torn by a
+    kill -9 skipped); none when the job wrote no stream."""
+    path = os.path.join(spool, "jobs", job_id, "events.jsonl")
+    if not os.path.exists(path):
+        return []
+    return [e for e in load_events(path) if e.get("kind") != "_skipped"]
+
+
+def fleet_report_check(label: str, spool: str, ids: dict, card: str) -> dict:
+    """``fleet report --json`` on one spool: exit 0, the books closed, the
+    slots, a row for every dispatched job ending as phase 20 asserts (J6
+    failed, the rest completed), J1 preempted, every row priced."""
+    rc, out, err = run_command_err(["fleet", "report", spool, "--json"])
+    if rc != 0:
+        raise AssertionError(f"20c {label}: fleet report exit {rc}: {err}")
+    ledger = json.loads(out)["ledger"]
+    names = {job_id: name for name, job_id in ids.items()}
+    events = load_events(os.path.join(spool, "service.events.jsonl"))
+    dispatched = {e["job_id"] for e in events if e.get("kind") == "schedule"
+                  and e.get("action") in ("pack", "resume")}
+    rows = {row["job_id"]: row for row in ledger["jobs"]}
+    log(f"[20c] {label}: wall {ledger['wall_seconds']} s x {ledger['slots']} slot(s), busy "
+        f"{ledger['busy_seconds_total']} s + idle {ledger['idle_seconds_total']} s, identity "
+        f"error {ledger['identity_error_pct']}% (books "
+        f"{'closed' if ledger['books_close'] else 'OPEN'}); tenants' busy shares "
+        + ", ".join(f"{t} {b['share_of_busy']}" for t, b in ledger["tenants"].items())
+        + "; jobs predicted against billed: "
+        + ", ".join(f"{names.get(j, j)} {r['predicted_seconds']} s / {r['busy_seconds']} s "
+                    f"(x{r['prediction_error_factor']}, {r['end_action']}, preemptions "
+                    f"{r['preemptions']})" for j, r in rows.items()) + f" ({card})")
+    problems = []
+    if not ledger["books_close"] or ledger["slots"] != FLEET_SLOTS[label]:
+        problems.append(f"books {ledger['identity_error_pct']}%, slots {ledger['slots']}")
+    if not dispatched or not dispatched <= set(rows):
+        problems.append(f"dispatched {sorted(dispatched)}, rows {sorted(rows)}")
+    for job_id, row in rows.items():
+        want = "failed" if names.get(job_id) == "J6" else "completed"
+        if row["end_action"] != want or row["prediction_error_factor"] is None:
+            problems.append(f"{names.get(job_id, job_id)}: {row}")
+    if "J1" in ids and rows[ids["J1"]]["preemptions"] < 1:
+        problems.append(f"J1 not preempted: {rows[ids['J1']]}")
+    if problems:
+        raise AssertionError(f"20c {label}: {problems}")
+    return {"ledger": ledger, "dispatched": dispatched}
+
+
+def fleet_trace_check(label: str, spool: str, dispatched: set) -> int:
+    """``fleet trace`` on one spool: exit 0, a loadable file, one slot
+    thread per slot used, and for every dispatched job a queue-wait span,
+    a run span and at least as many chunk or round spans as its own
+    stream records."""
+    out = os.path.join(spool, "fleet.trace.json")
+    rc, _, err = run_command_err(["fleet", "trace", spool, "--out", out])
+    with open(out) as fh:
+        trace = json.load(fh)["traceEvents"]
+    events = load_events(os.path.join(spool, "service.events.jsonl"))
+    used = {e["slot"] for e in events if e.get("kind") == "slot" and e.get("action") == "acquire"}
+    threads = {e["tid"] for e in trace if e["ph"] == "M" and e["pid"] == 1 and "tid" in e}
+    problems = [] if rc == 0 else [f"exit {rc}: {err}"]
+    if threads != used:
+        problems.append(f"slot threads {threads}, slots used {used}")
+    for job_id in sorted(dispatched):
+        spans = Counter(e["cat"] for e in trace if e["ph"] == "X"
+                        and e.get("args", {}).get("job_id") == job_id
+                        and (e["cat"] != "wait" or e["name"] == "queue-wait"))
+        recorded = sum(e["kind"] in ("chunk", "round") for e in job_stream(spool, job_id))
+        if not spans["wait"] or not spans["run"] or spans["chunk"] < recorded:
+            problems.append(f"{job_id}: spans {dict(spans)}, chunk or round events {recorded}")
+    if problems:
+        raise AssertionError(f"20c {label} trace: {problems}")
+    return len(trace)
+
+
+def fleet_merge_check(spool: str, card: str) -> None:
+    """``metrics --merge`` on a's spool: exit 0 under ``--json``, each
+    source's count that file's own, the merged timestamps not decreasing;
+    ``--merge --forensics`` exits 0 on attribution events, else 2 with JAX's
+    message."""
+    rc, out, err = run_command_err(["metrics", spool, "--merge", "--json"])
+    if rc != 0:
+        raise AssertionError(f"20c merge: exit {rc}: {err}")
+    counts = json.loads(out)["events_per_process"]
+    own = {key: jsonl_count(os.path.join(spool, "service.events.jsonl") if key == "service"
+                            else os.path.join(spool, "jobs", key, "events.jsonl"))
+           for key in counts}
+    merged, _ = merge.merge_events(spool)
+    stamps = [e.get("ts") for e in merged]
+    rising = all(isinstance(t, (int, float)) for t in stamps) and stamps == sorted(stamps)
+    frc, fout, ferr = run_command_err(["metrics", spool, "--merge", "--forensics", "--json"])
+    verdict = (f"exit 0, defenses {sorted(json.loads(fout).get('by_defense') or {})}" if frc == 0
+               else f"exit {frc}: {ferr.strip()}")
+    log(f"[20c] a metrics --merge: {len(counts)} sources, {len(merged)} events, counts "
+        f"{'equal to' if counts == own else 'DIFFERENT from'} the files' own, timestamps "
+        f"{'not decreasing' if rising else 'OUT OF ORDER'}; --merge --forensics {verdict} "
+        f"({card})")
+    if counts != own or not rising or not (
+            frc == 0 or (frc == 2 and "no attribution events found in the merged stream" in ferr)):
+        raise AssertionError(f"20c merge: counts {counts} against {own}, rising {rising}, "
+                             f"forensics {frc} {ferr}")
+
+
+def killed_job_bill(spool: str, job_id: str, ledger: dict, card: str) -> None:
+    """b's job running at the kill -9: the ledger's bill beside its slot
+    events and the run seconds its own stream records across both
+    daemons.  The reference keys an open slot span by (slot, job_id), so
+    the restart's acquire of the same slot drops the killed daemon's span
+    (ROADMAP.md, faults of the reference, replicated): the bill is the
+    restarted span alone, and the killed run's time on the slot is idle."""
+    service = load_events(os.path.join(spool, "service.events.jsonl"))
+    t0 = next(e["ts"] for e in service if e.get("kind") == "service")
+    slot = [(e["action"], e["ts"] - t0) for e in service
+            if e.get("kind") == "slot" and e.get("job_id") == job_id]
+    runs: dict = {}
+    for e in job_stream(spool, job_id):
+        run = runs.setdefault(e.get("run_id"), {"first": e["ts"], "last": e["ts"], "rounds": 0,
+                                                "round_s": 0.0, "run_end": None})
+        run["last"] = e["ts"]
+        if e["kind"] == "round":
+            run["rounds"] += 1
+            run["round_s"] += e.get("seconds") or 0.0
+        elif e["kind"] == "run_end":
+            run["run_end"] = e.get("seconds")
+    billed = next(r["busy_seconds"] for r in ledger["jobs"] if r["job_id"] == job_id)
+    acquires = [ts for action, ts in slot if action == "acquire"]
+    killed = (next(iter(runs.values()))["last"] - t0 - acquires[0]
+              if runs and len(acquires) > 1 else 0.0)
+    log(f"[20c] b's killed job {job_id}: billed {billed} s; its slot events (s from the "
+        f"session's start): " + ", ".join(f"{a} {ts:.3f}" for a, ts in slot)
+        + "; its events.jsonl: "
+        + "; ".join(f"run {i + 1} {r['rounds']} rounds, {r['round_s']:.3f} s of rounds, "
+                    f"{r['first'] - t0:.3f}-{r['last'] - t0:.3f} s, run_end {r['run_end']}"
+                    for i, r in enumerate(runs.values()))
+        + f"; the killed daemon's span, from its acquire to run 1's last event, "
+        f"{killed:.3f} s, is billed to no one (the (slot, job_id) key dropped it); kept, the "
+        f"bill would be {billed + killed:.3f} s ({card})")
+
+
+def fleet_phase(root: str, parts: dict) -> None:
+    """20c after the daemons: ``fleet report``, ``fleet trace`` on a's,
+    a2's and b's spools, ``metrics --merge`` on a's, b's killed job's bill;
+    then 20c's seconds with the live checks'."""
+    card = card_line()
+    t0 = time.perf_counter()
+    ids = {"a": parts["a"]["ids"], "a2": parts["a2"]["ids"],
+           "b": {f"b{i + 1}": j for i, j in enumerate(parts["b"]["ids"])}}
+    reports, spans = {}, {}
+    for label in FLEET_SLOTS:
+        spool = os.path.join(root, label)
+        reports[label] = fleet_report_check(label, spool, ids[label], card)
+        spans[label] = fleet_trace_check(label, spool, reports[label]["dispatched"])
+    fleet_merge_check(os.path.join(root, "a"), card)
+    killed_job_bill(os.path.join(root, "b"), ids["b"]["b1"], reports["b"]["ledger"], card)
+    after = time.perf_counter() - t0
+    live = parts["a"]["fleet_live"]
+    watch = parts["b"]["watch"]
+    log(f"[20c] fleet trace events {spans}; b's `watch --fleet --once` in "
+        f"{watch['seconds']:.3f} s: {watch['line']}; 20c took {after:.3f} s after the daemons, "
+        f"{live:.3f} s live in a and {watch['seconds']:.3f} s in b's thread, "
+        f"{after + live + watch['seconds']:.3f} s in all ({card})")
 
 
 def service_phase() -> dict:
     """Phase 20: a0, then a and a2 in this thread beside b in another (b
-    waits on its `serve` processes most of its time).  Returns the
+    waits on its `serve` processes most of its time), then 20c over the
+    spools they leave.  Returns the
     kernels' launches in a's and a2's jobs and b's daemons (not the
     standalone runs', nor a0's)."""
     import threading
@@ -5473,7 +5757,7 @@ def service_phase() -> dict:
         def run_b():
             t0 = time.perf_counter()
             try:
-                b["launches"] = daemon_run(root, raws, refs)
+                b.update(daemon_run(root, raws, refs))
             except BaseException as e:  # noqa: BLE001 -- raised again in the phase's thread
                 b["error"] = e
             b["seconds"] = time.perf_counter() - t0
@@ -5502,8 +5786,11 @@ def service_phase() -> dict:
         if total != expect:
             raise AssertionError(f"service launches {dict(total)}, expected {dict(expect)}")
         total.update(b["launches"])
+        fleet_phase(root, {"a": a, "a2": a2, "b": b})
+        marks.append(time.perf_counter())
         log("[phase 20] " + ", ".join(f"{k} {y - x:.1f} s" for k, x, y in
-                                      zip(("references", "a0", "a", "a2", "b's wait after a2"),
+                                      zip(("references", "a0", "a", "a2", "b's wait after a2",
+                                           "20c after the daemons"),
                                           marks, marks[1:]))
             + f" (b {b['seconds']:.1f} s beside a and a2), in all {marks[-1] - marks[0]:.1f} s "
             f"({card_line()})")

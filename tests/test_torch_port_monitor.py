@@ -349,8 +349,16 @@ def test_watch_once_prints_jaxs_lines(monitor, capsys):
     rc, out = _both_watch(url, capsys)
     assert rc == 1 and "STALL detected" in out
     assert cli.main(["watch", "http://127.0.0.1:9", "--once"]) == 2
-    assert cli.main(["watch", url, "--once", "--fleet"]) == 2
-    assert "item 21" in capsys.readouterr().err
+    # --fleet reads /metrics' scheduler and SLO gauges: a run monitor has
+    # none, so JAX's line reads zeros and no `slo:` part
+    capsys.readouterr()
+    rc = cli.main(["watch", url, "--once", "--fleet"])
+    ours = capsys.readouterr()
+    jrc = jcli.watch_main([url, "--once", "--fleet"])
+    theirs = capsys.readouterr()
+    assert (rc, ours.out, ours.err) == (jrc, theirs.out, theirs.err)
+    assert rc == 0 and ours.out == ("[watch] fleet queue=0 running=0 backlog=0.0s "
+                                    "preempted=0 shed=0\n")
 
 
 @pytest.fixture(scope="module")
@@ -384,11 +392,19 @@ def test_metrics_prints_jaxs_report(flags, defended_run, capsys):
 
 
 def test_metrics_refuses_merge_and_programs(defended_run, capsys, tmp_path, monkeypatch):
-    """``--merge`` stays refused (item 14).  ``--programs``, refused until
-    ROADMAP item 16c was ported, prints JAX's table: none on a run with
-    the cost model off, the profiles of a run with it on."""
-    assert summary.main([defended_run, "--merge"]) == 2
-    assert "item 14" in capsys.readouterr().err
+    """``--merge``, refused until ROADMAP item 21 was ported, prints JAX's
+    report: a run directory with one ``events.jsonl`` merges one stream
+    and has nothing to compare.  ``--programs``, refused until item 16c
+    was ported, prints JAX's table: none on a run with the cost model
+    off, the profiles of a run with it on."""
+    for flags in ([], ["--json"], ["--forensics"]):
+        rc = summary.main([defended_run, "--merge", *flags])
+        ours = capsys.readouterr()
+        jrc = jsummary.main([defended_run, "--merge", *flags])
+        theirs = capsys.readouterr()
+        assert (rc, ours.out, ours.err) == (jrc, theirs.out, theirs.err) and rc == 0
+        if not flags:
+            assert ours.out.startswith("merged events.jsonl (") and "nothing to compare" in ours.out
     assert summary.main([defended_run, "--programs"]) == jsummary.main(
         [defended_run, "--programs"]) == 2
     assert "no program_profile events found" in capsys.readouterr().err

@@ -7,8 +7,8 @@ job past its retry budget fails and the service survives; a drain requeues
 and the next daemon finishes bit for bit; a run job and a matrix job, each
 preempted at its safe seam (round and chunk boundary), resume bit for bit;
 two concurrent jobs with hotspot windows both complete, one window failing
-open; the HTTP routes answer with JAX's status codes and keys, except the
-fleet observatory's (ROADMAP item 21); and one small job through JAX's
+open; the HTTP routes answer with JAX's status codes and keys, the fleet
+observatory's ``/fleet`` and SLO gauges included; and one small job through JAX's
 ``RunService`` and the port's goes through the same lifecycle, trains to
 the same final params and validates to the same AUCs.  The kernels' launch
 counters lose no count across threads, and a device-wide sync waits for a
@@ -32,7 +32,6 @@ from attackfl_tpu_torch.config import TelemetryConfig, config_from_dict
 from attackfl_tpu_torch.faults.plan import parse_fault_plan
 from attackfl_tpu_torch.matrix.grid import cell_config, expand_cells, grid_from_dict
 from attackfl_tpu_torch.ops import fused_step
-from attackfl_tpu_torch.service import FLEET_NOT_PORTED
 from attackfl_tpu_torch.service.daemon import RunService
 from attackfl_tpu_torch.training.engine import Simulator
 from attackfl_tpu_torch.training.matrix_exec import MATRIX_STATE_FILE
@@ -411,16 +410,18 @@ def test_http_routes_answer_as_jaxs(tmp_path):
     assert [(p, c) for p, c, _ in ours] == [(p, c) for p, c, _ in theirs]
     for (path, code, mine), (_, _, jax_payload) in zip(ours, theirs):
         if path == "/fleet":
-            # item 21: JAX's route answers as when its import fails
-            assert code == 200 and mine == {"error": FLEET_NOT_PORTED}
-            assert "item 21" in mine["error"]
+            # the SLO report and the device-time ledger of the submissions
+            assert code == 200 and set(mine) == {"slo", "ledger"}
+            assert _shape(mine) == _shape(jax_payload)
         elif path == "/metrics":
             names = {line.split(" ")[0].split("{")[0] for line in mine.splitlines()
                      if line and not line.startswith("#")}
             jax_names = {line.split(" ")[0].split("{")[0] for line in jax_payload.splitlines()
                          if line and not line.startswith("#")}
-            # no SLO gauges (item 21); the kernels' launch counts beside
-            assert jax_names - names == {n for n in jax_names if n.startswith("attackfl_slo_")}
+            # JAX's gauges, the SLO ones included; the kernels' launch
+            # counts beside
+            assert "attackfl_slo_preemption_rate" in names
+            assert jax_names - names == set()
             assert names - jax_names == {"attackfl_kernel_launches_total"}
         elif path == "/healthz":
             assert set(mine) - {"device"} == set(jax_payload) - {"device"}

@@ -3,8 +3,8 @@
 ``python -m attackfl_tpu_torch serve --device cpu`` as a daemon process:
 ``job submit|list|status|cancel|wait`` against it (the JAX package's
 ``job`` client prints the same lines against it), ``watch --schedule
---once``, the fleet observatory's entry points refused naming ROADMAP item
-21, a ``kill -9`` mid-run with a torn queued entry recovered bit for bit
+--once``, ``watch --fleet --once`` and ``fleet report`` (JAX's lines on the
+same daemon and spool), a ``kill -9`` mid-run with a torn queued entry recovered bit for bit
 against a standalone port run, and SIGTERM draining with exit 0.  Without
 ``--device cpu`` the daemon needs a card, and refuses to start here.
 """
@@ -22,7 +22,9 @@ from contextlib import redirect_stdout
 import torch
 from _torch_port_threads import one_torch_thread  # noqa: F401
 
+from attackfl_tpu.cli import watch_main as jax_watch_main
 from attackfl_tpu.service.cli import job_main as jax_job_main
+from attackfl_tpu.telemetry.fleet import main as jax_fleet_main
 from attackfl_tpu_torch import cli
 from attackfl_tpu_torch.config import TelemetryConfig, config_from_dict
 from attackfl_tpu_torch.training.engine import Simulator
@@ -155,15 +157,25 @@ def test_serve_and_the_job_commands(tmp_path, capsys):
         capsys.readouterr()
         rc, out = _run(cli.main, ["watch", url, "--schedule", "--once"])
         assert rc == 0 and out.startswith("[watch] sched queue=0 backlog=")
-        assert cli.main(["watch", url, "--fleet", "--once"]) == 2
-        assert cli.main(["fleet", "report", str(spool)]) == 2
-        assert capsys.readouterr().err.count("item 21") == 2
+        # the scheduler releases a slot just after its job's status says done
+        _wait_for(lambda: cli._http_get_json(url + "/schedule")[1]["running_jobs"] == 0,
+                  message="the slots' release")
+        rc, out = _run(cli.main, ["watch", url, "--fleet", "--once"])
+        assert rc == 0 and _run(jax_watch_main, [url, "--fleet", "--once"]) == (0, out)
+        assert out.startswith("[watch] fleet queue=0 running=0") and "  slo: p95[" in out
         assert cli.main(["watch", url, "--schedule", "--once"]) == 0
     finally:
         assert _stop(proc) == 0
     events = [json.loads(line) for line in open(spool / "service.events.jsonl")]
     assert [e["action"] for e in events if e["kind"] == "service"][-3:] == [
         "draining", "drained", "stopped"]
+    for flags in ([], ["--json"]):
+        rc, ours = _run(cli.main, ["fleet", "report", str(spool), *flags])
+        assert rc == 0 and _run(jax_fleet_main, ["report", str(spool), *flags]) == (0, ours)
+    ledger = json.loads(ours)["ledger"]
+    assert ledger["books_close"] is True and ledger["slots"] == 1
+    # the long and the short job ran; the cancelled one never held a slot
+    assert [row["end_action"] for row in ledger["jobs"]] == ["completed", "completed"]
 
 
 def test_kill_dash_nine_recovery_bit_identical(tmp_path):
