@@ -78,6 +78,9 @@ TRACED_ONLY: dict[str, str] = {
     "ops/aggregators.py": "defense aggregation runs inside the round program",
     "ops/attacks.py": "attack templates run inside the round program",
     "ops/pytree.py": "tree flatten / mask helpers used inside programs",
+    "parallel/": "the client mesh's placement and collectives run inside the "
+                 "round programs (a collective is device to device, never "
+                 "device to host)",
     "ops/fused_step.py": "K1's and K3's wrappers and plain versions, inside "
                          "the round program",
     "ops/metrics.py": "the numerics row's compute runs inside the programs",
@@ -184,6 +187,9 @@ ALLOWED_FUNCTIONS: dict[str, dict[str, str]] = {
                                       "a sync",
         "Simulator.run_round": "the synchronous round ends in a device sync: its "
                                "wall time is the round's",
+        "Simulator._synchronize": "the synchronous round's syncs (run_round, the "
+                                  "aggregate and hyper_update phases) over every "
+                                  "device of the client mesh",
         "host_filter": "item 3a: gmm's and fltracer's one copy of the client "
                        "matrix (engine.py host_filter)",
         "Simulator._read_chunk": "item 3a: run_fast's one read of the card a chunk",

@@ -16,11 +16,14 @@ The transform-safety auditor runs by default whenever the programs do, as
 JAX's (``analysis/grad_audit.py``: the gradient of the post-defense damage
 objective, sync and fused, for each representative defense, and the
 double backward; ``analysis/dataflow.py``: the per-defense
-differentiability table).  ``--grad`` runs it even with
-``--skip-programs``; ``--skip-grad`` leaves it out.  Not ported yet, and
-said so in the report's rule table: the sharded programs and the mesh's
-gradient collectives (``--skip-sharded`` is accepted; ROADMAP.md queue 1,
-item 14).
+differentiability table; the transposed collectives of each defense's
+sharded gradient).  ``--grad`` runs it even with ``--skip-programs``;
+``--skip-grad`` leaves it out.
+
+With the programs the audit also runs the programs of a client mesh
+(``program_audit.audit_sharded_programs`` and
+``audit_sharded_matrix_program``), held to the per-defense collective
+table; ``--skip-sharded`` leaves them out, as JAX's.
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ import sys
 from typing import Any
 
 from attackfl_tpu_torch.analysis.findings import Finding, sort_findings
-from attackfl_tpu_torch.analysis.program_audit import SHARDED_ITEM
 from attackfl_tpu_torch.analysis.registry import AuditContext, describe_rules, run_rules
 
 REPORT_SCHEMA = 2
@@ -39,10 +41,11 @@ REPORT_SCHEMA = 2
 
 def build_report(skip_programs: bool = False, retrace: bool = False,
                  rule_ids: list[str] | None = None, device: str = "cuda",
-                 grad: bool | None = None) -> dict[str, Any]:
+                 grad: bool | None = None, skip_sharded: bool = False) -> dict[str, Any]:
     """Run the selected passes and assemble the audit report.  ``grad``
     defaults to following the program audit (on unless ``skip_programs``);
-    True or False forces it either way."""
+    True or False forces it either way.  ``skip_sharded`` leaves the
+    programs of a client mesh out of the program audit."""
     ctx = AuditContext()
     findings: list[Finding] = run_rules(ctx, rule_ids)
     programs: list[dict[str, Any]] = []
@@ -56,6 +59,11 @@ def build_report(skip_programs: bool = False, retrace: bool = False,
 
         reports = (program_audit.audit_default_programs(device=device)
                    + program_audit.audit_matrix_program(device=device))
+        if not skip_sharded:
+            # the client mesh's programs, against the per-defense
+            # collective table, and the cell-sharded sweep (collective-free)
+            reports += (program_audit.audit_sharded_programs(device=device)
+                        + program_audit.audit_sharded_matrix_program(device=device))
         programs = [r.to_dict() for r in reports]
         findings.extend(program_audit.reports_to_findings(reports))
         budget = program_audit.transfer_budget()
@@ -93,7 +101,9 @@ def _format_program(p: dict[str, Any], prefix: str = "program") -> str:
             f"written {len(p['inplace_inputs'])} (consumed leaves {p['donated_leaves']}"
             + (f", gradient tree {p['aliased_leaves']}/{p['expected_aliases']} leaves"
                if prefix != "program" and p['donated_leaves'] else "")
-            + f"), launches {launches}, {p['wall_ms']:.1f} ms")
+            + f"), launches {launches}"
+            + (f", collectives {','.join(p['collectives'])}" if p.get("collectives") else "")
+            + f", {p['wall_ms']:.1f} ms")
 
 
 def format_report(report: dict[str, Any]) -> str:
@@ -111,8 +121,6 @@ def format_report(report: dict[str, Any]) -> str:
     if budget:
         lines.append(f"transfer budget: {budget['total']} audited host function(s), "
                      f"allowlist {'resolved' if budget['resolved'] else 'STALE'}")
-    lines.append(f"not ported yet: the sharded programs and their gradient collectives "
-                 f"({SHARDED_ITEM})")
     n = len(report["findings"])
     lines.append(f"audit: {len(report['rules'])} rule(s), {len(report['programs'])} "
                  f"program(s), {len(report.get('grad_programs') or [])} grad program(s), "
@@ -136,8 +144,8 @@ def audit_main(argv: list[str] | None = None) -> int:
     parser.add_argument("--device", type=str, default="cuda",
                         help="where the programs run: cuda (default) or cpu")
     parser.add_argument("--skip-sharded", action="store_true",
-                        help="accepted: the sharded programs are not ported yet "
-                             f"({SHARDED_ITEM})")
+                        help="skip the programs of a client mesh (the per-defense "
+                             "collective table and the cell-sharded sweep)")
     parser.add_argument("--grad", action="store_true",
                         help="run the transform-safety auditor (the damage objectives' "
                              "gradient and double-backward programs and the per-defense "
@@ -157,6 +165,7 @@ def audit_main(argv: list[str] | None = None) -> int:
 
         resolve_device(args.device)
     report = build_report(skip_programs=args.skip_programs, retrace=args.retrace,
-                          rule_ids=args.rules, device=args.device, grad=grad)
+                          rule_ids=args.rules, device=args.device, grad=grad,
+                          skip_sharded=args.skip_sharded)
     print(json.dumps(report, indent=2) if args.json else format_report(report))
     return 0 if report["ok"] else 1

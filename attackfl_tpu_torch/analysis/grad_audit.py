@@ -29,8 +29,12 @@ objective, :func:`audit_grad_programs` checks:
   its first broadcast attacks, traces too (tests/test_torch_port_grad_audit.py).
 
 The mesh half (:func:`audit_grad_collectives`, JAX's transposed
-collective table) is not ported: its reports are marked skipped, naming
-ROADMAP item 14, as the sharded programs are.  Not checked either: JAX's
+collective table): for each mode, the gradient of the damage through the
+defense's sharded aggregation over the audits' client mesh
+(``program_audit.audit_mesh``), run once under the program audit and held
+to the defense's ``grad`` row of ``program_audit.EXPECTED_COLLECTIVES``,
+each forward collective with its transposition dual
+(``parallel/shard.grad_collectives``).  Not checked: JAX's
 scan/while fixpoint of the dataflow pass, which has no counterpart in an
 unrolled recording (``analysis/dataflow.py``).
 """
@@ -47,8 +51,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from attackfl_tpu_torch.analysis.program_audit import (
-    SHARDED_ITEM, WIDE_DTYPES, ProgramReport, _site, _tensor_leaves, audit_program,
-    reports_to_findings,
+    EXPECTED_COLLECTIVES, WIDE_DTYPES, ProgramReport, _site, _tensor_leaves, audit_mesh,
+    audit_program, reports_to_findings,
 )
 from attackfl_tpu_torch.analysis.registry import register_info
 from attackfl_tpu_torch.ops import pytree as pt
@@ -67,8 +71,9 @@ register_info(
     "the gradient of the post-defense damage objective (sync + fused, per "
     "representative defense) runs with no host sync, no float64 output and "
     "no input written in place, its tree the perturbation's; the double "
-    "backward traces on fake tensors sync-free and f64-free; the mesh "
-    f"collective duals are skipped: not ported yet ({SHARDED_ITEM})",
+    "backward traces on fake tensors sync-free and f64-free; the gradient "
+    "through each defense's sharded aggregation records exactly its "
+    "transposed collective set (EXPECTED_COLLECTIVES' grad column)",
     GRAD_AUDIT_HINT,
 )
 
@@ -246,22 +251,57 @@ def audit_grad_programs(modes: tuple[str, ...] = GRAD_MODES,
 
 def audit_grad_collectives(modes: tuple[str, ...] = GRAD_MODES,
                            device: str = "cuda") -> list[ProgramReport]:
-    """The mesh half (JAX: the transposed collectives of each defense's
-    sharded gradient): not ported, each report marked skipped."""
-    return [ProgramReport(
-        name=f"sharded-{mode}:grad[aggregate]", executor="sync",
-        device=torch.device(device).type, ops=0, distinct_ops=0, syncs=[], f64=[],
-        donated_args=(), donated_leaves=0, writes={}, launches={}, wall_ms=0.0,
-        skipped=f"the sharded programs are not ported yet ({SHARDED_ITEM})")
-        for mode in modes]
+    """The mesh half (JAX ``audit_grad_collectives``, grad_audit.py:173-216):
+    for each mode, a Simulator at :func:`config.audit_config` with two
+    clients a shard and threefry keys over ``program_audit.audit_mesh``
+    (the shard_map strategy); the gradient, with respect to an additive
+    perturbation of the client rows, of the squared move its sharded
+    aggregate makes from the broadcast params on rows equal to them, run
+    once under the program audit and held to the mode's transposed
+    collective set.  Named ``sharded-<mode>[<n> shards]:grad[aggregate]``."""
+    from attackfl_tpu_torch.config import audit_config
+    from attackfl_tpu_torch.training.engine import Simulator
+
+    mesh = audit_mesh(device)
+    reports: list[ProgramReport] = []
+    for mode in modes:
+        with tempfile.TemporaryDirectory(prefix="attackfl_audit_") as scratch:
+            cfg = audit_config(scratch, mode=mode, prng_impl="threefry2x32",
+                               total_clients=2 * mesh.size)
+            sim = Simulator(cfg, device=mesh.lead, mesh=mesh)
+            try:
+                n, aggregate = cfg.total_clients, sim.aggregate
+                params = sim.init_state()["global_params"]
+                stacked = pt.tree_broadcast(params, n)
+                sizes = torch.ones(n, dtype=torch.int64, device=sim.device)
+                wmask = torch.ones(n, dtype=torch.float32, device=sim.device)
+                draws = sim.draw_round(torch.Generator(device=sim.device).manual_seed(0))
+
+                def damage(perturb, params, stacked, sizes, wmask, draws):
+                    poisoned = pt.tree_map(torch.add, stacked, perturb)
+                    return pt.sq_distance(aggregate(params, poisoned, sizes, wmask, draws),
+                                          params)
+
+                perturb = pt.tree_map(torch.zeros_like, stacked)
+                check = tree_check(perturb)
+                report = audit_program(
+                    f"sharded-{mode}[{mesh.size} shards]:grad[aggregate]", "sync",
+                    first_order(damage), (perturb, params, stacked, sizes, wmask, draws), (0,),
+                    device=sim.device, check_output=check,
+                    expected_collectives=EXPECTED_COLLECTIVES[mode]["grad"])
+                report.aliased = check.matched
+                reports.append(report)
+            finally:
+                sim.close()
+    return reports
 
 
 def grad_report(modes: tuple[str, ...] = GRAD_MODES,
                 dataflow_modes: tuple[str, ...] | None = None,
                 device: str = "cuda") -> dict[str, Any]:
     """The transform-safety document (JAX ``grad_report``): the grad and
-    double-backward reports, the skipped mesh reports and the per-defense
-    dataflow table; ``findings`` (dicts) are the programs' problems under
+    double-backward reports, the mesh's gradient collectives and the
+    per-defense dataflow table; ``findings`` (dicts) are the programs' problems under
     the rule ``grad-audit`` and the table's findings, which ``audit``
     merges into its report."""
     from attackfl_tpu_torch.analysis import dataflow

@@ -33,6 +33,14 @@ and ``pipeline_step[eval=...]``, and the sweep's ``matrix_chunk`` through
 * **the transfer budget** — the resolved host-sync allowlist, as JAX
   reports it: every read of the card happens in host code, which the
   ``host-sync`` rule bounds to that allowlist.
+* **the collectives** — the names the mesh's collectives
+  (``parallel/shard.py``) record during the audited run, held to the
+  program's exact expected set: none for a meshless program, and for the
+  sharded programs (:func:`audit_sharded_programs`, over a client mesh of
+  :data:`AUDIT_SHARDS` shards) the defense's row of
+  :data:`EXPECTED_COLLECTIVES`, none for ``round_step`` (the local update
+  per shard is collective-free) and none for the cell-sharded sweep
+  (:func:`audit_sharded_matrix_program`).
 
 Each program's K1 and K3 launches in the audited run (``ops/fused_step``'s
 counts) and its wall milliseconds (the host clock around the run, a device
@@ -62,6 +70,7 @@ from attackfl_tpu_torch import device as devices
 from attackfl_tpu_torch.analysis.findings import Finding
 from attackfl_tpu_torch.analysis.registry import register_info
 from attackfl_tpu_torch.costmodel.capture import op_by_op
+from attackfl_tpu_torch.parallel.shard import record_collectives
 
 _aten = torch.ops.aten
 WIDE_DTYPES = frozenset({torch.float64, torch.complex64, torch.complex128})
@@ -78,14 +87,46 @@ F64_HINT = (
     "keep round math in float32/bf16: find the promotion (a float64 numpy "
     "scalar, a .double(), torch.float64) and cast it explicitly")
 
-SHARDED_ITEM = "ROADMAP.md queue 1, item 14"
+# defense mode -> the exact collective sets its sharded aggregation may
+# record, per transform (parallel/shard.shard_aggregator's design table,
+# JAX program_audit.py:64-98): the "forward" column is the round program
+# as dispatched — partial-sum defenses reduce with psum only; order-
+# statistic/pairwise/quantile/anchor defenses reassemble the full client
+# matrix with all_gather and nothing else.  The "grad" column is the
+# differentiated program: each collective and its transposition dual
+# (parallel/shard.grad_collectives).  Training itself
+# (shard_local_update) is collective-free, so these sets describe the
+# WHOLE round program under either transform.
+_PSUM_FWD = frozenset({"psum"})
+_GATHER_FWD = frozenset({"all_gather"})
+_PSUM_GRAD = frozenset({"psum"})
+_GATHER_GRAD = frozenset({"all_gather", "psum", "reduce_scatter"})
+EXPECTED_COLLECTIVES: dict[str, dict[str, frozenset[str]]] = {
+    "fedavg": {"forward": _PSUM_FWD, "grad": _PSUM_GRAD},
+    "fltracer": {"forward": _PSUM_FWD, "grad": _PSUM_GRAD},
+    "gmm": {"forward": _PSUM_FWD, "grad": _PSUM_GRAD},
+    "shieldfl": {"forward": _PSUM_FWD, "grad": _PSUM_GRAD},
+    "FLTrust": {"forward": _PSUM_FWD, "grad": _PSUM_GRAD},
+    "median": {"forward": _GATHER_FWD, "grad": _GATHER_GRAD},
+    "trimmed_mean": {"forward": _GATHER_FWD, "grad": _GATHER_GRAD},
+    "krum": {"forward": _GATHER_FWD, "grad": _GATHER_GRAD},
+    "scionfl": {"forward": _GATHER_FWD, "grad": _GATHER_GRAD},
+    "byzantine": {"forward": _GATHER_FWD, "grad": _GATHER_GRAD},
+}
+
+# shards of the audits' client mesh: the run's devices of its type, each
+# repeated in turn up to this count (one card gives two shards of it)
+AUDIT_SHARDS = 2
+
 
 register_info(
     "program-audit",
-    "every round program (sync, fused, pipelined, matrix) runs once under a "
-    "dispatch mode with no host sync, no float64 or complex output, and no "
-    "in-place write to an input outside Simulator.donation_spec(); the "
-    f"sharded programs are skipped: not ported yet ({SHARDED_ITEM})",
+    "every round program (sync, fused, pipelined, matrix; meshless and over "
+    "a client mesh) runs once under a dispatch mode with no host sync, no "
+    "float64 or complex output, no in-place write to an input outside "
+    "Simulator.donation_spec(), and exactly the collectives its defense's "
+    "row of EXPECTED_COLLECTIVES allows (none for round_step, a meshless "
+    "program or the cell-sharded sweep)",
     FORBIDDEN_HINT,
 )
 
@@ -211,6 +252,8 @@ class ProgramReport:
     peak_gib: float | None = None
     aliased: int | None = None
     skipped: str | None = None
+    collectives: list[str] = field(default_factory=list)
+    expected_collectives: list[str] = field(default_factory=list)
     problems: list[str] = field(default_factory=list)
 
     @property
@@ -227,7 +270,8 @@ class ProgramReport:
             "expected_aliases": self.donated_leaves,
             "aliased_leaves": len(self.writes) if self.aliased is None else self.aliased,
             "f64_outputs": len(self.f64),
-            "collectives": [], "expected_collectives": [],
+            "collectives": list(self.collectives),
+            "expected_collectives": list(self.expected_collectives),
             "problems": self.problems,
             "device": self.device, "syncs": len(self.syncs), "sync_sites": self.syncs,
             "f64_sites": self.f64, "inplace_inputs": self.writes,
@@ -268,13 +312,16 @@ def _run_watched(fn: Callable, args: tuple, device: torch.device,
 
 def audit_program(name: str, executor: str, fn: Callable, args: tuple,
                   donate: tuple[int, ...] = (), device: torch.device | str | None = None,
-                  check_output: Callable[[Any], list[str]] | None = None) -> ProgramReport:
+                  check_output: Callable[[Any], list[str]] | None = None,
+                  expected_collectives: frozenset[str] = frozenset()) -> ProgramReport:
     """Run ``fn(*args)`` once under the audit mode (see the module doc).
     The mode needs every op dispatched, so the run replays no captured
     graph (``costmodel/capture.op_by_op``); on the card the program then
     runs once more as the card runs it, its graphs replayed, under the
     sync warnings and the inputs' bitwise comparison, which need no mode.
-    ``check_output(out)`` gives the audited run's result's problems."""
+    ``check_output(out)`` gives the audited run's result's problems;
+    ``expected_collectives`` is the exact set of collectives the audited
+    run must record."""
     leaves = _tensor_leaves(args)
     device = torch.device(device) if device is not None else (
         leaves[0][1].device if leaves else torch.device("cpu"))
@@ -286,7 +333,7 @@ def audit_program(name: str, executor: str, fn: Callable, args: tuple,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     launches0 = _launches()
-    with op_by_op():
+    with op_by_op(), record_collectives() as recorded:
         wall_ms, card_syncs, out = _run_watched(fn, args, device, mode)
     launches = {k: v - launches0[k] for k, v in _launches().items()}
     writes = dict(mode.writes)
@@ -308,7 +355,8 @@ def audit_program(name: str, executor: str, fn: Callable, args: tuple,
         name=name, executor=executor, device=device.type, ops=mode.ops,
         distinct_ops=len(mode.distinct), syncs=mode.syncs + card_syncs, f64=mode.f64,
         donated_args=tuple(donate), donated_leaves=len(donated), writes=writes,
-        launches=launches, wall_ms=wall_ms, live_ms=live_ms, peak_gib=peak_gib)
+        launches=launches, wall_ms=wall_ms, live_ms=live_ms, peak_gib=peak_gib,
+        collectives=sorted(recorded), expected_collectives=sorted(expected_collectives))
     if report.syncs:
         report.problems.append(
             f"{len(report.syncs)} host sync(s) inside the program: "
@@ -323,16 +371,96 @@ def audit_program(name: str, executor: str, fn: Callable, args: tuple,
             f"in-place write to {len(undeclared)} input(s) the program does not consume "
             "(donation_spec): " + "; ".join(f"args{p} by {how}"
                                              for p, how in list(undeclared.items())[:5]))
+    if set(report.collectives) != set(expected_collectives):
+        report.problems.append(
+            f"collective set mismatch: program contains "
+            f"[{', '.join(report.collectives) or 'none'}], expected "
+            f"[{', '.join(sorted(expected_collectives)) or 'none'}] "
+            "(see EXPECTED_COLLECTIVES / parallel/shard's design table)")
     if check_output is not None:
         report.problems.extend(check_output(out))
     return report
 
 
-def audit_simulator(sim) -> list[ProgramReport]:
-    """Audit every program the Simulator's audit hook exposes."""
+def audit_simulator(sim, expected: frozenset[str] = frozenset()) -> list[ProgramReport]:
+    """Audit every program the Simulator's audit hook exposes; every
+    program but ``round_step`` (collective-free) must record exactly
+    ``expected``."""
     return [audit_program(p["name"], p["executor"], p["fn"], p["args"], p["donate"],
-                          device=sim.device)
+                          device=sim.device,
+                          expected_collectives=(frozenset() if p["name"] == "round_step"
+                                                else expected))
             for p in sim.audit_programs()]
+
+
+def audit_mesh(device: str | torch.device, shards: int = AUDIT_SHARDS):
+    """The audits' client mesh: the visible devices of ``device``'s type
+    (the CPU: one), each repeated in turn up to ``shards`` shards, or all
+    of them where there are more."""
+    from attackfl_tpu_torch.parallel.mesh import make_client_mesh
+
+    visible = make_client_mesh(0, device=device).devices
+    count = max(shards, len(visible))
+    return make_client_mesh(devices=[visible[i % len(visible)] for i in range(count)])
+
+
+def audit_sharded_programs(device: str = "cuda", modes: tuple[str, ...] = (
+        "fedavg", "median", "FLTrust"), shards: int = AUDIT_SHARDS) -> list[ProgramReport]:
+    """The programs of a Simulator over a client mesh (JAX
+    ``audit_sharded_programs``, program_audit.py:345-386): for each mode,
+    :func:`config.audit_config` at two clients a shard with threefry keys
+    (the shard_map strategy) over :func:`audit_mesh`, and its
+    ``round_step``, ``aggregate``, ``fused_chunk[2]`` and
+    ``pipeline_step`` held to the meshless programs' invariants and to the
+    defense's collective set.  Named ``sharded-<mode>[<n> shards]:...``."""
+    from attackfl_tpu_torch.config import audit_config
+    from attackfl_tpu_torch.training.engine import Simulator
+
+    mesh = audit_mesh(device, shards)
+    reports: list[ProgramReport] = []
+    for mode in modes:
+        with tempfile.TemporaryDirectory(prefix="attackfl_audit_") as scratch:
+            cfg = audit_config(scratch, mode=mode, prng_impl="threefry2x32",
+                               total_clients=2 * mesh.size)
+            sim = Simulator(cfg, device=mesh.lead, mesh=mesh)
+            try:
+                if sim.mesh_strategy != "shard_map":
+                    raise AssertionError(f"{mode}: mesh strategy {sim.mesh_strategy}")
+                for report in audit_simulator(sim, EXPECTED_COLLECTIVES[mode]["forward"]):
+                    report.name = f"sharded-{mode}[{mesh.size} shards]:{report.name}"
+                    reports.append(report)
+            finally:
+                sim.close()
+    return reports
+
+
+def audit_sharded_matrix_program(device: str = "cuda",
+                                 shards: int = AUDIT_SHARDS) -> list[ProgramReport]:
+    """The cell-sharded sweep program (JAX
+    ``audit_sharded_matrix_program``, program_audit.py:389-416): LIE x
+    fedavg, krum and FLTrust at seed 1 over :func:`audit_mesh`, each
+    shard folding its own cells.  The cells are independent, so the
+    program must record no collective at all."""
+    from attackfl_tpu_torch.config import audit_config
+    from attackfl_tpu_torch.matrix.grid import grid_from_dict
+    from attackfl_tpu_torch.training.matrix_exec import MatrixRun
+
+    mesh = audit_mesh(device, shards)
+    grid = grid_from_dict({"attacks": ["LIE"], "attack-clients": 1, "attack-round": 2,
+                           "defenses": ["fedavg", "krum", "FLTrust"], "seeds": [1],
+                           "rounds": 2})
+    with tempfile.TemporaryDirectory(prefix="attackfl_audit_") as scratch:
+        runner = MatrixRun(audit_config(scratch, prng_impl="threefry2x32"), grid,
+                           device=mesh.lead, mesh=mesh)
+        try:
+            reports = [audit_program(p["name"], p["executor"], p["fn"], p["args"],
+                                     p["donate"], device=runner.device)
+                       for p in runner.audit_programs()]
+        finally:
+            runner.close()
+    for report in reports:
+        report.name = f"sharded[{mesh.size} shards]:{report.name}"
+    return reports
 
 
 def audit_default_programs(device: str = "cuda") -> list[ProgramReport]:

@@ -12,8 +12,11 @@ programs and the cost model's counted program profiles.
 :func:`built_programs` snapshots all of them after round 1 (objects by
 identity, counts by value), and the guard fails if anything is built,
 rebuilt, captured or loaded over the rest of the run (``run``,
-``run_fast``, the pipeline, or a ``MatrixRun``).  The static
-``retrace-hazard`` rule catches the *patterns*; this catches the *fact*.
+``run_fast``, the pipeline, or a ``MatrixRun``), and over the sharded
+synchronous and pipelined runs at each client-mesh size
+(:func:`sharded_guard_findings`, JAX's across mesh sizes: a size builds
+its own programs once).  The static ``retrace-hazard`` rule catches the
+*patterns*; this catches the *fact*.
 """
 
 from __future__ import annotations
@@ -142,15 +145,48 @@ GUARD_GRID = {"attacks": ["LIE", "none"], "attack-clients": 1, "attack-round": 1
               "defenses": ["fedavg", "median"], "seeds": [1], "rounds": 3, "chunk": 1}
 
 
+def sharded_guard_findings(device: str = "cuda") -> list[Finding]:
+    """The guard over the client mesh ACROSS MESH SIZES (JAX
+    ``sharded_guard_findings``, retrace.py:137-170): the shard_map'd
+    synchronous and pipelined runs of :func:`config.audit_config` (fedavg,
+    threefry, two clients a shard of the largest mesh) on a one-shard mesh
+    and on ``program_audit.audit_mesh``; each size builds its programs in
+    round 1 and nothing after."""
+    from attackfl_tpu_torch.analysis.program_audit import audit_mesh
+    from attackfl_tpu_torch.config import audit_config
+    from attackfl_tpu_torch.parallel.mesh import make_client_mesh
+    from attackfl_tpu_torch.training.engine import Simulator
+
+    full = audit_mesh(device)
+    findings = []
+    for size in sorted({1, full.size}):
+        mesh = make_client_mesh(devices=full.devices[:size])
+        for executor in ("run", "pipeline"):
+            with tempfile.TemporaryDirectory(prefix="attackfl_audit_") as scratch:
+                cfg = audit_config(scratch, prng_impl="threefry2x32",
+                                   total_clients=2 * full.size)
+                sim = Simulator(cfg, device=mesh.lead, mesh=mesh)
+                try:
+                    problems = run_with_guard(sim, executor)
+                finally:
+                    sim.close()
+            findings.extend(Finding(rule="retrace-guard",
+                                    file=f"<run:sharded[{size} shards]:{executor}>", line=0,
+                                    message=problem, hint=RETRACE_GUARD_HINT)
+                            for problem in problems)
+    return findings
+
+
 def guard_findings(device: str = "cuda",
                    executors: tuple[tuple[str, dict[str, Any]], ...] = (
                        ("run", {}), ("run_fast", {"chunk_size": 1}),
-                       ("pipeline", {"pipeline_depth": 2}), ("matrix", {}))) -> list[Finding]:
+                       ("pipeline", {"pipeline_depth": 2}), ("matrix", {}),
+                       ("sharded", {}))) -> list[Finding]:
     """The ``audit --retrace`` pass: the guard over 3 rounds of
     :func:`config.audit_config` on each executor (``run``, ``run_fast`` in
-    chunks of 1, the pipeline at depth 2, and a sweep of GUARD_GRID's
-    2 x 2 x 1 cells in chunks of 1).  It RUNS rounds: seconds on the
-    CPU."""
+    chunks of 1, the pipeline at depth 2, a sweep of GUARD_GRID's 2 x 2 x
+    1 cells in chunks of 1, and ``sharded``: :func:`sharded_guard_findings`).
+    It RUNS rounds: seconds on the CPU."""
     from attackfl_tpu_torch.config import audit_config
     from attackfl_tpu_torch.matrix.grid import grid_from_dict
     from attackfl_tpu_torch.training.engine import Simulator
@@ -158,6 +194,9 @@ def guard_findings(device: str = "cuda",
 
     findings = []
     for executor, overrides in executors:
+        if executor == "sharded":
+            findings.extend(sharded_guard_findings(device))
+            continue
         chunk_size = overrides.get("chunk_size")
         with tempfile.TemporaryDirectory(prefix="attackfl_audit_") as scratch:
             if executor == "matrix":

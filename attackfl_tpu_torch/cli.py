@@ -78,14 +78,13 @@ commands:
   matrix   the scenario matrix: run --config PATH [--attacks A,..]
            [--defenses D,..] [--seeds S,..] [--rounds N] [--chunk K]
            [--sweep-dir DIR] [--sweep-id ID] [--resume] [--device cuda|cpu]
-           (--mesh, the cell axis across GPUs, is refused: item 14);
+           [--mesh] (the cell axis over the client mesh's devices);
            status [--dir D] [--sweep-id ID] [--json]
   audit    the AST rules, the committed event files, the round programs
            run once under a dispatch mode and the transform-safety auditor
            (the damage objectives' gradients, the per-defense dataflow
            table) (--json, --skip-programs, --retrace, --rules R..,
-           --device cuda|cpu, --grad, --skip-grad; --skip-sharded is
-           accepted: item 14)
+           --device cuda|cpu, --grad, --skip-grad, --skip-sharded)
   ledger   the cross-run ledger: list [--sweep ID] [--json], show ID,
            compare A [B], regress [ID] [--against ID] [--sweeps OLD NEW]
            (exit 0 pass, 1 regression, 2 nothing to compare), import
@@ -241,7 +240,7 @@ def server_main(argv=None) -> int:
                         help="hotspot window over rounds A..B (telemetry.hotspots)")
     parser.add_argument("--numerics", action="store_true",
                         help="device-side per-round numerics rows (telemetry.numerics)")
-    # --- multi-host scale-out (ROADMAP.md item 14) ---
+    # --- multi-host scale-out (ROADMAP.md item 14b) ---
     parser.add_argument("--coordinator", type=str, default=None,
                         help="host:port of process 0 (needs --no-wait)")
     parser.add_argument("--num-processes", type=int, default=1)
@@ -257,7 +256,7 @@ def server_main(argv=None) -> int:
             return 1
         from attackfl_tpu_torch.training.engine import _refuse
 
-        _refuse("multi-host --coordinator", "item 14")
+        _refuse("multi-host --coordinator", "item 14b")
 
     from attackfl_tpu_torch.config import load_config
 
@@ -306,7 +305,9 @@ def server_main(argv=None) -> int:
 
     from attackfl_tpu_torch.training.engine import Simulator
 
-    sim = Simulator(cfg, device=args.device)
+    # a client mesh over the visible devices (tpu.num-devices), as JAX's
+    # run builds one (cli.py:298): one card gives a one-device mesh
+    sim = Simulator(cfg, device=args.device, use_mesh=True)
     try:
         _, history = sim.run(num_rounds=args.rounds)
     finally:
@@ -491,8 +492,8 @@ def watch_main(argv=None) -> int:
     survived with capped exponential backoff: the poller retries rather
     than crashing mid-watch.  The round line carries the cost model's
     live utilization (``/programs``) and the latest window's host-bound
-    fraction (``/hotspots``); its mesh field of JAX's comes with the
-    port's mesh (ROADMAP item 14).  ``--schedule`` polls a run service's
+    fraction (``/hotspots``), and the client mesh's size and strategy
+    (``mesh=``, JAX cli.py:612-618).  ``--schedule`` polls a run service's
     ``/schedule`` instead (:func:`_watch_schedule`), ``--fleet`` its
     Prometheus ``/metrics`` with the fleet's SLO gauges
     (:func:`_watch_fleet`)."""
@@ -614,6 +615,14 @@ def watch_main(argv=None) -> int:
                         + "]")
             if isinstance(depth, int):
                 msg += f" depth={depth}"
+            mesh = last.get("mesh_devices")
+            if isinstance(mesh, int):
+                # the mesh's shape, its strategy suffixed when the monitor
+                # knows it (sm = shard_map collectives, g = gspmd)
+                strategy = last.get("mesh_strategy")
+                msg += f" mesh={mesh}" + (
+                    "sm" if strategy == "shard_map"
+                    else ("g" if strategy == "gspmd" else ""))
             fraction = utilization.get("utilization_flops")
             achieved = utilization.get("achieved_flops_per_sec")
             if isinstance(fraction, (int, float)):

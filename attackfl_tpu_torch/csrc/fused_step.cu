@@ -472,7 +472,7 @@ __global__ void __launch_bounds__(THREADS)
 train_epoch_kernel(Groups grp, const float* __restrict__ batches, float* __restrict__ loss_out,
                    float* __restrict__ scratch, int nb, int B,
                    const long long* __restrict__ seed_ptr, int seed_offset, int t_offset,
-                   float lr, float clip, Drop drop) {
+                   int client_base, float lr, float clip, Drop drop) {
   __shared__ float red[WARPS];
   extern __shared__ __align__(16) float sm[];
   const int c = blockIdx.x;
@@ -505,7 +505,9 @@ train_epoch_kernel(Groups grp, const float* __restrict__ batches, float* __restr
   for (int j = 0; j < nb; ++j) {
     const float* data = batches + ((size_t)c * nb + j) * B * NCOL;
     const uint32_t step = (uint32_t)(t_offset + j);
-    const uint32_t kc = client_key(seed, step, (uint32_t)c);
+    // the dropout key of the GLOBAL client: a shard's client c is client
+    // client_base + c of the unsharded launch, and draws its masks
+    const uint32_t kc = client_key(seed, step, (uint32_t)(client_base + c));
 
     // ---------------- forward ----------------
     for (int b = 0; b < 2; ++b) {
@@ -764,10 +766,12 @@ int fused_step_scratch_floats(int B) { return (int)scratch_floats(B); }
 // batches [C, nb, B, 32], loss [C], scratch C * fused_step_scratch_floats(B).
 // seed: one int64 in device memory; the epoch's dropout seed is its value
 // plus seed_offset, so a seed drawn on the device never visits the host.
+// client_base: the global index of the first client (a mesh shard's block
+// starts there; 0 for an unsharded launch), which keys the dropout hash.
 // Launches on `stream`; returns cudaGetLastError() of the launch.
 int fused_step_run_epoch(void* const* ptrs, const float* batches, float* loss, float* scratch,
                          int C, int nb, int B, const long long* seed, int seed_offset,
-                         int t_offset, float lr, float clip,
+                         int t_offset, int client_base, float lr, float clip,
                          uint32_t thr_attn, float scale_attn, uint32_t thr_block,
                          float scale_block, uint32_t thr_head, float scale_head, void* stream) {
   Groups grp;
@@ -782,7 +786,8 @@ int fused_step_run_epoch(void* const* ptrs, const float* batches, float* loss, f
       train_epoch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   train_epoch_kernel<<<C, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      grp, batches, loss, scratch, nb, B, seed, seed_offset, t_offset, lr, clip, drop);
+      grp, batches, loss, scratch, nb, B, seed, seed_offset, t_offset, client_base, lr, clip,
+      drop);
   return (int)cudaGetLastError();
 }
 

@@ -6,8 +6,9 @@ door (the port's ``attackfl_tpu/matrix/cli.py``).
 lets flags override each axis, and runs the whole (attack × defense ×
 seed) grid on one device
 (:class:`attackfl_tpu_torch.training.matrix_exec.MatrixRun`); ``--device``
-defaults to ``cuda``, as every entry point's.  ``--mesh`` (the cell axis
-across GPUs) is ROADMAP item 14 and refused.  ``status`` is torch-free: it
+defaults to ``cuda``, as every entry point's.  ``--mesh`` splits the
+sweep's cell axis over a client mesh of the visible devices
+(``tpu.num-devices``), as JAX's.  ``status`` is torch-free: it
 reads the sweep's ledger records (all sharing a ``sweep_id``) and renders
 the grid's completion and quality table.
 """
@@ -49,15 +50,11 @@ def run_main(argv: list[str] | None = None) -> int:
                         help="continue an interrupted sweep from its newest valid "
                              "checkpoint (byte-identical grid)")
     parser.add_argument("--mesh", action="store_true",
-                        help="shard the sweep's cell axis across GPUs (not ported "
-                             "yet, ROADMAP item 14)")
+                        help="shard the sweep's cell axis over the device mesh "
+                             "(tpu.num-devices)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.mesh:
-        print("matrix run --mesh shards the cell axis across GPUs, which is not ported "
-              "yet (ROADMAP.md queue 1, item 14)", file=sys.stderr)
-        return 2
 
     import yaml
 
@@ -98,7 +95,8 @@ def run_main(argv: list[str] | None = None) -> int:
 
     from attackfl_tpu_torch.training.matrix_exec import MatrixRun
 
-    runner = MatrixRun(cfg, grid, sweep_id=args.sweep_id, device=args.device)
+    runner = MatrixRun(cfg, grid, sweep_id=args.sweep_id, device=args.device,
+                       use_mesh=args.mesh)
     print_with_color(
         f"[matrix] sweep {runner.sweep_id}: {grid.n_cells} cells "
         f"({len(runner.device_cells)} in the folded grid, "

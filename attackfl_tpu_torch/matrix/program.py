@@ -38,10 +38,20 @@ cost model's first) issues it eagerly, op by op.  Every cell's output
 rows are copied into tensors of their own, so the cell's later ops see
 the allocation a standalone run's do.  This is fixed in code for both
 device groups (batched and mapped), never decided at run time.
+
+Over a client mesh (``matrix run --mesh``, JAX matrix_exec.py:106-131) the
+cell axis splits over the shards (:func:`fold_shards`): the device cells
+are clone-padded up to a multiple of the shard count, each shard folds its
+own block of cells with the local update built for its device (one K3
+launch a step and part on its shard), the results come back to the lead
+device and the padded ones are dropped.  Cells never exchange anything,
+so the sweep runs no collective, and each cell's rows are the ones the
+unsharded fold gives it, bit for bit.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
 
@@ -52,6 +62,7 @@ from attackfl_tpu_torch.config import Config
 from attackfl_tpu_torch.matrix.grid import Cell, cell_config
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.ops.metrics import Numerics, build_layout
+from attackfl_tpu_torch.parallel.mesh import ClientMesh
 from attackfl_tpu_torch.training.engine import build_plain_tail
 from attackfl_tpu_torch.training.round import (
     RoundHalves, build_attack_groups, build_round_halves, round_drawer,
@@ -145,22 +156,61 @@ def fold_train(update: Callable, params: Sequence[dict], inputs: Sequence[tuple]
     return out
 
 
+def padded_cells(cells: int, mesh: ClientMesh) -> int:
+    """The cell count a mesh's fold trains: ``cells`` clone-padded up to
+    a multiple of the shard count."""
+    return -(-cells // mesh.size) * mesh.size
+
+
+def fold_shards(updates: dict, mesh: ClientMesh, params: Sequence[dict],
+                inputs: Sequence[tuple], clients: int, per_part: int) -> list[tuple]:
+    """:func:`fold_train` over the mesh's shards: the cells clone-padded
+    (the last cell repeated) up to :func:`padded_cells`, each shard's
+    contiguous block of cells folded on its device by its update
+    (``updates``, by device), every result on the lead device in cell
+    order, the padded ones dropped."""
+    n = len(params)
+    order = list(range(n)) + [n - 1] * (padded_cells(n, mesh) - n)
+    lead = mesh.lead
+    out: list[tuple] = []
+    for device, rows in zip(mesh.devices, mesh.blocks(len(order))):
+        block = order[rows]
+        moved = [(dataclasses.replace(inputs[i][0], idx=inputs[i][0].idx.to(device),
+                                      perms=inputs[i][0].perms.to(device),
+                                      dropout_seed=_to(inputs[i][0].dropout_seed, device)),
+                  inputs[i][1].to(device)) for i in block]
+        shard = fold_train(updates[device], [pt.tree_map(lambda x: x.to(device), params[i])
+                                             for i in block], moved, clients, per_part)
+        out.extend((pt.tree_map(lambda x: x.to(lead), stacked), ok.to(lead), losses.to(lead))
+                   for stacked, ok, losses in shard)
+    return out[:n]
+
+
+def _to(value, device: torch.device):
+    return value.to(device) if isinstance(value, torch.Tensor) else value
+
+
 def sweep_round(programs: Sequence[CellProgram], states: Sequence[dict[str, Any]],
-                update: Callable, clients: int, per_part: int
+                update: Callable, clients: int, per_part: int,
+                mesh: ClientMesh | None = None, updates: dict | None = None
                 ) -> list[tuple[dict[str, Any], dict[str, Any]]]:
     """One broadcast of every cell in ``programs`` (each cell's fused
     state in ``states``, its generator advanced in place): per cell its
-    draws and ``prepare``, one folded ``train``, per cell ``finish`` and
-    the tail.  Returns each cell's ``(new_state, metrics)``, the metrics
-    0-dim device tensors, as the engine's fused body returns them."""
+    draws and ``prepare``, one folded ``train`` (over ``mesh``'s shards by
+    :func:`fold_shards` when given, ``updates`` its updates by device),
+    per cell ``finish`` and the tail.  Returns each cell's ``(new_state,
+    metrics)``, the metrics 0-dim device tensors, as the engine's fused
+    body returns them."""
     prepared = []
     for prog, state in zip(programs, states):
         b = state["broadcasts"] + 1
         draws = prog.draw(state["rng"])
         sizes, mask, kept = prog.halves.prepare(draws, b)
         prepared.append((b, draws, sizes, mask, kept))
-    trained = fold_train(update, [s["global_params"] for s in states],
-                         [(draws, mask) for _, draws, _, mask, _ in prepared], clients, per_part)
+    params = [s["global_params"] for s in states]
+    inputs = [(draws, mask) for _, draws, _, mask, _ in prepared]
+    trained = (fold_train(update, params, inputs, clients, per_part) if mesh is None
+               else fold_shards(updates, mesh, params, inputs, clients, per_part))
     out = []
     for prog, state, (b, draws, sizes, _, kept), result in zip(programs, states, prepared,
                                                                trained):

@@ -41,7 +41,8 @@ SIGNATURES = {
         "fused_step_scratch_floats": (ctypes.c_int, [_I]),
         "fused_step_run_epoch": (ctypes.c_int, [
             ctypes.POINTER(ctypes.c_void_p), _P, _P, _P,   # ptrs, batches, loss, scratch
-            _I, _I, _I, _P, _I, _I, _F, _F,                # C nb B seed seed_offset t_offset lr clip
+            _I, _I, _I, _P, _I, _I,                        # C nb B seed seed_offset t_offset
+            _I, _F, _F,                                    # client_base lr clip
             _U, _F, _U, _F, _U, _F,                        # dropout thr/scale x3
             _P]),                                          # stream
     },

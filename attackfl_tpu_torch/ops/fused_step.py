@@ -387,7 +387,8 @@ def _pad(x, width=D):
 
 @torch.no_grad()
 def run_epoch_reference(p, m, v, batches, seed, t_offset, *, lr, clip,
-                        drop_attn=0.1, drop_block=0.1, drop_head=0.3, seed_offset=0):
+                        drop_attn=0.1, drop_block=0.1, drop_head=0.3, seed_offset=0,
+                        client_base=0):
     """One epoch of fused Adam steps in plain PyTorch ops, on any device.
 
     Arguments and result as :func:`run_epoch`; p, m and v are updated in
@@ -395,7 +396,7 @@ def run_epoch_reference(p, m, v, batches, seed, t_offset, *, lr, clip,
     C, nb, B, _ = batches.shape
     seed = seed + seed_offset
     dev = batches.device
-    clients = torch.arange(C, dtype=torch.int64, device=dev)
+    clients = torch.arange(client_base, client_base + C, dtype=torch.int64, device=dev)
     loss_sums = torch.zeros(C, dtype=torch.float32, device=dev)
     rates = (drop_attn, drop_block, drop_head)
     lo, hi = 1e-7, 1.0 - 1e-7
@@ -563,8 +564,8 @@ def _check_inputs(p, m, v, batches) -> None:
                     f"{(C,) + GROUP_SHAPES[k]}")
 
 
-def _launch(p, m, v, batches, seed: torch.Tensor, seed_offset: int, t_offset, lr, clip,
-            rates) -> torch.Tensor:
+def _launch(p, m, v, batches, seed: torch.Tensor, seed_offset: int, t_offset, client_base,
+            lr, clip, rates) -> torch.Tensor:
     from attackfl_tpu_torch.ops.build import load_library
 
     lib = load_library("fused_step")
@@ -579,7 +580,7 @@ def _launch(p, m, v, batches, seed: torch.Tensor, seed_offset: int, t_offset, lr
     with torch.cuda.device(batches.device):
         rc = lib.fused_step_run_epoch(
             ptrs, batches.data_ptr(), loss.data_ptr(), scratch.data_ptr(),
-            C, nb, B, seed.data_ptr(), seed_offset, t_offset, lr, clip,
+            C, nb, B, seed.data_ptr(), seed_offset, t_offset, client_base, lr, clip,
             thr_a, sc_a, thr_b, sc_b, thr_h, sc_h, stream)
     if rc != 0:
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")
@@ -601,7 +602,7 @@ def _seed_tensor(seed, device: torch.device) -> torch.Tensor:
 
 
 def run_epoch(p, m, v, batches, seed, t_offset, *, lr, clip,
-              drop_attn=0.1, drop_block=0.1, drop_head=0.3, seed_offset=0):
+              drop_attn=0.1, drop_block=0.1, drop_head=0.3, seed_offset=0, client_base=0):
     """One epoch of fused Adam steps for every client.
 
     p, m, v: dicts of packed ``[C, ...]`` float32 groups (``pack_params``),
@@ -610,7 +611,10 @@ def run_epoch(p, m, v, batches, seed, t_offset, *, lr, clip,
     int64 tensor on the batches' device, which the kernel reads from
     device memory, so a seed drawn on the card is never copied to the
     host; ``seed_offset`` (the epoch) a host int.  t_offset: Adam steps
-    taken before this epoch.  Returns ``(p, m, v, loss_sums [C])``, the
+    taken before this epoch.  ``client_base``: the global index of the
+    first client, which keys its dropout masks: a mesh shard's block of
+    clients ``base .. base + C`` draws the masks those clients draw in one
+    unsharded launch (0: an unsharded launch).  Returns ``(p, m, v, loss_sums [C])``, the
     per-client sum of the nb per-step masked-mean losses.
 
     CUDA tensors go to the kernel (counted in ``run_epoch.launches``); CPU
@@ -624,11 +628,11 @@ def run_epoch(p, m, v, batches, seed, t_offset, *, lr, clip,
             return p, m, v, torch.empty(C, dtype=torch.float32, device=batches.device)
         return _run_epoch(p, m, v, batches, seed, t_offset, lr=lr, clip=clip,
                           drop_attn=drop_attn, drop_block=drop_block, drop_head=drop_head,
-                          seed_offset=seed_offset)
+                          seed_offset=seed_offset, client_base=client_base)
 
 
 def _run_epoch(p, m, v, batches, seed, t_offset, *, lr, clip, drop_attn, drop_block,
-               drop_head, seed_offset):
+               drop_head, seed_offset, client_base):
     kw = dict(lr=float(lr), clip=float(clip))
     rates = (float(drop_attn), float(drop_block), float(drop_head))
     if batches.device.type == "cpu":
@@ -636,11 +640,12 @@ def _run_epoch(p, m, v, batches, seed, t_offset, *, lr, clip, drop_attn, drop_bl
             seed = _seed_tensor(seed, batches.device)
         return run_epoch_reference(p, m, v, batches, seed, int(t_offset),
                                    drop_attn=rates[0], drop_block=rates[1],
-                                   drop_head=rates[2], seed_offset=int(seed_offset), **kw)
+                                   drop_head=rates[2], seed_offset=int(seed_offset),
+                                   client_base=int(client_base), **kw)
     if batches.device.type != "cuda":
         raise ValueError(f"run_epoch runs on cuda or cpu, not {batches.device}")
     loss = _launch(p, m, v, batches, _seed_tensor(seed, batches.device), int(seed_offset),
-                   int(t_offset), kw["lr"], kw["clip"], rates)
+                   int(t_offset), int(client_base), kw["lr"], kw["clip"], rates)
     _count_launch(run_epoch)
     return p, m, v, loss
 
@@ -661,7 +666,9 @@ def build_fused_local_update(dataset: dict[str, torch.Tensor], *, epochs: int,
     ``build_fused_local_update`` (``fused_step.py:543-645``).
 
     Returns ``batched(params, idx [C, hi], mask [C, hi], perms [E, C, hi],
-    seed) -> (stacked_params [C, ...], ok [C] bool, loss [C])``: per epoch
+    seed, client_base=0) -> (stacked_params [C, ...], ok [C] bool, loss
+    [C])``, ``client_base`` the global index of the first client (a mesh
+    shard's, :func:`run_epoch`): per epoch
     the PADDED index array is permuted by ``perms[e]``, cut into nb fixed
     minibatches (the tail padded with masked rows), and trained with
     dropout seed ``seed + e`` (``seed`` an int or the round's 0-dim int64
@@ -674,7 +681,7 @@ def build_fused_local_update(dataset: dict[str, torch.Tensor], *, epochs: int,
     B = batch_size
     clip = float(clip_grad_norm) if clip_grad_norm else 0.0
 
-    def batched(params, idx, mask, perms, seed):
+    def batched(params, idx, mask, perms, seed, client_base=0):
         if under_gradient(params):
             raise NotImplementedError(NO_BACKWARD)
         C, hi = idx.shape
@@ -699,7 +706,8 @@ def build_fused_local_update(dataset: dict[str, torch.Tensor], *, epochs: int,
                 dim=-1).contiguous()
             gp, gm, gv, sums = run_epoch(
                 gp, gm, gv, batch, seed, e * nb, lr=lr, clip=clip, seed_offset=e,
-                drop_attn=dropout[0], drop_block=dropout[1], drop_head=dropout[2])
+                drop_attn=dropout[0], drop_block=dropout[1], drop_head=dropout[2],
+                client_base=client_base)
             ok = ok & torch.isfinite(sums)
         return unpack_params(gp, stacked), ok, sums / nb
 

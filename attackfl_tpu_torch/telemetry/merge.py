@@ -18,8 +18,9 @@ The same entry point understands the run service's spool layout: a
 directory holding ``service.events.jsonl`` and/or
 ``jobs/<job_id>/events.jsonl`` per-job streams merges those by ``ts``
 instead, with each job event stamped with its ``job_id`` provenance.
-The port's runs write one ``events.jsonl`` (a multi-GPU run that writes
-per-process files is ROADMAP item 14); reading such files, committed or
+The port's runs write one ``events.jsonl`` (a run over more than one
+process, which writes per-process files, is ROADMAP item 14b); reading
+such files, committed or
 from the JAX package, is this module's.
 
 It reads JSON only, like :mod:`.summary`.

@@ -187,6 +187,11 @@ class RunMonitor:
         # at run start, 0 while demoted, back to k on re-promotion; None
         # on non-pipelined executors (gauge absent rather than 0)
         self._pipeline_depth: int | None = None
+        # the client mesh's shape, set once at the run's start; None on a
+        # meshless run (gauge absent rather than 0): the
+        # attackfl_mesh_devices gauge and /last-round's mesh fields
+        self._mesh_devices: int | None = None
+        self._mesh_strategy: str | None = None
         # the cost model's program profiles (set at each counted
         # program) and the latest mined window per dispatch seam
         self._cost_programs: dict[str, dict[str, Any]] = {}
@@ -279,6 +284,15 @@ class RunMonitor:
         while demoted — demote/re-promote transitions call this)."""
         with self._lock:
             self._pipeline_depth = None if depth is None else int(depth)
+
+    def set_mesh(self, devices: int | None, strategy: str | None = None) -> None:
+        """Record the run's client-mesh shape (JAX ``set_mesh``,
+        monitor.py:303-310): the ``attackfl_mesh_devices`` gauge and
+        /last-round's ``mesh_devices`` and ``mesh_strategy``.  None: a
+        meshless run (gauge absent)."""
+        with self._lock:
+            self._mesh_devices = None if devices is None else int(devices)
+            self._mesh_strategy = strategy
 
     def set_cost_model(self, programs: dict[str, dict[str, Any]]) -> None:
         """Record the engine's counted program profiles — called at each
@@ -432,6 +446,10 @@ class RunMonitor:
                 out["numerics"] = dict(self._last_numerics)
             if self._pipeline_depth is not None:
                 out["pipeline_depth"] = self._pipeline_depth
+            if self._mesh_devices is not None:
+                out["mesh_devices"] = self._mesh_devices
+                if self._mesh_strategy:
+                    out["mesh_strategy"] = self._mesh_strategy
             return out
 
     def metrics_text(self) -> str:
@@ -445,6 +463,7 @@ class RunMonitor:
             stalled = int(self._stalled)
             degraded = int(self._degraded is not None)
             pipeline_depth = self._pipeline_depth
+            mesh_devices = self._mesh_devices
         lines = [
             "# TYPE attackfl_rounds_completed counter",
             f"attackfl_rounds_completed {rounds}",
@@ -460,6 +479,11 @@ class RunMonitor:
             lines += [
                 "# TYPE attackfl_pipeline_depth gauge",
                 f"attackfl_pipeline_depth {pipeline_depth}",
+            ]
+        if mesh_devices is not None:
+            lines += [
+                "# TYPE attackfl_mesh_devices gauge",
+                f"attackfl_mesh_devices {mesh_devices}",
             ]
         if durations:
             lines += [

@@ -9,10 +9,19 @@ server.py:546-563), at most ``MAX_ROUND_RETRIES`` times in a row; the
 attack clock advances per broadcast (the client-side counter,
 RpcClient.py:72).
 
-The port runs on one device and draws its randomness from
-``torch.Generator``s: model init from a CPU generator seeded with
-``random_seed`` (so CPU and GPU runs start from the same weights), round
-draws from a generator on the run's device.
+The port draws its randomness from ``torch.Generator``s: model init from
+a CPU generator seeded with ``random_seed`` (so CPU and GPU runs start
+from the same weights), round draws from a generator on the run's device.
+
+Over a client mesh of one process (``use_mesh`` or ``mesh``, a
+``parallel.mesh.ClientMesh``; JAX engine.py:202-273) every executor trains
+each shard's block of clients on its device and, under the ``shard_map``
+strategy, aggregates by the per-defense collectives
+(``parallel/shard.py``); the run's state, the draws, the attacks and the
+validation stay on the mesh's lead device.  JAX's rule picks or refuses
+the strategy, and a client count that does not divide falls back to no
+mesh.  ``run`` builds ``Simulator(cfg, use_mesh=True)``: on one card a
+one-device mesh, whose local update is the meshless call.
 
 ``run`` saves a checkpoint after every ok round by default (reference
 server.py:549-553) through ``utils/checkpoint.CheckpointManager``:
@@ -146,6 +155,8 @@ from attackfl_tpu_torch.models.hyper import make_hypernetwork
 from attackfl_tpu_torch.ops import build, defenses, fused_step
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.ops.metrics import Numerics, build_layout
+from attackfl_tpu_torch.parallel.mesh import ClientMesh, canonical, make_client_mesh
+from attackfl_tpu_torch.parallel.shard import supports_shard_map
 from attackfl_tpu_torch.profiler.capture import HotspotCapture
 from attackfl_tpu_torch.registry import get_model
 from attackfl_tpu_torch.telemetry.console import Logger, print_with_color
@@ -247,15 +258,14 @@ def check_slice(cfg: Config) -> None:
     validation, local_backend xla (in float32, bfloat16 or float16) or,
     for TransformerModel, pallas (the config refuses it for the others,
     for hyper and for a compute-dtype other than float32); the
-    synchronous, fused and pipelined executors; the event log, trace,
-    counters and ledger, the numerics ring, the live monitor, the
-    profiling and hotspot windows and the cost model.  The multi-GPU
-    client axis is refused (item 14)."""
+    synchronous, fused and pipelined executors, each over a client mesh
+    of one process's devices too (``tpu.num-devices``); the event log,
+    trace, counters and ledger, the numerics ring, the live monitor, the
+    profiling and hotspot windows and the cost model.  A mesh over more
+    than one process is ROADMAP item 14b (``--coordinator`` refuses it)."""
     if MODEL_DATA.get(cfg.model) != cfg.data_name:
         raise ValueError(f"model {cfg.model!r} does not run on {cfg.data_name!r}; the "
                          f"models and their datasets: {MODEL_DATA}")
-    if cfg.mesh.num_devices > 1:
-        _refuse("the multi-GPU client axis", "item 14")
 
 
 def host_filter(mode: str, stacked: dict, attacker_mask: np.ndarray,
@@ -343,13 +353,19 @@ def build_plain_tail(cfg: Config, device: torch.device, aggregate: Callable,
 
 
 class Simulator:
-    """End-to-end federated simulation of one Config on one device."""
+    """End-to-end federated simulation of one Config on one device, or
+    over a client mesh of one process's devices (``use_mesh`` builds it
+    from ``tpu.num-devices``; ``mesh`` gives one, its lead device the
+    run's ``device``; ``mesh_strategy`` ``shard_map`` or ``gspmd``, by
+    JAX's rule when None)."""
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda",
-                 logger: Logger | None = None):
+                 logger: Logger | None = None, use_mesh: bool = False,
+                 mesh: ClientMesh | None = None, mesh_strategy: str | None = None):
         check_slice(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._resolve_mesh(use_mesh, mesh, mesh_strategy)
         # opened once the config and the device are accepted
         self.logger = logger or Logger(f"{cfg.log_path}/app.log")
         # the event log, tracer and counters (JAX engine.py:275-296); inert
@@ -434,7 +450,8 @@ class Simulator:
                                           cfg.total_clients, embedding_dim=8, hidden_dim=100,
                                           spec_norm=cfg.hyper_spec_norm, n_hidden=2)
             self.round_step = build_hyper_round(self.model, cfg, self.train_data,
-                                                self.attack_groups, self.genuine_idx, self.hnet)
+                                                self.attack_groups, self.genuine_idx, self.hnet,
+                                                mesh=self.mesh)
             self.hyper_update, self.hyper_opt = build_hyper_update(cfg, self.hnet)
             if cfg.hyper_detection.enable:
                 hd = cfg.hyper_detection
@@ -444,8 +461,12 @@ class Simulator:
                     save_path=os.path.join(cfg.log_path, "all_embeddings.npy"))
         else:
             self.round_step = build_round_step(self.model, cfg, self.train_data,
-                                               self.attack_groups, self.genuine_idx)
-            self.aggregate = build_aggregator(self.model, cfg, self.test_data)
+                                               self.attack_groups, self.genuine_idx,
+                                               mesh=self.mesh)
+            # gspmd keeps the unchanged aggregator over the gathered rows
+            self.aggregate = build_aggregator(
+                self.model, cfg, self.test_data,
+                mesh=self.mesh if self.mesh_strategy == "shard_map" else None)
         # the defense's per-round verdict against the attackers, built only
         # when its events are recorded (JAX engine.py:470-481); gmm and
         # fltracer hold their keep mask on the host already
@@ -502,6 +523,69 @@ class Simulator:
         # extra run_header fields a wrapping executor records (the matrix
         # stamps its fallback cells' runs with sweep_id and cell, schema v7)
         self.header_extra: dict[str, Any] = {}
+
+    def _resolve_mesh(self, use_mesh: bool, mesh: ClientMesh | None,
+                      mesh_strategy: str | None) -> None:
+        """``self.mesh`` and ``self.mesh_strategy`` (JAX engine.py:202-273):
+        ``use_mesh`` builds the mesh from ``tpu.num-devices`` on the run's
+        device type; a client count the mesh size does not divide runs
+        without a mesh, with JAX's message; ``shard_map`` where
+        :func:`~attackfl_tpu_torch.parallel.shard.supports_shard_map`
+        allows it, else ``gspmd``, and a forced ``shard_map`` it does not
+        allow is refused."""
+        cfg = self.cfg
+        self.mesh = mesh
+        if use_mesh and mesh is None:
+            self.mesh = make_client_mesh(cfg.mesh.num_devices, cfg.mesh.axis_name,
+                                         device=self.device)
+        if self.mesh is not None and self.mesh.lead != canonical(self.device):
+            raise ValueError(f"the mesh's lead device {self.mesh.lead} is not the run's "
+                             f"device {self.device}")
+        if self.mesh is not None and cfg.total_clients % self.mesh.size != 0:
+            print_with_color(
+                f"[mesh] {cfg.total_clients} clients not divisible by "
+                f"{self.mesh.size} devices; running replicated.", "yellow")
+            self.mesh = None
+        self.mesh_strategy: str | None = None
+        if self.mesh is not None:
+            if mesh_strategy is None:
+                self.mesh_strategy = "shard_map" if supports_shard_map(cfg) else "gspmd"
+            else:
+                if mesh_strategy not in ("shard_map", "gspmd"):
+                    raise ValueError(f"unknown mesh_strategy {mesh_strategy!r}; choose "
+                                     "'shard_map' or 'gspmd'")
+                if mesh_strategy == "shard_map" and not supports_shard_map(cfg):
+                    raise ValueError(
+                        "mesh_strategy 'shard_map' needs prng_impl threefry2x32 on a plain "
+                        "(non-hyper) mode: rbg hardware keys draw batch-shape-dependent "
+                        "bits, so device-local client blocks cannot reproduce the "
+                        "single-program trajectory (parallel/shard)")
+                self.mesh_strategy = mesh_strategy
+
+    def _synchronize(self) -> None:
+        """Wait for the run's device, every device of its mesh."""
+        for device in (self.mesh.distinct if self.mesh is not None else (self.device,)):
+            devices.synchronize(device)
+
+    def _place_on_mesh(self, state: dict[str, Any]) -> dict[str, Any]:
+        """A run-entry state in its canonical mesh placement (JAX
+        ``_place_on_mesh``, engine.py:874-892): every tensor on a device of
+        the mesh's type moved to the lead device, where the round
+        programs' replicated state lives.  The host's own state (hyper
+        mode's active mask and Adam count on the CPU) stays where it is,
+        and a state from this Simulator is returned as the same tensors."""
+        if self.mesh is None:
+            return state
+        lead = self.mesh.lead
+
+        def place(value):
+            if isinstance(value, dict):
+                return {k: place(v) for k, v in value.items()}
+            if isinstance(value, torch.Tensor) and value.device.type == lead.type:
+                return value.to(lead)
+            return value
+
+        return {k: place(v) for k, v in state.items()}
 
     # ------------------------------------------------------------------
     # state
@@ -888,8 +972,12 @@ class Simulator:
         depth = ({"pipeline_depth": int(self._depth_resolved),
                   "pipeline_depth_configured": str(self.cfg.pipeline_depth)}
                  if self._depth_resolved is not None else {})
+        mesh = ({"mesh_devices": self.mesh.size, "mesh_strategy": self.mesh_strategy}
+                if self.mesh is not None else {"mesh_devices": 0})
         self._header_record = tel.events.emit(
-            "run_header", backend=backend, num_devices=1, mode=self.cfg.mode,
+            "run_header", backend=backend,
+            num_devices=torch.cuda.device_count() if self.device.type == "cuda" else 1,
+            **mesh, mode=self.cfg.mode,
             model=self.cfg.model, data_name=self.cfg.data_name,
             total_clients=self.cfg.total_clients,
             attacks=describe_attack_groups(self.attack_groups), programs=programs,
@@ -911,6 +999,8 @@ class Simulator:
         if self.monitor is None:
             return
         first = self.monitor.port is None
+        if self.mesh is not None:
+            self.monitor.set_mesh(self.mesh.size, self.mesh_strategy)
         self.monitor.start().run_started()
         if first:
             print_with_color(f"[monitor] http://localhost:{self.monitor.port} "
@@ -936,7 +1026,10 @@ class Simulator:
         counted (``costmodel/capture.count_program``) and written as a
         ``program_profile`` event (JAX engine.py:811-857); the counter's
         own bookkeeping is taken out of the open spans into a ``costmodel``
-        span, so no round's span holds it."""
+        span, so no round's span holds it.  A program over a client mesh
+        is counted too: JAX skips its capture there because an AOT compile
+        pins input shardings (engine.py:838-842), which an eager count does
+        not, and ``run``, which always builds a mesh, keeps its profiles."""
         with torch.profiler.record_function(label):
             if not self._costmodel_on or label in self._program_profiles:
                 return fn(*args)
@@ -1144,7 +1237,7 @@ class Simulator:
                 new_state, metrics = self._run_hyper_round(state, broadcast_number, metrics)
             else:
                 new_state, metrics = self._run_plain_round(state, broadcast_number, metrics)
-            devices.synchronize(self.device)
+            self._synchronize()
         metrics["seconds"] = time.perf_counter() - t0
         self.telemetry.events.round_event(metrics)
         return new_state, metrics
@@ -1208,7 +1301,7 @@ class Simulator:
                 new_global = self._dispatch("aggregate", self.aggregate,
                                             state["global_params"], stacked, sizes,
                                             weights_mask, draws)
-                devices.synchronize(self.device)
+                self._synchronize()
             if self._validation_due(broadcast_number):
                 if self.cfg.validation_async:
                     self._inflight_validations.append(
@@ -1283,7 +1376,7 @@ class Simulator:
                 # dropped clients (size 0) skip their step
                 hnet, opt = self._dispatch("hyper_update", self.hyper_update, hnet, opt,
                                            stacked, active_mask * (sizes > 0))
-                devices.synchronize(self.device)
+                self._synchronize()
             gen = None
             if self.detector is not None:
                 with timer.phase("detect"):
@@ -1393,8 +1486,8 @@ class Simulator:
         ``stop``, if given, is called with the completed-round count
         before each round: a truthy verdict ends the run there."""
         num_rounds = num_rounds if num_rounds is not None else self.cfg.num_round
-        state = self._ensure_numerics_state(
-            state if state is not None else self.load_or_init_state())
+        state = self._place_on_mesh(self._ensure_numerics_state(
+            state if state is not None else self.load_or_init_state()))
         self._stop_reason = None
         use_pipeline = self.cfg.pipeline if pipeline is None else pipeline
         depth = None
@@ -1668,8 +1761,8 @@ class Simulator:
         reaches its first round and closes after the chunk that completes
         its last."""
         num_rounds = num_rounds if num_rounds is not None else self.cfg.num_round
-        state = self._ensure_numerics_state(
-            state if state is not None else self.load_or_init_state())
+        state = self._place_on_mesh(self._ensure_numerics_state(
+            state if state is not None else self.load_or_init_state()))
         tel = self.telemetry
         self._stop_reason = None
         self._emit_run_header()

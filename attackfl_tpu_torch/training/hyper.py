@@ -32,7 +32,7 @@ from attackfl_tpu_torch.models.hyper import HyperNetwork
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.training import local
 from attackfl_tpu_torch.training.round import (
-    AttackGroup, _rows, group_rows, scatter_attacks,
+    AttackGroup, _rows, build_mesh_update, group_rows, scatter_attacks,
 )
 
 B1, B2, EPS = local.B1, local.B2, local.EPS
@@ -121,7 +121,7 @@ def build_hyper_update(cfg: Config, hnet: HyperNetwork) -> tuple[Callable, Hyper
 
 def build_hyper_round(model, cfg: Config, train_data: dict[str, torch.Tensor],
                       attack_groups: Sequence[AttackGroup], genuine_idx: Sequence[int],
-                      hnet: HyperNetwork) -> Callable:
+                      hnet: HyperNetwork, mesh=None) -> Callable:
     """The client phase of a hyper round (JAX ``build_hyper_round``,
     hyper.py:49-216):
 
@@ -129,7 +129,8 @@ def build_hyper_round(model, cfg: Config, train_data: dict[str, torch.Tensor],
     broadcast_number) -> (stacked, sizes, new_genuine, ok, loss)``
 
     Every client trains from its own generated params with the ``xla``
-    local update (in ``cfg.mesh.compute_dtype``); an attacker in an attack
+    local update (in ``cfg.mesh.compute_dtype``), per shard over ``mesh``
+    (a ``parallel.mesh.ClientMesh``) when given; an attacker in an attack
     round forges from the params it was broadcast and its leak sample
     (``draws.leaks``, over the active genuine clients), and a ``none``
     cohort reports the params it was broadcast.  An attack fires when
@@ -137,10 +138,16 @@ def build_hyper_round(model, cfg: Config, train_data: dict[str, torch.Tensor],
     some genuine client is active.
     ``ok`` is every active client's training finite and at least one
     participant (active and kept); the loss is the participants' mean."""
-    local_update = local.build_local_update(
-        model, cfg.data_name, train_data, epochs=cfg.epochs, batch_size=cfg.batch_size,
-        lr=cfg.lr, clip_grad_norm=cfg.clip_grad_norm,
-        compute_dtype=local.resolve_compute_dtype(cfg.mesh.compute_dtype))
+    def build(data):
+        return local.build_local_update(
+            model, cfg.data_name, data, epochs=cfg.epochs, batch_size=cfg.batch_size,
+            lr=cfg.lr, clip_grad_norm=cfg.clip_grad_norm,
+            compute_dtype=local.resolve_compute_dtype(cfg.mesh.compute_dtype))
+
+    # over a client mesh each shard trains its block of generated rows; the
+    # generation and the hypernetwork update stay on the lead device
+    local_update = (build(train_data) if mesh is None else
+                    build_mesh_update(mesh, build, train_data, stacked_params=True))
     device = next(iter(train_data.values())).device
     genuine_arr = torch.as_tensor(list(genuine_idx), dtype=torch.int64, device=device)
     # every group goes through the attack scatter, ``none`` cohorts too: JAX's

@@ -226,8 +226,9 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
     """Batched local training of every client with torch autograd.
 
     Returns ``batched(params, idx [C, hi], mask [C, hi], perms [E, C, hi],
-    seed, clients=None) -> (stacked_params [C, ...], ok [C] bool, loss
-    [C])``, the signature of ``ops/fused_step.build_fused_local_update``:
+    seed, clients=None, segment=None, client_base=0) -> (stacked_params
+    [C, ...], ok [C] bool, loss [C])``, the signature of
+    ``ops/fused_step.build_fused_local_update``:
     per epoch the PADDED index array is permuted by ``perms[e]`` and cut
     into nb fixed minibatches (the tail padded with masked rows); dropout
     masks are keyed on seed ``seed + e``; ``ok`` is False where any step's
@@ -241,7 +242,9 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
     row's run's draw, and ``clients`` [C] each row's client id within its
     run.  The keys ``client_keys(seed + e, step, client)`` are elementwise,
     so every row draws the masks of its own run, all rows' in one K3
-    launch a step.
+    launch a step.  A client mesh's shard (``parallel/shard.py``) trains
+    its block as global clients ``client_base ..`` (``clients`` None), so
+    its rows draw the masks of one unsharded call.
 
     Every step runs out of place (:func:`adam_step`), so the engine's
     damage objective differentiates through a round's training; under a
@@ -257,7 +260,7 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
     # the captured gradient step of a segment, by its row count (the card)
     graphs: dict[int, StepGraph] = {}
 
-    def batched(params, idx, mask, perms, seed, clients=None, segment=None):
+    def batched(params, idx, mask, perms, seed, clients=None, segment=None, client_base=0):
         C, hi = idx.shape
         nb = -(-hi // B)
         pad = nb * B - hi
@@ -308,7 +311,8 @@ def build_local_update(model, data_name: str, dataset: dict[str, torch.Tensor], 
         opt["m"], opt["v"] = torch.zeros_like(opt["p"]), torch.zeros_like(opt["p"])
         ok = torch.ones(C, dtype=torch.bool, device=idx.device)
         if clients is None:
-            clients = torch.arange(C, dtype=torch.int64, device=idx.device)
+            clients = torch.arange(client_base, client_base + C, dtype=torch.int64,
+                                   device=idx.device)
         loss_sum = None
         for e in range(epochs):
             bidx = F.pad(torch.gather(idx, 1, perms[e]), (0, pad)).reshape(C, nb, B)

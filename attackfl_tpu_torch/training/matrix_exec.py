@@ -50,7 +50,12 @@ Executor contract, as JAX's:
   abort) is quarantined with a ``cell_aborted`` event and leaves the
   sweep; the other cells complete.
 
-The multi-GPU cell axis (JAX's ``use_mesh``) is ROADMAP item 14: refused.
+* **the cell axis over a client mesh** — ``use_mesh`` (or ``mesh``, JAX
+  matrix_exec.py:106-131): the device cells split over the mesh's shards,
+  clone-padded up to the shard count, each shard folding its own cells
+  with the local update built for its device (``matrix/program.py``
+  ``fold_shards``); every cell's state stays on the lead device, and each
+  cell's bits are the unsharded sweep's.
 """
 
 from __future__ import annotations
@@ -73,11 +78,14 @@ from attackfl_tpu_torch.ledger.record import git_revision
 from attackfl_tpu_torch.ledger.store import LedgerStore, resolve_ledger_dir
 from attackfl_tpu_torch.matrix.grid import Cell, GridSpec, cell_config, expand_cells
 from attackfl_tpu_torch.matrix.program import (
-    CellProgram, build_cell_program, cells_per_part, sweep_round,
+    CellProgram, build_cell_program, cells_per_part, padded_cells, sweep_round,
 )
 from attackfl_tpu_torch.matrix.records import cell_event_summaries, sweep_records
 from attackfl_tpu_torch.ops import build
 from attackfl_tpu_torch.ops import pytree as pt
+from attackfl_tpu_torch.parallel.mesh import (
+    ClientMesh, build_per_device, canonical, make_client_mesh,
+)
 from attackfl_tpu_torch.profiler.capture import HotspotCapture
 from attackfl_tpu_torch.registry import get_model
 from attackfl_tpu_torch.telemetry.console import print_with_color
@@ -110,20 +118,25 @@ class _CellTelemetry:
 
 
 class MatrixRun:
-    """One sweep: a base workload Config and a GridSpec, on ``device``."""
+    """One sweep: a base workload Config and a GridSpec, on ``device``, its
+    cell axis over a client mesh with ``use_mesh`` (from
+    ``tpu.num-devices``) or ``mesh`` (its lead device ``device``)."""
 
     def __init__(self, cfg: Config, grid: GridSpec, sweep_id: str | None = None,
                  telemetry: Telemetry | None = None, use_mesh: bool = False,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh: ClientMesh | None = None):
         grid.validate_base(cfg)
         check_slice(cfg)
-        if use_mesh:
-            raise NotImplementedError(
-                "the matrix's cell axis across GPUs is not ported yet (ROADMAP.md queue 1, "
-                "item 14)")
         self.cfg = cfg
         self.grid = grid
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if use_mesh and mesh is None:
+            self.mesh = make_client_mesh(cfg.mesh.num_devices, cfg.mesh.axis_name,
+                                         device=self.device)
+        if self.mesh is not None and self.mesh.lead != canonical(self.device):
+            raise ValueError(f"the mesh's lead device {self.mesh.lead} is not the sweep's "
+                             f"device {self.device}")
         self.sweep_id = sweep_id or uuid.uuid4().hex[:12]
         self.cells = expand_cells(grid)
         self.device_cells = [c for c in self.cells if c.group in ("batched", "mapped")]
@@ -145,6 +158,11 @@ class MatrixRun:
         # one local update for every cell (the cells differ in attack,
         # defense and seed only), each defense's aggregate built once
         self.update = build_client_update(self.model, cfg, self.train_data)
+        # under a mesh, one local update for each distinct device of it
+        self.updates = None if self.mesh is None else build_per_device(
+            self.mesh, lambda d: build_client_update(
+                self.model, cfg, {k: v.to(d) for k, v in self.train_data.items()}),
+            lead=self.update)
         defenses = tuple(dict.fromkeys(c.defense for c in self.device_cells))
         branches = dict(zip(defenses, build_defense_branches(self.model, cfg, self.test_data,
                                                              defenses)))
@@ -333,7 +351,9 @@ class MatrixRun:
             return
         backend = "gpu" if self.device.type == "cuda" else "cpu"
         tel.events.emit(
-            "run_header", backend=backend, num_devices=1, mesh_devices=0, mode="matrix",
+            "run_header", backend=backend,
+            num_devices=torch.cuda.device_count() if self.device.type == "cuda" else 1,
+            mesh_devices=self.mesh.size if self.mesh is not None else 0, mode="matrix",
             model=self.cfg.model, data_name=self.cfg.data_name,
             total_clients=self.cfg.total_clients, torch_version=torch.__version__,
             platform=backend, git_rev=git_revision(), sweep_id=self.sweep_id,
@@ -359,7 +379,7 @@ class MatrixRun:
         rows: list[list[dict[str, Any]]] = [[] for _ in cells]
         for _ in range(n):
             results = sweep_round(programs, states, self.update, self.cfg.total_clients,
-                                  self.cells_per_part)
+                                  self.cells_per_part, mesh=self.mesh, updates=self.updates)
             states = [new for new, _ in results]
             for row, (_, metrics) in zip(rows, results):
                 row.append(metrics)
@@ -372,7 +392,11 @@ class MatrixRun:
         cost model on, counted into a ``program_profile`` event with
         ``rounds_per_dispatch`` and ``cells`` (JAX matrix_exec.py:477-516)."""
         label = f"matrix_chunk[{n}]"
-        parts = -(-len(cells) // self.cells_per_part)
+        if self.mesh is None:
+            parts = -(-len(cells) // self.cells_per_part)
+        else:
+            per_shard = padded_cells(len(cells), self.mesh) // self.mesh.size
+            parts = self.mesh.size * -(-per_shard // self.cells_per_part)
         self.fold_calls += n * parts
         with torch.profiler.record_function(label):
             if not self._costmodel_on or label in self._program_profiles:
@@ -668,7 +692,7 @@ class MatrixRun:
                 run_id=self.telemetry.events.run_id, ts=time.time(), wall_s=wall,
                 resumed=self._resumed,
                 provenance={"torch_version": torch.__version__, "backend": backend,
-                            "mesh_devices": 0},
+                            "mesh_devices": self.mesh.size if self.mesh is not None else 0},
                 programs=dict(self._program_profiles) or None,
                 event_summaries=self._mine_cell_summaries())
         except Exception as e:  # noqa: BLE001 — observability, fail open

@@ -34,6 +34,14 @@ RpcClient.py behaviour):
 
 Randomness enters only through a :class:`~attackfl_tpu_torch.data.partition.RoundDraws`
 record, drawn by the engine.
+
+Over a client mesh (``parallel/``, JAX round.py:232-262, 366-375,
+421-456) the local update runs per shard on its block of clients
+(``parallel/shard.shard_local_update``) under either backend, its rows
+coming back to the lead device; the attacks and the leak pool run there,
+the pool replicated so that every attacker gathers any row; and, under the
+``shard_map`` strategy, :func:`build_aggregator` reduces over the shards by
+the per-defense collective table (``parallel/shard.shard_aggregator``).
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ from attackfl_tpu_torch.data.partition import RoundDraws, apply_client_dropout, 
 from attackfl_tpu_torch.faults.inject import apply_nan_storm, build_client_fault_fn
 from attackfl_tpu_torch.ops import aggregators, attacks, fused_step
 from attackfl_tpu_torch.ops import pytree as pt
+from attackfl_tpu_torch.parallel.mesh import ClientMesh, build_per_device, make_constrain
+from attackfl_tpu_torch.parallel.shard import shard_aggregator, shard_local_update
 from attackfl_tpu_torch.training import local
 
 # Element budget of one chunk of the per-attacker leak gather: each
@@ -218,6 +228,19 @@ def build_client_update(model, cfg: Config, train_data: dict[str, torch.Tensor])
     return fused_step.build_fused_local_update(train_data, dropout=dropout, **kw)
 
 
+def build_mesh_update(mesh: ClientMesh, build: Callable[[dict], Callable],
+                      train_data: dict[str, torch.Tensor], stacked_params: bool = False
+                      ) -> Callable:
+    """The local update over ``mesh``'s shards
+    (``parallel/shard.shard_local_update``): ``build(data)`` makes one
+    update for each distinct device of the mesh, on its copy of
+    ``train_data`` (which lies on the lead device)."""
+    updates = build_per_device(
+        mesh, lambda device: build({k: v.to(device) for k, v in train_data.items()}),
+        lead=build(train_data))
+    return shard_local_update(updates, mesh, stacked_params=stacked_params)
+
+
 @dataclass(frozen=True)
 class RoundHalves:
     """The round step in its two halves (:func:`build_round_halves`):
@@ -241,13 +264,21 @@ class RoundHalves:
 def build_round_halves(model, cfg: Config, train_data: dict[str, torch.Tensor],
                        attack_groups: Sequence[AttackGroup],
                        genuine_idx: Sequence[int],
-                       update: Callable | None = None) -> RoundHalves:
+                       update: Callable | None = None,
+                       mesh: ClientMesh | None = None) -> RoundHalves:
     """The halves of :func:`build_round_step` (:class:`RoundHalves`);
     ``update`` is the local update to train with (default: a new
-    :func:`build_client_update`)."""
+    :func:`build_client_update`, per shard over ``mesh`` when given)."""
     device = next(iter(train_data.values())).device
-    batched_update = update if update is not None else build_client_update(
-        model, cfg, train_data)
+    if update is not None:
+        batched_update = update
+    elif mesh is not None:
+        batched_update = build_mesh_update(
+            mesh, lambda data: build_client_update(model, cfg, data), train_data)
+    else:
+        batched_update = build_client_update(model, cfg, train_data)
+    # the leak pool's placement: replicated on the lead device
+    constrain = make_constrain(mesh)
     genuine_arr = torch.as_tensor(list(genuine_idx), dtype=torch.int64, device=device)
     firing = attacking_groups(attack_groups)
     firing_rows = group_rows(firing, device)
@@ -304,8 +335,8 @@ def build_round_halves(model, cfg: Config, train_data: dict[str, torch.Tensor],
             keptf = kept.to(losses.dtype)
             mean_loss = torch.sum(losses * keptf) / torch.clamp(torch.sum(keptf), min=1.0)
         fresh = pt.tree_take(stacked, genuine_arr)
-        new_genuine = pt.tree_map(lambda n, p: torch.where(_rows(sel, n), n, p),
-                                  fresh, prev_genuine)
+        new_genuine = constrain(pt.tree_map(lambda n, p: torch.where(_rows(sel, n), n, p),
+                                            fresh, prev_genuine))
         return stacked, sizes, new_genuine, train_ok, mean_loss
 
     return RoundHalves(prepare=prepare, train=train, finish=finish, update=batched_update)
@@ -313,7 +344,8 @@ def build_round_halves(model, cfg: Config, train_data: dict[str, torch.Tensor],
 
 def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
                      attack_groups: Sequence[AttackGroup],
-                     genuine_idx: Sequence[int]) -> Callable:
+                     genuine_idx: Sequence[int],
+                     mesh: ClientMesh | None = None) -> Callable:
     """Build ``round_step(global_params, prev_genuine, have_genuine, draws,
     broadcast_number) -> (stacked, sizes, new_genuine, ok, mean_loss)``:
     ``have_genuine`` a bool or a 0-dim bool tensor on the round's device,
@@ -322,9 +354,11 @@ def build_round_step(model, cfg: Config, train_data: dict[str, torch.Tensor],
     ROADMAP.md item 3a).  It is ``finish(train(...))``
     of :func:`build_round_halves`.
 
-    ``train_data`` lies on the device the round runs on; the local update
-    is :func:`build_client_update`'s."""
-    halves = build_round_halves(model, cfg, train_data, attack_groups, genuine_idx)
+    ``train_data`` lies on the device the round runs on (``mesh``'s lead
+    device); the local update is :func:`build_client_update`'s, per shard
+    over ``mesh`` when given."""
+    halves = build_round_halves(model, cfg, train_data, attack_groups, genuine_idx,
+                                mesh=mesh)
 
     def round_step(global_params: dict, prev_genuine: dict,
                    have_genuine: bool | torch.Tensor, draws: RoundDraws,
@@ -368,7 +402,8 @@ ROOT_SIZE, ROOT_BATCH = 200, 100
 
 
 def build_aggregator(model, cfg: Config,
-                     test_data: dict[str, torch.Tensor] | None = None) -> Callable:
+                     test_data: dict[str, torch.Tensor] | None = None,
+                     mesh: ClientMesh | None = None) -> Callable:
     """``aggregate(global_params, stacked, sizes, weights_mask, draws) ->
     new_global`` for the configured mode (JAX ``round.py:459-513``).
 
@@ -382,8 +417,30 @@ def build_aggregator(model, cfg: Config,
     "no change".  ScionFL reads ``draws.uniform``, FLTrust
     ``draws.root_perms`` and ``draws.root_seed``; FLTrust trains its root
     set, the first ``ROOT_SIZE`` rows of ``test_data``, with the autograd
-    update (``local.build_root_update``) whatever ``local_backend`` is."""
+    update (``local.build_root_update``) whatever ``local_backend`` is.
+
+    With ``mesh`` the aggregation reduces over the mesh's shards by
+    collectives (``parallel/shard.shard_aggregator``, JAX round.py:421-456):
+    the same signature, the result on the lead device.  FLTrust's root
+    pass runs once, replicated, outside the sharded region, and only its
+    combine shards.  The callable carries ``telemetry_info``."""
     mode = cfg.mode
+    if mesh is not None:
+        if mode == "FLTrust":
+            root_update = _fltrust_root_update(model, cfg, test_data)
+            combine = shard_aggregator(None, mode, mesh)
+
+            def aggregate(global_params, stacked, sizes, weights_mask, draws):
+                # the root pass reads replicated operands only (the global
+                # params and the round's draws): no collective
+                root_params = root_update(global_params, draws.root_perms, draws.root_seed)
+                root_delta = pt.tree_map(torch.sub, root_params, global_params)
+                deltas = pt.tree_map(lambda s, g: s - g.unsqueeze(0), stacked, global_params)
+                return combine(global_params, deltas, root_delta)
+        else:
+            aggregate = shard_aggregator(build_aggregator(model, cfg, test_data), mode, mesh)
+        aggregate.telemetry_info = {"program": f"aggregate[{mode}]", "sharded": True}
+        return aggregate
     geo = cfg.client_dropout_rate > 0.0
 
     def geo_mask(weights_mask):
@@ -418,12 +475,7 @@ def build_aggregator(model, cfg: Config,
             return aggregators.byzantine_tolerance(stacked, cfg.byzantine_threshold,
                                                    geo_mask(weights_mask))
     elif mode == "FLTrust":
-        if test_data is None:
-            raise ValueError("FLTrust requires test data for root training")
-        root = {k: v[:ROOT_SIZE] for k, v in test_data.items()}
-        root_update = local.build_root_update(
-            model, cfg.data_name, root, epochs=cfg.epochs, batch_size=ROOT_BATCH, lr=cfg.lr,
-            clip_grad_norm=cfg.clip_grad_norm)
+        root_update = _fltrust_root_update(model, cfg, test_data)
 
         def aggregate(global_params, stacked, sizes, weights_mask, draws):
             root_params = root_update(global_params, draws.root_perms, draws.root_seed)
@@ -436,6 +488,17 @@ def build_aggregator(model, cfg: Config,
     else:
         raise ValueError(f"Server mode '{mode}' is not valid.")
     return aggregate
+
+
+def _fltrust_root_update(model, cfg: Config,
+                         test_data: dict[str, torch.Tensor] | None) -> Callable:
+    """FLTrust's root training on the first ``ROOT_SIZE`` test rows."""
+    if test_data is None:
+        raise ValueError("FLTrust requires test data for root training")
+    root = {k: v[:ROOT_SIZE] for k, v in test_data.items()}
+    return local.build_root_update(
+        model, cfg.data_name, root, epochs=cfg.epochs, batch_size=ROOT_BATCH, lr=cfg.lr,
+        clip_grad_norm=cfg.clip_grad_norm)
 
 
 def build_defense_branches(model, cfg: Config, test_data: dict[str, torch.Tensor] | None,
@@ -517,10 +580,7 @@ def build_attribution_fn(model, cfg: Config,
     elif mode == "FLTrust":
         if test_data is None:
             return None
-        root = {k: v[:ROOT_SIZE] for k, v in test_data.items()}
-        root_update = local.build_root_update(
-            model, cfg.data_name, root, epochs=cfg.epochs, batch_size=ROOT_BATCH, lr=cfg.lr,
-            clip_grad_norm=cfg.clip_grad_norm)
+        root_update = _fltrust_root_update(model, cfg, test_data)
 
         def attribution(global_params, stacked, sizes, weights_mask, draws):
             root_params = root_update(global_params, draws.root_perms, draws.root_seed)

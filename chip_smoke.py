@@ -271,13 +271,34 @@ no result line):
                  `--forensics`) on a's, and the bill of b's killed job
                  beside its slot events and its runs; no job, no kernel
                  launch.
+ 21. client mesh in one process -- config 4 (cut) over a 2-shard mesh
+                 of cuda:0 (mesh_phase): a. K1 from a warm state at C=100,
+                 two launches of 50 clients at bases 0 and 50 against one
+                 of 100, bit for bit, the base's launch against its plain
+                 version at phase 3's gates; b. pallas with threefry keys
+                 (shard_map): round 1's local update bit for bit, the ok
+                 sequence, the params after round 1 within 1e-5 of the
+                 meshless run's, K1 2 x epochs a broadcast; c. one round
+                 under xla with rbg keys (gspmd): the rows bit for bit or,
+                 where cuBLAS parts them, within 2e-4 on the entries whose
+                 first-step |g| is at least 1e-6, the aggregate of the
+                 same rows within 1e-5, K3 2 x steps; d. each of the ten
+                 defenses sharded on b's round-1 rows: the gather modes
+                 bit for bit, the psum modes within 2e-6, the collectives
+                 each records the table's; e. the one-device mesh `run`
+                 builds, under each backend: the meshless run bit for bit
+                 with its launches; f. a 2 x 2 x 1 sweep's cell axis over
+                 the mesh: every cell bit for bit, no collective; g. the
+                 sharded programs and the cell-sharded sweep under the
+                 program audit: no sync, the table's collectives.
 Each of phases 4-15 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.  The kernels record's
 launches are phase 4's main path's, phase 13a's pipelined runs', phase
 14a's runs with telemetry on, phase 15a's runs with numerics on, phase
 16a's windowed runs, phase 17a's sweep, phase 18's programs and runs,
-phase 19b's gradient runs, 19c's run through adam_step and 19d's runs, and
-phase 20's service jobs (a's, a2's, and b's daemons' by their /metrics).
+phase 19b's gradient runs, 19c's run through adam_step and 19d's runs,
+phase 20's service jobs (a's, a2's, and b's daemons' by their /metrics),
+and phase 21's mesh runs (b, c, e) and sharded sweep (f).
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
 toolkit, imports nothing of JAX, and fails when run outside the repository.
@@ -549,6 +570,8 @@ HYPER_WINDOW = "3:3"
 MAIN_HISTORY: dict = {}
 MAIN_STATES: dict = {}
 RUN_GAPS: dict = {}
+# phase 21a's K1 against its plain version with a client base
+MESH_ERRORS: dict = {}
 FAULT_STATES: dict = {}
 
 
@@ -3939,13 +3962,16 @@ def hotspots_phase(fixtures: str | None = None) -> dict:
 # (HyperNetwork, no detector) x seeds 1, 2 over MATRIX_ROUNDS rounds in one
 # chunk: 12 batched, 4 mapped, 4 host and 4 special cells.  Cut in depth
 # from 3 rounds (a chunk of 3) and config 4 (cut)'s 2 local epochs,
-# for the script's time beside phase 20: every shape stays (the fold's
-# 1,600 rows, its steps' batches), LIE still attacks (round 2), and the
-# sweeps of phase 18 train MATRIX_EPOCHS epochs too
+# for the script's time beside phase 20, and from its 1,200-1,500 samples a
+# client to MATRIX_DATA_RANGE (6 steps an epoch in place of 12) beside
+# phase 21: every shape stays (the fold's 1,600 rows, its steps' batches),
+# LIE still attacks (round 2), and the sweeps of phases 18 and 21 train at
+# this depth too
 MATRIX_ATTACKS = (AttackSpec(mode="LIE", num_clients=ATTACKERS, attack_round=2, args=(0.74,)),
                   AttackSpec(mode="none", num_clients=ATTACKERS, attack_round=2))
 MATRIX_DEFENSES = ("fedavg", "krum", "median", "FLTrust", "gmm", "hyper")
 MATRIX_SEEDS, MATRIX_ROUNDS, MATRIX_CHUNK, MATRIX_EPOCHS = (1, 2), 2, 2, 1
+MATRIX_DATA_RANGE = (600, 750)
 # FLTrust's root set, ROOT_SIZE test rows at ROOT_BATCH: K3 launches a
 # broadcast of an FLTrust cell; the draws' file, which reads the card no more
 ROOT_STEPS = -(-tround.ROOT_SIZE // tround.ROOT_BATCH)
@@ -3953,10 +3979,11 @@ ROOT_SEED_SITE = "attackfl_tpu_torch/data/partition.py"
 
 
 def matrix_base(root: str, **kw) -> Config:
-    """Config 4 (cut) under xla at MATRIX_EPOCHS as a sweep's base:
-    threefry, iid."""
+    """Config 4 (cut) under xla at MATRIX_EPOCHS and MATRIX_DATA_RANGE as
+    a sweep's base: threefry, iid."""
     return cut_config(local_backend="xla", prng_impl="threefry2x32", partition="iid",
-                      epochs=MATRIX_EPOCHS, log_path=root, checkpoint_dir=root, **kw)
+                      epochs=MATRIX_EPOCHS, num_data_range=MATRIX_DATA_RANGE,
+                      log_path=root, checkpoint_dir=root, **kw)
 
 
 def matrix_grid() -> GridSpec:
@@ -4201,7 +4228,8 @@ def matrix_records(base: Config, root: str) -> None:
     if (len(records) != len(MATRIX_DEFENSES) * len(MATRIX_ATTACKS) * len(MATRIX_SEEDS)
             or len(ids) != 1 or bad or len(science) != 1):
         raise AssertionError(f"matrix records {len(records)}, ids {ids}, invalid {bad}")
-    path = config4_yaml(os.path.join(root, "sweep.yaml"), "xla", root, epochs=MATRIX_EPOCHS)
+    path = config4_yaml(os.path.join(root, "sweep.yaml"), "xla", root, epochs=MATRIX_EPOCHS,
+                        num_data_range=MATRIX_DATA_RANGE)
     import yaml
 
     with open(path) as fh:
@@ -5799,10 +5827,348 @@ def service_phase() -> dict:
     return dict(total)
 
 
+# phase 21: the client mesh in one process (ROADMAP item 14a) on MESH_SHARDS
+# shards of cuda:0 (the card is one device; a copy between two shards of it
+# is a no-op).  b's and e's global params against the meshless run after
+# round 1 within MESH_PARAM_TOL, JAX's bound for sharded against replicated
+# (tests/test_sharding.py:51-89); d's psum modes within MESH_AGG_TOL of the
+# meshless aggregator (:206-249); c's rows, where cuBLAS parts them, at
+# PARAM_TOL on the entries whose first-step gradient is at least GRAD_FLOOR
+# (K1's cold-Adam gate); f's sweep: LIE and none x fedavg and median, seed 1
+MESH_SHARDS, MESH_PARAM_TOL, MESH_AGG_TOL = 2, 1e-5, 2e-6
+MESH_GRID = dict(attacks=MATRIX_ATTACKS, defenses=("fedavg", "median"), seeds=(1,),
+                 rounds=MATRIX_ROUNDS, chunk=1)
+
+
+def mesh_of(shards: int):
+    from attackfl_tpu_torch.parallel.mesh import make_client_mesh
+
+    return make_client_mesh(devices=["cuda:0"] * shards)
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def mesh_k1_check() -> None:
+    """21a: K1 from the warm state at config 4's shapes, dropout on: two
+    launches of C/2 clients at bases 0 and C/2 against one launch of C,
+    bit for bit; the base's launch against the plain version with the same
+    base, at check_fused_step's gates; the second half at base 0 as a
+    control (other masks).  None of these launches is the main path's."""
+    C, B = CONFIG4["total_clients"], CONFIG4["batch_size"]
+    nb = -(-DEPTH["cut"]["num_data_range"][1] // B)
+    masked, half = 7, C // 2
+    groups, batches, live = kernel_inputs(C, nb, B, masked)
+    live = {k: x != 0 for k, x in live.items()}
+    for x in live.values():
+        x[masked] = False
+    m0, v0 = warm_state(live, masked)
+    kw = step_kwargs(STEP_RATES)
+
+    def launch(rows: slice, base: int, plain: bool = False):
+        state = [{k: x[rows].clone() for k, x in s.items()} for s in (groups, m0, v0)]
+        fn = tfs.run_epoch_reference if plain else tfs.run_epoch
+        *out, loss = fn(*state, batches[rows].contiguous(), 17, 100, client_base=base, **kw)
+        torch.cuda.synchronize()
+        return out, loss
+
+    whole, whole_loss = launch(slice(0, C), 0)
+    first, first_loss = launch(slice(0, half), 0)
+    second, second_loss = launch(slice(half, C), half)
+    gaps = [max(float((torch.cat([a[k], b[k]]) - w[k]).abs().max()) for k in tfs.GROUP_ORDER)
+            for a, b, w in zip(first, second, whole)]
+    loss_gap = float((torch.cat([first_loss, second_loss]) - whole_loss).abs().max())
+    (rp, rm, rv), rloss = launch(slice(half, C), half, plain=True)
+    p_err, m_err, v_err = (max_abs(k, r) for k, r in zip(second, (rp, rm, rv)))
+    m_tol, v_tol = MV_RTOL * max_abs(rm), MV_RTOL * max_abs(rv)
+    loss_err = float((second_loss - rloss).abs().max()) / nb
+    control, _ = launch(slice(half, C), 0)
+    moved = max_abs(control[0], {k: x[half:] for k, x in whole[0].items()})
+    log(f"[21a] K1 C={C} nb={nb} B={B}, dropout {STEP_RATES}, warm state: launches of "
+        f"{half} clients at bases 0 and {half} side by side against one of {C}: max |delta| "
+        f"p {gaps[0]:.3g}, m {gaps[1]:.3g}, v {gaps[2]:.3g}, loss {loss_gap:.3g}; at base "
+        f"{half} against its plain version: p {p_err:.3g} (tol {PARAM_TOL}), m {m_err:.3g} "
+        f"(tol {m_tol:.3g}), v {v_err:.3g} (tol {v_tol:.3g}), loss/step {loss_err:.3g} (tol "
+        f"{LOSS_TOL_PER_STEP}); control, the second half at base 0: p moves {moved:.3g} "
+        f"({card_line()})")
+    if max(gaps) != 0.0 or loss_gap != 0.0:
+        raise AssertionError(f"21a: K1's halves differ from the whole launch by {gaps}, "
+                             f"loss {loss_gap}")
+    if not (p_err <= PARAM_TOL and m_err <= m_tol and v_err <= v_tol
+            and loss_err <= LOSS_TOL_PER_STEP) or moved == 0.0:
+        raise AssertionError("21a: K1 with a client base differs from its plain version, "
+                             "or the base changes nothing")
+    MESH_ERRORS["fused_step"] = p_err
+
+
+def first_round(sim: Simulator, state: dict):
+    """Broadcast 1's draws and round step from ``state``'s generator (a
+    copy), as ``run`` takes them."""
+    gen = torch.Generator(device="cuda")
+    gen.set_state(state["rng"].get_state())
+    return sim._drawn_round_step(state["global_params"], state["prev_genuine"],
+                                 state["have_genuine"], gen, 1)
+
+
+def xla_first_grads(sim: Simulator, params: dict, draws) -> torch.Tensor:
+    """|g| [C, P] of every client's first clipped minibatch gradient under
+    xla (training/local.py's first step, dropout on)."""
+    cfg, model = sim.cfg, sim.model
+    B, (C, hi) = cfg.batch_size, draws.idx.shape
+    nb = -(-hi // B)
+    columns = [sim.train_data[k] for k in local.INPUTS[cfg.data_name]]
+    labels = local.labels_of(sim.train_data, cfg.data_name)
+    first = lambda x: F.pad(torch.gather(x, 1, draws.perms[0]),  # noqa: E731
+                            (0, nb * B - hi)).reshape(C, nb, B)[:, 0]
+    bidx, bmsk = first(draws.idx), first(draws.mask.to(torch.float32))
+    specs = model.mask_specs([(B,) + tuple(x.shape[1:]) for x in columns], model.dropout_rates)
+    keys = tfs.client_keys(draws.dropout_seed, 0, torch.arange(C, device="cuda"))
+    grad = local.build_step_grad(model, cfg.data_name, params)
+    g, _ = grad(tree_ravel_stacked(tree_broadcast(params, C)), tuple(x[bidx] for x in columns),
+                labels[bidx], bmsk, local.step_masks(keys, specs))
+    return local.clip_by_global_norm(g, cfg.clip_grad_norm).abs()
+
+
+def mesh_run(cfg: Config, mesh, rounds: int, meshless: dict | None = None):
+    """``rounds`` rounds of ``cfg`` over ``mesh`` (None: no mesh) from a
+    fresh state: the Simulator, round 1's state, the final state, the
+    history and the kernels' launches over the run."""
+    sim = Simulator(cfg, device="cuda", mesh=mesh)
+    state = sim.init_state()
+    reset_launches()
+    one, history = sim.run(num_rounds=1, state=state, save_checkpoints=False, verbose=False)
+    final, rest = sim.run(num_rounds=rounds, state=one, save_checkpoints=False, verbose=False)
+    torch.cuda.synchronize()
+    return sim, one, final, history + rest, launch_counts()
+
+
+def mesh_pallas_check(mesh) -> tuple[dict, dict]:
+    """21b: config 4 (cut) under pallas with threefry keys (shard_map) over
+    the mesh against the meshless run: round 1's local update bit for
+    bit, the ok sequence, the params after round 1 within MESH_PARAM_TOL,
+    K1 launched shards x epochs a broadcast.  Returns the mesh run's
+    launches and the meshless run's round-1 rows for 21d."""
+    cfg = cut_config(local_backend="pallas", prng_impl="threefry2x32")
+    plain, plain_one, plain_final, plain_hist, _ = mesh_run(cfg, None, ROUNDS[1])
+    sim, one, final, hist, launches = mesh_run(cfg, mesh, ROUNDS[1])
+    draws, rows = first_round(plain, plain.init_state())
+    _, mesh_rows = first_round(sim, sim.init_state())
+    rows_equal = same_bits(rows[0], mesh_rows[0])
+    gap1 = max_param_gap(one["global_params"], plain_one["global_params"])
+    gap = max_param_gap(final["global_params"], plain_final["global_params"])
+    oks, plain_oks = [h["ok"] for h in hist], [h["ok"] for h in plain_hist]
+    expect = {"fused_step": MESH_SHARDS * cfg.epochs * len(hist), "dropout_mask": 0}
+    log(f"[21b] pallas, threefry ({sim.mesh_strategy}) over {mesh.size} shards of cuda:0: "
+        f"round 1's local update {'bit-equal' if rows_equal else 'DIFFERENT'} to the meshless "
+        f"run's; ok {oks} (meshless {plain_oks}); params after round 1 within {gap1:.3g} (tol "
+        f"{MESH_PARAM_TOL}), after {len(hist)} rounds {gap:.3g}; launches {launches} "
+        f"(expected {expect}); AUC {[round(h['roc_auc'], 4) for h in hist]} ({card_line()})")
+    if (sim.mesh_strategy != "shard_map" or not rows_equal or oks != plain_oks
+            or gap1 > MESH_PARAM_TOL or launches != expect):
+        raise AssertionError("21b: the pallas mesh run differs from the meshless run")
+    return launches, {"sim": plain, "draws": draws, "rows": rows}
+
+
+def mesh_xla_check(mesh) -> dict:
+    """21c: one round of config 4 (cut) under xla with rbg keys (gspmd)
+    over the mesh: the local update's rows against the meshless run's
+    (bit for bit, or where cuBLAS parts them K1's cold-Adam gate), the
+    aggregate within MESH_PARAM_TOL of the meshless aggregate of the same
+    rows, the same ok, K3 launched shards x steps."""
+    cfg = cut_config(local_backend="xla")
+    nb = -(-cfg.num_data_range[1] // cfg.batch_size)
+    plain, plain_one, _, plain_hist, _ = mesh_run(cfg, None, 1)
+    sim, one, _, hist, launches = mesh_run(cfg, mesh, 1)
+    state = plain.init_state()
+    draws, rows = first_round(plain, state)
+    _, mesh_rows = first_round(sim, sim.init_state())
+    flat, mesh_flat = tree_ravel_stacked(rows[0]), tree_ravel_stacked(mesh_rows[0])
+    diff = (flat - mesh_flat).abs()
+    if bool(torch.equal(flat, mesh_flat)):
+        held, row_err = "bit-equal", 0.0
+    else:
+        sure = xla_first_grads(plain, state["global_params"], draws) >= GRAD_FLOOR
+        row_err = float(diff[sure].max())
+        held = (f"not bit-equal (all entries {float(diff.max()):.3g}); on the "
+                f"{int(sure.sum())} of {sure.numel()} entries whose first-step |g| >= "
+                f"{GRAD_FLOOR:g}: {row_err:.3g} (tol {PARAM_TOL})")
+    weights = torch.ones(cfg.total_clients, device="cuda") * (mesh_rows[1] > 0)
+    agg = sim.aggregate(state["global_params"], mesh_rows[0], mesh_rows[1], weights, draws)
+    ref = plain.aggregate(state["global_params"], mesh_rows[0], mesh_rows[1], weights, draws)
+    agg_gap = max_param_gap(agg, ref)
+    run_gap = max_param_gap(one["global_params"], plain_one["global_params"])
+    expect = {"fused_step": 0, "dropout_mask": MESH_SHARDS * cfg.epochs * nb}
+    log(f"[21c] xla, rbg ({sim.mesh_strategy}) over {mesh.size} shards: round 1's rows "
+        f"{held}; the aggregate within {agg_gap:.3g} of the meshless aggregate of the same rows "
+        f"(tol {MESH_PARAM_TOL}), the round's params within {run_gap:.3g} of the meshless "
+        f"round's; ok {hist[0]['ok']} (meshless {plain_hist[0]['ok']}); launches {launches} "
+        f"(expected {expect}) ({card_line()})")
+    if (sim.mesh_strategy != "gspmd" or row_err > PARAM_TOL or agg_gap > MESH_PARAM_TOL
+            or hist[0]["ok"] != plain_hist[0]["ok"] or launches != expect):
+        raise AssertionError("21c: the xla mesh round differs from the meshless round")
+    return launches
+
+
+def mesh_defense_check(mesh, round1: dict) -> None:
+    """21d: every defense's sharded aggregation on 21b's meshless round-1
+    rows against the meshless aggregator: the gather modes bit for bit,
+    the psum modes within MESH_AGG_TOL; each one's collectives the table's."""
+    from attackfl_tpu_torch.parallel.shard import GATHER_MODES, PSUM_MODES, record_collectives
+
+    plain, (stacked, sizes, *_) = round1["sim"], round1["rows"]
+    params = plain.init_state()["global_params"]
+    weights = torch.ones(plain.cfg.total_clients, device="cuda") * (sizes > 0)
+    lines, failures = [], []
+    for mode in sorted(PSUM_MODES | GATHER_MODES):
+        cfg = plain.cfg.replace(mode=mode)
+        draws = tround.round_drawer(cfg, [], plain.cfg.total_clients, plain.pool_size,
+                                    plain.num_params, plain.test_data["label"].shape[0])(
+            torch.Generator(device="cuda").manual_seed(5))
+        want = tround.build_aggregator(plain.model, cfg, plain.test_data)(
+            params, stacked, sizes, weights, draws)
+        sharded = tround.build_aggregator(plain.model, cfg, plain.test_data, mesh=mesh)
+        with record_collectives() as recorded:
+            got = sharded(params, stacked, sizes, weights, draws)
+        torch.cuda.synchronize()
+        expected = program_audit.EXPECTED_COLLECTIVES[mode]["forward"]
+        gap = max_param_gap(got, want)
+        exact = same_bits(got, want)
+        ok = (exact if mode in GATHER_MODES else gap <= MESH_AGG_TOL) and \
+            set(recorded) == set(expected)
+        lines.append(f"{mode} {'bit-equal' if exact else f'{gap:.3g}'} "
+                     f"[{','.join(sorted(recorded))}]")
+        if not ok:
+            failures.append(mode)
+    log(f"[21d] each defense sharded over {mesh.size} shards on 21b's round-1 rows against "
+        f"the meshless aggregator (gather modes bit for bit, psum modes tol {MESH_AGG_TOL}; "
+        f"the collectives recorded): {'; '.join(lines)} ({card_line()})")
+    if failures:
+        raise AssertionError(f"21d: sharded aggregations differ or record other "
+                             f"collectives: {failures}")
+
+
+def mesh_one_device_check() -> dict:
+    """21e: the one-device mesh that `run` builds (Simulator(cfg,
+    use_mesh=True)) under each backend against the meshless run (phase
+    4's where the script ran it): the final params and leak pool bit for
+    bit, the same launches."""
+    total = Counter()
+    for backend in ("pallas", "xla"):
+        cfg = cut_config(local_backend=backend)
+        plain, launches0 = MAIN_STATES.get(backend), None
+        if plain is None:
+            _, _, plain, _, launches0 = mesh_run(cfg, None, ROUNDS[1])
+        sim = Simulator(cfg, device="cuda", use_mesh=True)
+        state = sim.init_state()
+        reset_launches()
+        final, history = sim.run(state=state, save_checkpoints=False, verbose=False)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        nb = -(-cfg.num_data_range[1] // cfg.batch_size)
+        expect = ({"fused_step": len(history) * cfg.epochs, "dropout_mask": 0}
+                  if backend == "pallas" else
+                  {"fused_step": 0, "dropout_mask": len(history) * cfg.epochs * nb})
+        same = (same_bits(final["global_params"], plain["global_params"])
+                and same_bits(final["prev_genuine"], plain["prev_genuine"]))
+        log(f"[21e] {backend}: the one-device mesh of `run` ({sim.mesh.size} device, "
+            f"{sim.mesh_strategy}) against the meshless run: {'bit-equal' if same else 'DIFFERENT'}"
+            f", launches {launches} (meshless {launches0 or expect}) ({card_line()})")
+        if sim.mesh.size != torch.cuda.device_count() or not same or launches != expect \
+                or (launches0 is not None and launches0 != expect):
+            raise AssertionError(f"21e: {backend}'s one-device mesh differs from no mesh")
+        total.update(launches)
+    return dict(total)
+
+
+def mesh_matrix_check(root: str, mesh) -> dict:
+    """21f: the sweep's cell axis over the mesh (`matrix run --mesh`'s
+    executor) against the unsharded sweep: every cell's state bit for bit,
+    no collective, K3 launched the fold's calls x steps."""
+    from attackfl_tpu_torch.parallel.shard import record_collectives
+
+    base = matrix_base(root, telemetry=TelemetryConfig(enabled=False))
+    grid = GridSpec(**MESH_GRID)
+    states, launches = {}, {}
+    for label, sweep_mesh in (("unsharded", None), ("sharded", mesh)):
+        sweep = MatrixRun(base, grid, device="cuda", mesh=sweep_mesh)
+        reset_launches()
+        t0 = time.perf_counter()
+        with record_collectives() as recorded, contextlib.redirect_stdout(io.StringIO()):
+            sweep.run(save_checkpoints=False, verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[label] = launch_counts()
+        states[label] = sweep.host_state(sweep.state)
+        nb = -(-base.num_data_range[1] // base.batch_size)
+        expect = sweep.fold_calls * base.epochs * nb
+        log(f"[21f] {label} sweep of {len(sweep.device_cells)} device cells in {seconds:.2f} s: "
+            f"K3 {launches[label]['dropout_mask']} launches (the fold's {sweep.fold_calls} calls "
+            f"x {base.epochs * nb} steps = {expect}), collectives {dict(recorded) or 'none'}")
+        sweep.close()
+        if launches[label]["dropout_mask"] != expect or recorded:
+            raise AssertionError(f"21f: the {label} sweep's launches or collectives")
+    diffs = [key for key in states["unsharded"]
+             if first_difference(states["unsharded"][key], states["sharded"][key])]
+    log(f"[21f] `matrix run --mesh` over {mesh.size} shards: "
+        f"{len(states['unsharded']) - len(diffs)} of {len(states['unsharded'])} cells bit-equal "
+        f"to the unsharded sweep's ({card_line()})")
+    if diffs:
+        raise AssertionError(f"21f: sharded cells differ: {diffs}")
+    return launches["sharded"]
+
+
+def mesh_audit_check() -> None:
+    """21g: the sharded programs and the cell-sharded sweep under the
+    program audit on the card: no host sync, the table's collectives."""
+    reports = (program_audit.audit_sharded_programs(device="cuda", shards=MESH_SHARDS)
+               + program_audit.audit_sharded_matrix_program(device="cuda", shards=MESH_SHARDS))
+    log("[21g] the program audit of the client mesh's programs on the card: " + "; ".join(
+        f"{r.name} {'ok' if r.ok else 'FAIL'} syncs {len(r.syncs)} collectives "
+        f"[{','.join(r.collectives)}] (expected [{','.join(r.expected_collectives)}]) "
+        f"{r.wall_ms:.1f} ms" for r in reports) + f" ({card_line()})")
+    bad = [r.name for r in reports if not r.ok or r.syncs or
+           set(r.collectives) != set(r.expected_collectives)]
+    if bad:
+        raise AssertionError(f"21g: {bad}: {[r.problems for r in reports if not r.ok][:2]}")
+
+
+def mesh_phase() -> dict:
+    """Phase 21: a-g.  Returns the kernels' launches in b's, c's and e's
+    mesh runs and f's sharded sweep (not their meshless references', nor
+    a's, d's and g's checks)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    total = Counter()
+    try:
+        mesh = mesh_of(MESH_SHARDS)
+        marks = [time.perf_counter()]
+        mesh_k1_check()
+        marks.append(time.perf_counter())
+        launches, round1 = mesh_pallas_check(mesh)
+        total.update(launches)
+        marks.append(time.perf_counter())
+        total.update(mesh_xla_check(mesh))
+        marks.append(time.perf_counter())
+        mesh_defense_check(mesh, round1)
+        marks.append(time.perf_counter())
+        total.update(mesh_one_device_check())
+        marks.append(time.perf_counter())
+        total.update(mesh_matrix_check(root, mesh))
+        marks.append(time.perf_counter())
+        mesh_audit_check()
+        marks.append(time.perf_counter())
+        log("[phase 21] " + ", ".join(f"{k} {b - a:.1f} s" for k, a, b in
+                                      zip("abcdefg", marks, marks[1:]))
+            + f", in all {marks[-1] - marks[0]:.1f} s; launches {dict(total)} ({card_line()})")
+    finally:
+        shutil.rmtree(root)
+    return dict(total)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     parser.add_argument("--only", type=int, default=None, metavar="PHASE",
-                        help="after the build, run only this phase of 12-20 and print no "
+                        help="after the build, run only this phase of 12-21 and print no "
                              "result line (a development run)")
     parser.add_argument("--fixtures", type=str, default=None, metavar="DIR",
                         help="write phase 16's golden traces for the CPU tests into DIR")
@@ -5831,7 +6197,7 @@ def main(argv=None) -> int:
         phase = {12: fused_phase, 13: pipeline_phase, 14: telemetry_phase,
                  15: numerics_phase, 16: lambda: hotspots_phase(args.fixtures),
                  17: matrix_phase, 18: audit_phase, 19: grad_phase,
-                 20: service_phase}[args.only]
+                 20: service_phase, 21: mesh_phase}[args.only]
         t0 = time.perf_counter()
         log(f"[only] phase {args.only}: launches {phase()} in {time.perf_counter() - t0:.1f} "
             f"s; no result line")
@@ -5877,6 +6243,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     service_launches = service_phase()
     log(f"[run service and scheduler] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_launches = mesh_phase()
+    log(f"[client mesh] phase done in {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] += (pipeline_launches.get(k["name"], 0)
                           + telemetry_launches.get(k["name"], 0)
@@ -5884,7 +6253,9 @@ def main(argv=None) -> int:
                           + hotspot_launches.get(k["name"], 0)
                           + audit_launches.get(k["name"], 0)
                           + grad_launches.get(k["name"], 0)
-                          + service_launches.get(k["name"], 0))
+                          + service_launches.get(k["name"], 0)
+                          + mesh_launches.get(k["name"], 0))
+        k["max_abs_err"] = max(k["max_abs_err"], MESH_ERRORS.get(k["name"], 0.0))
         if k["name"] == "dropout_mask":
             k["launches"] += matrix["launches"]
             k["max_abs_err"] = max(k["max_abs_err"], matrix["max_abs_err"])

@@ -16,11 +16,13 @@ command) on the CPU, against the JAX package where both have the pass.
 4. The program audit flags a program that emits float64, syncs, or writes
    an input in place (through an aten op or behind the dispatch mode's
    back), and passes one that writes an input it consumes.
-5. The recompile guard passes ``run``, ``run_fast``, the pipeline and a
-   sweep, and flags a body rebuilt, or a step graph captured, after
-   round 1.
+5. The recompile guard passes ``run``, ``run_fast``, the pipeline, a
+   sweep and the sharded runs at mesh sizes 1 and 2, and flags a body
+   rebuilt, or a step graph captured, after round 1.
 6. ``audit --json --device cpu --skip-grad`` exits 0 on the tree with the
-   keys of ``tests/data/audit_report.json``; ``audit --grad`` runs the
+   keys of ``tests/data/audit_report.json``, the programs of a 2-shard
+   client mesh among them with their defenses' collective sets
+   (``EXPECTED_COLLECTIVES``); ``audit --grad`` runs the
    transform-safety auditor (tests/test_torch_port_grad_audit.py holds its
    report) and ``--grad --skip-grad`` is refused, as JAX's.
 """
@@ -270,7 +272,7 @@ def test_program_audit_flags_float64_syncs_and_input_writes():
 
 @pytest.mark.parametrize("executor,overrides", [
     ("run", {}), ("run_fast", {"chunk_size": 1}), ("pipeline", {"pipeline_depth": 2}),
-    ("matrix", {})])
+    ("matrix", {}), ("sharded", {})])
 def test_recompile_guard_passes_each_executor(executor, overrides):
     findings = retrace.guard_findings(device="cpu", executors=((executor, overrides),))
     assert findings == []
@@ -326,17 +328,29 @@ def test_audit_command_is_clean_with_jaxs_keys(capsys):
     assert report["schema"] == golden["schema"] == 2
     assert report["grad_programs"] == report["dataflow"] == []
     names = [p["name"] for p in report["programs"]]
+    programs = ("round_step", "aggregate", "fused_chunk[2]", "pipeline_step[eval=True]")
+    sharded = [f"sharded-{m}[2 shards]:{p}" for m in ("fedavg", "median", "FLTrust")
+               for p in programs]
     assert names == ["fedavg:round_step", "fedavg:aggregate", "fedavg:fused_chunk[2]",
-                     "fedavg:pipeline_step[eval=True]", "matrix_step[4 cells]"]
+                     "fedavg:pipeline_step[eval=True]", "matrix_step[4 cells]",
+                     *sharded, "sharded[2 shards]:matrix_step[3 cells]"]
     for p in report["programs"]:
         assert set(golden["programs"][0]) <= set(p)
         assert p["ok"] and p["syncs"] == 0 and p["f64_outputs"] == 0
+        # the client mesh's programs record their defense's collectives,
+        # round_step and every meshless or cell-sharded program none
+        mode = p["name"].split("[")[0].removeprefix("sharded-")
+        want = (sorted(program_audit.EXPECTED_COLLECTIVES[mode]["forward"])
+                if p["name"] in sharded and not p["name"].endswith("round_step") else [])
+        assert p["collectives"] == p["expected_collectives"] == want, p["name"]
     assert set(report["transfer_budget"]) == set(golden["transfer_budget"])
     assert report["transfer_budget"]["resolved"] is True
     rules = {r["id"]: r["description"] for r in report["rules"]}
     assert {"host-sync", "donation-after-use", "retrace-hazard", "emit-kind",
             "event-schema", "program-audit", "retrace-guard"} <= set(rules)
-    assert "item 14" in rules["grad-audit"] and "item 14" in rules["program-audit"]
+    assert "not ported" not in rules["grad-audit"] + rules["program-audit"]
+    assert "EXPECTED_COLLECTIVES" in rules["grad-audit"] and "collectives" in rules[
+        "program-audit"]
 
 
 def test_audit_grad_runs_and_skip_grad_excludes_it(capsys):

@@ -138,11 +138,12 @@ def test_pipeline_flags_reach_the_config_and_run(flags, depth, tmp_path, capsys,
     (["--profile-rounds", "1:2"], None),
     (["--hotspots", "1:2"], None),
     (["--numerics", "--hotspots", "1:2"], None),
-    (["--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "1"],
-     "item 14"),
+    pytest.param(["--coordinator", "localhost:1234", "--num-processes", "2",
+                  "--process-id", "1"], "item 14b", id="flags5-item 14"),
 ])
 def test_unported_flags_are_refused_with_their_item(flags, item, tmp_path, monkeypatch):
-    """The multi-host flags stay refused with their item.  The profiling
+    """The multi-host flags stay refused with their item, 14b since the
+    single-process client mesh (14a) was ported.  The profiling
     and hotspot windows (ROADMAP item 16c, refused until it was ported)
     run and write their window: ``--hotspots 2`` is the window 2:2, as
     JAX's server reads it."""

@@ -15,6 +15,7 @@ from attackfl_tpu_torch.data.partition import draw_round
 from attackfl_tpu_torch.faults.plan import parse_fault_plan
 from attackfl_tpu_torch.ops import fused_step
 from attackfl_tpu_torch.ops import pytree as pt
+from attackfl_tpu_torch.parallel.mesh import make_client_mesh
 from attackfl_tpu_torch.training.engine import MAX_ROUND_RETRIES, Simulator, check_slice
 
 SMALL = dict(num_round=3, total_clients=8, mode="fedavg", model="TransformerModel",
@@ -57,18 +58,29 @@ def _hotspot_events(directory) -> list[dict]:
 
 
 @pytest.mark.parametrize("override, item", [
-    ({"mesh": MeshConfig(num_devices=2)}, "item 14"),
+    pytest.param({"mesh": MeshConfig(num_devices=2)}, "mesh", id="override0-item 14"),
     ({"telemetry": TelemetryConfig(profile_rounds="1:2")}, None),
     ({"telemetry": TelemetryConfig(hotspots="1:2")}, None),
 ])
 def test_outside_the_slice_is_refused(override, item, tmp_path, monkeypatch):
-    """The multi-GPU client axis stays refused (item 14).  The profiling
-    and hotspot windows, refused until ROADMAP item 16c was ported, are
-    accepted: a run opens the window and writes its trace and its
-    ``hotspot`` event."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            Simulator(Config(**{**SMALL, **override}), device="cpu")
+    """What was refused until it was ported is accepted.  The client
+    mesh (ROADMAP item 14a): ``num-devices: 2`` passes ``check_slice``, and
+    ``use_mesh`` on the CPU builds a one-device mesh (JAX truncates to the
+    visible devices) whose run writes ``mesh_devices`` 1 and its strategy
+    into the run header.  The profiling and hotspot windows (item 16c): a
+    run opens the window and writes its trace and its ``hotspot`` event."""
+    monkeypatch.setenv("ATTACKFL_TELEMETRY_DIR", str(tmp_path))
+    if item == "mesh":
+        cfg = Config(**{**SMALL, **override, "num_round": 2})
+        check_slice(cfg)
+        sim = Simulator(cfg, device="cpu", use_mesh=True)
+        assert sim.mesh.size == 1 and sim.mesh_strategy == "gspmd"
+        _, history = sim.run(save_checkpoints=False, verbose=False)
+        sim.close()
+        assert [h["ok"] for h in history] == [True, True]
+        with open(tmp_path / "events.jsonl") as fh:
+            header, = [e for e in map(json.loads, fh) if e["kind"] == "run_header"]
+        assert (header["mesh_devices"], header["mesh_strategy"]) == (1, "gspmd")
         return
     monkeypatch.setenv("ATTACKFL_TELEMETRY_DIR", str(tmp_path))
     sim = Simulator(Config(**{**SMALL, **override, "num_round": 2}), device="cpu")
@@ -145,14 +157,19 @@ def test_hyper_refusals_of_the_jax_package_stay(override, match):
 
 def test_hyper_takes_bf16_and_faults_and_keeps_the_pipeline_refusal(tmp_path, monkeypatch):
     """Hyper mode takes bf16, a fault plan and the pipelined executor as
-    the plain round does; the multi-GPU client axis stays refused (ROADMAP
-    queue 1, item 14).  A hotspot window on the hyper pipeline, refused
-    until item 16c was ported, opens over its rounds."""
+    the plain round does, and the client mesh (ROADMAP item 14a, refused
+    until it was ported) under the gspmd strategy, as JAX's.  A hotspot
+    window on the hyper pipeline, refused until item 16c was ported,
+    opens over its rounds."""
     hyper = {**SMALL, "mode": "hyper", "local_backend": "xla"}
     check_slice(Config(**hyper, mesh=MeshConfig(compute_dtype="bfloat16")))
     check_slice(Config(**hyper, pipeline=True, pipeline_depth=2))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        check_slice(Config(**hyper, pipeline=True, mesh=MeshConfig(num_devices=2)))
+    meshed = Config(**hyper, pipeline=True, mesh=MeshConfig(num_devices=2))
+    check_slice(meshed)
+    sharded = Simulator(meshed, device="cpu",
+                        mesh=make_client_mesh(devices=["cpu", "cpu"]))
+    assert sharded.mesh.size == 2 and sharded.mesh_strategy == "gspmd"
+    sharded.close()
     monkeypatch.setenv("ATTACKFL_TELEMETRY_DIR", str(tmp_path))
     sim = Simulator(Config(**{**hyper, "num_round": 2}, pipeline=True,
                            telemetry=TelemetryConfig(hotspots="1:2")), device="cpu")

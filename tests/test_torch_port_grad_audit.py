@@ -30,8 +30,10 @@ package.
 5. The grad programs: the six first-order programs and the three double
    backward traces of ``audit --grad --json --device cpu`` are ok (no
    ``_local_scalar_dense``, FLTrust's included, no float64, no input
-   written, the gradient the perturbation's tree), the mesh reports are
-   marked skipped, and the report has JAX's schema-2 keys.  The fused
+   written, the gradient the perturbation's tree), the mesh's three
+   gradients through the sharded aggregations record their defenses'
+   transposed collective sets (``grad_collectives``), and the report has
+   JAX's schema-2 keys.  The fused
    objective's double backward traces at the attacking state too (third
    order through local training, on fake tensors).
 """
@@ -54,10 +56,12 @@ from attackfl_tpu.training import engine as jengine
 from attackfl_tpu.training import round as jround
 from attackfl_tpu_torch import cli as port_cli
 from attackfl_tpu_torch.analysis import grad_audit
+from attackfl_tpu_torch.analysis.program_audit import EXPECTED_COLLECTIVES
 from attackfl_tpu_torch.config import audit_config
 from attackfl_tpu_torch.data.partition import RoundDraws, draw_round
 from attackfl_tpu_torch.models.icu import CNNModel
 from attackfl_tpu_torch.ops import pytree as pt
+from attackfl_tpu_torch.parallel.shard import grad_collectives
 from attackfl_tpu_torch.training import engine, local
 from attackfl_tpu_torch.training import round as tround
 from attackfl_tpu_torch.training.engine import Simulator
@@ -436,8 +440,8 @@ def test_grad_programs_are_clean(grad_command):
     first = [f"{m}:grad[{o}]" for m in grad_audit.GRAD_MODES
              for o in ("sync_damage", "fused_damage[2]")]
     second = [f"{m}:grad2[sync_damage]" for m in grad_audit.GRAD_MODES]
-    skipped = [f"sharded-{m}:grad[aggregate]" for m in grad_audit.GRAD_MODES]
-    assert sorted(by_name) == sorted(first + second + skipped)
+    sharded = [f"sharded-{m}[2 shards]:grad[aggregate]" for m in grad_audit.GRAD_MODES]
+    assert sorted(by_name) == sorted(first + second + sharded)
     for name in first + second:
         p = by_name[name]
         assert p["ok"] and p["syncs"] == 0 and p["forbidden_primitives"] == [], name
@@ -447,8 +451,14 @@ def test_grad_programs_are_clean(grad_command):
         p = by_name[name]
         assert p["donated_args"] == [0] and p["donated_leaves"] == 20, name
         assert p["aliased_leaves"] == p["expected_aliases"] == 20, name
-    for name in skipped:
-        assert "item 14" in by_name[name]["skipped"] and by_name[name]["ok"]
+    for mode, name in zip(grad_audit.GRAD_MODES, sharded):
+        # audited over the client mesh, no longer skipped: the transposed
+        # collective set of the defense, the gradient the perturbation's tree
+        p = by_name[name]
+        assert p["ok"] and p["skipped"] is None and p["syncs"] == 0, name
+        want = sorted(grad_collectives(EXPECTED_COLLECTIVES[mode]["forward"]))
+        assert p["collectives"] == p["expected_collectives"] == want, name
+        assert p["aliased_leaves"] == p["expected_aliases"] == p["donated_leaves"] > 0, name
 
 
 def test_a_wrong_gradient_tree_is_a_problem():

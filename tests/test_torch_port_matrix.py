@@ -26,7 +26,10 @@ on the CPU, at the size of ``test_torch_port_fused_rounds.py``
 6. JAX's torch-free code on the port's output: ``validate_event``,
    ``sweep_records`` and ``cell_event_summaries``, ``outcome_rows`` and
    ``leaderboard``, ``matrix status``.
-7. ``--mesh`` refused, naming item 14.
+7. ``--mesh``, refused until ROADMAP item 14a was ported, runs the sweep
+   over the client mesh of the visible devices (one on the CPU), and a
+   2-shard mesh gives every cell the unsharded sweep's bits
+   (tests/test_torch_port_mesh.py holds the cell axis at more sizes).
 """
 
 from __future__ import annotations
@@ -530,14 +533,28 @@ def test_jaxs_code_reads_the_ports_sweep(sweep, capsys):
     assert capsys.readouterr().out == jax_table
 
 
-def test_mesh_is_refused_naming_item_14(tmp_path, capsys):
+def test_mesh_is_refused_naming_item_14(tmp_path, capsys, monkeypatch):
+    """``--mesh`` was refused until the client mesh (ROADMAP item 14a) was
+    ported: it now runs, and ``use_mesh`` builds the mesh of the visible
+    devices, which the run header records."""
     config = tmp_path / "sweep.yaml"
-    config.write_text("server: {clients: 8}\nmatrix: {defenses: [fedavg]}\n")
-    assert cli.main(["matrix", "run", "--config", str(config), "--mesh"]) == 2
-    assert "item 14" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="item 14"):
-        MatrixRun(_base(tmp_path), GridSpec(attacks=(LIE,), defenses=("fedavg",), seeds=(1,)),
-                  use_mesh=True, device="cpu")
+    config.write_text(
+        "server: {clients: 4, model: TransformerModel, data-name: ICU, num-round: 1, "
+        "train-size: 128, test-size: 64, data-distribution: {num-data-range: [16, 24]}}\n"
+        "learning: {epoch: 1, batch-size: 16}\n"
+        "matrix: {attacks: [none], attack-clients: 1, defenses: [fedavg], seeds: [1], "
+        "rounds: 1}\n")
+    monkeypatch.setenv("ATTACKFL_TELEMETRY_DIR", str(tmp_path / "sweep"))
+    assert cli.main(["matrix", "run", "--config", str(config), "--mesh", "--device", "cpu",
+                     "--sweep-dir", str(tmp_path / "sweep")]) == 0
+    assert "finished: 1/1 cells ran" in capsys.readouterr().out
+    with open(tmp_path / "sweep" / "events.jsonl") as fh:
+        header, = [e for e in map(json.loads, fh) if e["kind"] == "run_header"]
+    assert header["mesh_devices"] == 1
+    sweep = MatrixRun(_base(tmp_path), GridSpec(attacks=(LIE,), defenses=("fedavg",),
+                                                seeds=(1,)), use_mesh=True, device="cpu")
+    assert sweep.mesh.size == 1 and sweep.mesh.lead == torch.device("cpu")
+    sweep.close()
 
 
 def test_status_and_usage(sweep, capsys):
