@@ -79,8 +79,9 @@ TRACED_ONLY: dict[str, str] = {
     "ops/attacks.py": "attack templates run inside the round program",
     "ops/pytree.py": "tree flatten / mask helpers used inside programs",
     "parallel/": "the client mesh's placement and collectives run inside the "
-                 "round programs (a collective is device to device, never "
-                 "device to host)",
+                 "round programs (a collective within a process is device to "
+                 "device; the one copy to the host, the transport between "
+                 "processes, is allowed below)",
     "ops/fused_step.py": "K1's and K3's wrappers and plain versions, inside "
                          "the round program",
     "ops/metrics.py": "the numerics row's compute runs inside the programs",
@@ -234,6 +235,15 @@ ALLOWED_FUNCTIONS: dict[str, dict[str, str]] = {
     },
     "matrix/program.py": {
         "build_cell_program": "a host flag at build time",
+    },
+    "parallel/mesh.py": {
+        "_packed": "the transport between processes: gloo exchanges host "
+                   "bytes, so each tensor crosses through the host (never "
+                   "runs over one process)",
+        "gather_to_host": "a checkpoint's or the attribution's state on the "
+                          "host, which is what it gathers",
+        "broadcast_bytes": "process 0's checkpoint bytes and their length, "
+                           "host values at a restart",
     },
     "models/icu.py": {
         "CNNModel.__init__": "host config at build time",

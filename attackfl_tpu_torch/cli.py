@@ -10,7 +10,11 @@ attack flags) into ``.registrations/`` beside the config and exits;
 the attacking ones into the run's attackers, and runs the federation on
 the card.  ``server --no-wait``, and ``run``, which is the same, skip the
 rendezvous and take the attackers from the config's ``attack-clients``
-section.
+section.  With ``--coordinator HOST:PORT --num-processes N --process-id
+I`` (``--no-wait`` only) the run is one of N processes, each started alike,
+that join a ``torch.distributed`` group at process 0's address and run the
+federation SPMD over one client mesh of every process's devices
+(``parallel/mesh.py``).
 
 ``metrics`` summarizes a run's ``events.jsonl``, ``watch`` polls a live
 run's monitor (``--monitor``), a run service's scheduler (``--schedule``)
@@ -49,9 +53,9 @@ commands:
            --inject-faults PLAN, --validation-every K, --validation-async,
            --compile-cache DIR, --monitor, --monitor-port N, --numerics,
            --hotspots A:B (a torch.profiler window over rounds A..B, traces
-           under <log_path>/profile), --profile-rounds A:B; not ported yet,
-           refused with its ROADMAP item: --coordinator HOST:PORT with
-           --num-processes and --process-id)
+           under <log_path>/profile), --profile-rounds A:B, --coordinator
+           HOST:PORT with --num-processes N and --process-id I (with
+           --no-wait: one of N processes over one client mesh))
   client   register one client for the server (--config PATH, --attack
            [True], --attack_mode MODE, --attack_round N, --attack_args X..)
   run      server --no-wait: attackers from the config's attack-clients
@@ -240,7 +244,7 @@ def server_main(argv=None) -> int:
                         help="hotspot window over rounds A..B (telemetry.hotspots)")
     parser.add_argument("--numerics", action="store_true",
                         help="device-side per-round numerics rows (telemetry.numerics)")
-    # --- multi-host scale-out (ROADMAP.md item 14b) ---
+    # --- multi-host scale-out: one process of N over one client mesh ---
     parser.add_argument("--coordinator", type=str, default=None,
                         help="host:port of process 0 (needs --no-wait)")
     parser.add_argument("--num-processes", type=int, default=1)
@@ -254,9 +258,16 @@ def server_main(argv=None) -> int:
             print("Error: --coordinator requires --no-wait "
                   "(declare attackers in config's attack-clients).")
             return 1
-        from attackfl_tpu_torch.training.engine import _refuse
+        import torch.distributed as dist
 
-        _refuse("multi-host --coordinator", "item 14b")
+        from attackfl_tpu_torch.parallel.mesh import distributed_init
+
+        try:
+            distributed_init(args.coordinator, args.num_processes, args.process_id)
+        except dist.DistError as e:
+            print(f"Error: process {args.process_id} of {args.num_processes} could not join "
+                  f"the process group at {args.coordinator}: {e}")
+            return 1
 
     from attackfl_tpu_torch.config import load_config
 
@@ -306,12 +317,17 @@ def server_main(argv=None) -> int:
     from attackfl_tpu_torch.training.engine import Simulator
 
     # a client mesh over the visible devices (tpu.num-devices), as JAX's
-    # run builds one (cli.py:298): one card gives a one-device mesh
-    sim = Simulator(cfg, device=args.device, use_mesh=True)
+    # run builds one (cli.py:298): one card gives a one-device mesh, and
+    # with --coordinator the mesh spans every process's devices
     try:
-        _, history = sim.run(num_rounds=args.rounds)
+        sim = Simulator(cfg, device=args.device, use_mesh=True)
+        try:
+            _, history = sim.run(num_rounds=args.rounds)
+        finally:
+            sim.close()
     finally:
-        sim.close()
+        if args.coordinator:
+            dist.destroy_process_group()
     ok_rounds = sum(1 for h in history if h["ok"])
     print_with_color(f"Finished: {ok_rounds} successful rounds.", "green")
     return 0

@@ -44,7 +44,9 @@ cell axis splits over the shards (:func:`fold_shards`): the device cells
 are clone-padded up to a multiple of the shard count, each shard folds its
 own block of cells with the local update built for its device (one K3
 launch a step and part on its shard), the results come back to the lead
-device and the padded ones are dropped.  Cells never exchange anything,
+device (from the other processes of a mesh over several by
+``parallel.mesh.exchange``) and the padded ones are dropped.  Cells never
+exchange anything with each other,
 so the sweep runs no collective, and each cell's rows are the ones the
 unsharded fold gives it, bit for bit.
 """
@@ -62,7 +64,7 @@ from attackfl_tpu_torch.config import Config
 from attackfl_tpu_torch.matrix.grid import Cell, cell_config
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.ops.metrics import Numerics, build_layout
-from attackfl_tpu_torch.parallel.mesh import ClientMesh
+from attackfl_tpu_torch.parallel.mesh import ClientMesh, exchange
 from attackfl_tpu_torch.training.engine import build_plain_tail
 from attackfl_tpu_torch.training.round import (
     RoundHalves, build_attack_groups, build_round_halves, round_drawer,
@@ -165,22 +167,27 @@ def padded_cells(cells: int, mesh: ClientMesh) -> int:
 def fold_shards(updates: dict, mesh: ClientMesh, params: Sequence[dict],
                 inputs: Sequence[tuple], clients: int, per_part: int) -> list[tuple]:
     """:func:`fold_train` over the mesh's shards: the cells clone-padded
-    (the last cell repeated) up to :func:`padded_cells`, each shard's
-    contiguous block of cells folded on its device by its update
-    (``updates``, by device), every result on the lead device in cell
+    (the last cell repeated) up to :func:`padded_cells`, each local
+    shard's contiguous block of cells folded on its device by its update
+    (``updates``, by device), every shard's results (the other
+    processes' by ``parallel.mesh.exchange``) on the lead device in cell
     order, the padded ones dropped."""
     n = len(params)
     order = list(range(n)) + [n - 1] * (padded_cells(n, mesh) - n)
     lead = mesh.lead
-    out: list[tuple] = []
-    for device, rows in zip(mesh.devices, mesh.blocks(len(order))):
-        block = order[rows]
+    blocks = mesh.blocks(len(order))
+    shards: list[list[tuple]] = []
+    for s in mesh.local_shards:
+        device, block = mesh.devices[s], order[blocks[s]]
         moved = [(dataclasses.replace(inputs[i][0], idx=inputs[i][0].idx.to(device),
                                       perms=inputs[i][0].perms.to(device),
                                       dropout_seed=_to(inputs[i][0].dropout_seed, device)),
                   inputs[i][1].to(device)) for i in block]
-        shard = fold_train(updates[device], [pt.tree_map(lambda x: x.to(device), params[i])
-                                             for i in block], moved, clients, per_part)
+        shards.append([tuple(cell) for cell in fold_train(
+            updates[device], [pt.tree_map(lambda x: x.to(device), params[i]) for i in block],
+            moved, clients, per_part)])
+    out: list[tuple] = []
+    for shard in exchange(shards, mesh):
         out.extend((pt.tree_map(lambda x: x.to(lead), stacked), ok.to(lead), losses.to(lead))
                    for stacked, ok, losses in shard)
     return out[:n]

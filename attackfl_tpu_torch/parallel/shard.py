@@ -30,14 +30,21 @@ program records (:data:`attackfl_tpu_torch.analysis.program_audit.
 EXPECTED_COLLECTIVES`).
 
 **The collectives** are the port's own, over the mesh's shards:
-:func:`psum` and :func:`all_gather`.  Each sums or concatenates in shard
-order on the lead device and copies the result to every shard (a no-op on
-a repeated device), so every shard holds the same bits and two runs give
-the same bits.  Each is a ``torch.autograd.Function`` whose backward is its
-transposition dual, as JAX's AD transposes a collective: psum's cotangent
-is a psum, and all_gather's a reduce_scatter, the shards' cotangents of
-the gathered matrix summed by a psum with each shard keeping its own rows.
-A differentiated gather defense so records {all_gather, psum,
+:func:`psum` and :func:`all_gather`.  Each takes this process's shards'
+parts, sums or concatenates every shard's in shard order on the lead
+device and copies the result to every local shard (a no-op on a repeated
+device), so every shard holds the same bits and two runs give the same
+bits.  Over more than one process the other processes' parts come by
+:func:`~attackfl_tpu_torch.parallel.mesh.exchange` (an all_gather through
+the host), and psum is that all_gather of the partial sums and then the
+same sum in shard order on each process, not ``dist.all_reduce``, whose
+order is the backend's: a run over N processes has the bits of the one
+process mesh of as many shards, on every process.  Each is a
+``torch.autograd.Function`` whose backward is its transposition dual, as
+JAX's AD transposes a collective: psum's cotangent is a psum, and
+all_gather's a reduce_scatter, the shards' cotangents of the gathered
+matrix summed by a psum with each shard keeping its own rows.  A
+differentiated gather defense so records {all_gather, psum,
 reduce_scatter} and a psum defense {psum}: :func:`grad_collectives`.
 Each call records its name in the records opened by
 :func:`record_collectives` in the calling thread; a backward records into
@@ -71,7 +78,7 @@ import torch
 from attackfl_tpu_torch.ops import aggregators
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.parallel.mesh import (
-    ClientMesh, gather_stacked, replicate_local, shard_stacked,
+    ClientMesh, exchange, gather_stacked, is_multiprocess, replicate_local, shard_stacked,
 )
 
 # Defense modes whose aggregation decomposes into per-shard partial sums
@@ -141,9 +148,21 @@ def record_collectives():
 # the collectives
 # ---------------------------------------------------------------------------
 
+def _across(parts: Sequence[torch.Tensor | None], mesh: ClientMesh,
+            like: Sequence[torch.Tensor] | None = None) -> list:
+    """Every shard's part from this process's: the parts themselves in
+    one process, else every process's by :func:`exchange`, where a None
+    part (an absent cotangent) crosses as zeros shaped as ``like``'s."""
+    if not is_multiprocess(mesh):
+        return list(parts)
+    parts = [torch.zeros_like(ref) if part is None else part
+             for part, ref in zip(parts, like or parts)]
+    return exchange(parts, mesh)
+
+
 def _sum_on_lead(parts: Sequence[torch.Tensor | None], mesh: ClientMesh):
-    """The parts summed in shard order on the lead device (None parts
-    skipped; None when all are)."""
+    """Every shard's part (:func:`_across`) summed in shard order on the
+    lead device (None parts skipped; None when all are)."""
     acc = None
     for part in parts:
         if part is None:
@@ -154,64 +173,72 @@ def _sum_on_lead(parts: Sequence[torch.Tensor | None], mesh: ClientMesh):
 
 
 def _to_shards(value: torch.Tensor | None, mesh: ClientMesh) -> tuple:
-    return tuple(None if value is None else value.to(d) for d in mesh.devices)
+    return tuple(None if value is None else value.to(d) for d in mesh.local_devices)
 
 
 def _reduce_scatter(grads: Sequence[torch.Tensor | None], rows: Sequence[int],
-                    mesh: ClientMesh, records) -> tuple:
+                    mesh: ClientMesh, records, like: Sequence[torch.Tensor]) -> tuple:
     """The shards' cotangents of one gathered matrix summed (a psum) and
-    cut back into the blocks the gather took, each on its shard."""
+    cut back into the blocks the gather took, each local shard's on its
+    device."""
     _note("reduce_scatter", records)
     _note("psum", records)
-    total = _sum_on_lead(grads, mesh)
+    total = _sum_on_lead(_across(grads, mesh, like), mesh)
     if total is None:
-        return (None,) * mesh.size
+        return (None,) * len(mesh.local_shards)
     parts = torch.split(total, list(rows))
-    return tuple(part.to(d) for part, d in zip(parts, mesh.devices))
+    return tuple(parts[i].to(mesh.devices[i]) for i in mesh.local_shards)
 
 
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mesh, *parts):
         ctx.mesh, ctx.records = mesh, _open_records()
+        ctx.like = [torch.zeros((), dtype=p.dtype).expand(p.shape) for p in parts]
         ctx.set_materialize_grads(False)
         _note("psum", ctx.records)
-        return _to_shards(_sum_on_lead(parts, mesh), mesh)
+        return _to_shards(_sum_on_lead(_across(parts, mesh), mesh), mesh)
 
     @staticmethod
     def backward(ctx, *grads):
         _note("psum", ctx.records)
-        return (None, *_to_shards(_sum_on_lead(grads, ctx.mesh), ctx.mesh))
+        total = _sum_on_lead(_across(grads, ctx.mesh, ctx.like), ctx.mesh)
+        return (None, *_to_shards(total, ctx.mesh))
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mesh, *blocks):
         ctx.mesh, ctx.records = mesh, _open_records()
-        ctx.rows = [b.shape[0] for b in blocks]
+        everyone = _across(blocks, mesh)
+        ctx.rows = [b.shape[0] for b in everyone]
         ctx.set_materialize_grads(False)
         _note("all_gather", ctx.records)
-        full = blocks[0] if mesh.size == 1 else torch.cat([b.to(mesh.lead) for b in blocks])
+        full = everyone[0] if mesh.size == 1 else torch.cat([b.to(mesh.lead) for b in everyone])
+        ctx.like = [torch.zeros((), dtype=full.dtype).expand(full.shape)] * len(blocks)
         return _to_shards(full, mesh)
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, *_reduce_scatter(grads, ctx.rows, ctx.mesh, ctx.records))
+        return (None, *_reduce_scatter(grads, ctx.rows, ctx.mesh, ctx.records, ctx.like))
 
 
 def psum(parts: Sequence[torch.Tensor], mesh: ClientMesh) -> list[torch.Tensor]:
-    """Each shard's ``parts[i]`` (on its device) summed over the shards:
-    one copy of the sum per shard."""
-    if len(parts) != mesh.size:
-        raise ValueError(f"psum over {mesh.size} shards got {len(parts)} parts")
+    """Each local shard's ``parts[i]`` (on its device) summed over every
+    shard of the mesh: one copy of the sum per local shard."""
+    if len(parts) != len(mesh.local_shards):
+        raise ValueError(f"psum over {len(mesh.local_shards)} local shards got "
+                         f"{len(parts)} parts")
     return list(_PSum.apply(mesh, *parts))
 
 
 def all_gather(blocks: Sequence[torch.Tensor], mesh: ClientMesh) -> list[torch.Tensor]:
-    """The shards' blocks concatenated along the leading axis in shard
-    order (JAX's ``all_gather(tiled=True)``): one copy per shard."""
-    if len(blocks) != mesh.size:
-        raise ValueError(f"all_gather over {mesh.size} shards got {len(blocks)} blocks")
+    """Every shard's block concatenated along the leading axis in shard
+    order (JAX's ``all_gather(tiled=True)``), from the local shards'
+    ``blocks``: one copy per local shard."""
+    if len(blocks) != len(mesh.local_shards):
+        raise ValueError(f"all_gather over {len(mesh.local_shards)} local shards got "
+                         f"{len(blocks)} blocks")
     return list(_AllGather.apply(mesh, *blocks))
 
 
@@ -222,13 +249,14 @@ def all_gather(blocks: Sequence[torch.Tensor], mesh: ClientMesh) -> list[torch.T
 def shard_local_update(updates: dict[torch.device, Callable], mesh: ClientMesh,
                        stacked_params: bool = False) -> Callable:
     """``batched(params, idx, mask, perms, seed) -> (stacked, ok, losses)``
-    over the mesh: each shard trains its block of clients with the local
-    update built for its device (``updates``, by device) as global clients
-    ``base ..`` (``client_base``), and the blocks come back to the lead
-    device in shard order.  ``params`` replicates to every shard, or with
-    ``stacked_params`` (hyper mode's generated rows) splits like the
-    clients.  It runs no collective.  On a one-shard mesh it is the lead
-    update's call."""
+    over the mesh: each local shard trains its block of clients with the
+    local update built for its device (``updates``, by device) as global
+    clients ``base ..`` (``client_base``), and every shard's blocks come
+    back to the lead device in shard order (from the other processes by
+    :func:`~attackfl_tpu_torch.parallel.mesh.exchange`).  ``params``
+    replicates to every shard, or with ``stacked_params`` (hyper mode's
+    generated rows) splits like the clients.  It runs no collective.  On a
+    one-shard mesh it is the lead update's call."""
     lead = updates[mesh.lead]
     if mesh.size == 1:
         def batched(params, idx, mask, perms, seed):
@@ -240,14 +268,13 @@ def shard_local_update(updates: dict[torch.device, Callable], mesh: ClientMesh,
         rows_of = (shard_stacked(params, mesh) if stacked_params
                    else replicate_local(params, mesh))
         outs = []
-        for device, rows, shard_params in zip(mesh.devices, blocks, rows_of):
+        for i, shard_params in zip(mesh.local_shards, rows_of):
+            device, rows = mesh.devices[i], blocks[i]
             shard_seed = seed.to(device) if isinstance(seed, torch.Tensor) else seed
-            outs.append(updates[device](
+            outs.append(tuple(updates[device](
                 shard_params, idx[rows].to(device), mask[rows].to(device),
-                perms[:, rows].to(device), shard_seed, client_base=rows.start))
-        return (gather_stacked([o[0] for o in outs], mesh),
-                gather_stacked([o[1] for o in outs], mesh),
-                gather_stacked([o[2] for o in outs], mesh))
+                perms[:, rows].to(device), shard_seed, client_base=rows.start)))
+        return gather_stacked(outs, mesh)
 
     return batched
 

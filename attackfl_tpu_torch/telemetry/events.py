@@ -398,16 +398,22 @@ def metric_line(metric: str, value: float, unit: str = "rounds/s",
 class EventLog:
     """Append-only JSONL writer for one run (line-buffered, so partial
     runs still leave a usable record), one process's, under a fresh
-    ``run_id``.  Writes are lock-serialized: the async checkpoint writer's
-    thread emits beside the round loop."""
+    ``run_id`` or the given one.  ``process_index``, given in a run over
+    several processes, is stamped into every record, whose ``run_id`` is
+    then process 0's, shared, so that ``metrics --merge`` correlates the
+    per-process files (JAX events.py:574-602).  Writes are
+    lock-serialized: the async checkpoint writer's thread emits beside the
+    round loop."""
 
     enabled = True
 
-    def __init__(self, path: str, sample_every: int = 1):
+    def __init__(self, path: str, sample_every: int = 1, run_id: str | None = None,
+                 process_index: int | None = None):
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         self.path = path
         self.sample_every = max(int(sample_every), 1)
-        self.run_id = uuid.uuid4().hex[:12]
+        self.run_id = run_id or uuid.uuid4().hex[:12]
+        self.process_index = process_index
         self._lock = threading.Lock()
         self._fh = open(path, "a", buffering=1)
 
@@ -418,6 +424,8 @@ class EventLog:
             "ts": round(time.time(), 6),
             "run_id": self.run_id,
         }
+        if self.process_index is not None:
+            record["process_index"] = int(self.process_index)
         for key, value in fields.items():
             record[key] = _jsonable(value)
         with self._lock:
@@ -450,6 +458,7 @@ class NullEventLog:
     enabled = False
     path = None
     run_id = "disabled"
+    process_index = None
     sample_every = 1
 
     def emit(self, kind: str, **fields: Any) -> dict[str, Any]:

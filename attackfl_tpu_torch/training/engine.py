@@ -13,7 +13,7 @@ The port draws its randomness from ``torch.Generator``s: model init from
 a CPU generator seeded with ``random_seed`` (so CPU and GPU runs start
 from the same weights), round draws from a generator on the run's device.
 
-Over a client mesh of one process (``use_mesh`` or ``mesh``, a
+Over a client mesh (``use_mesh`` or ``mesh``, a
 ``parallel.mesh.ClientMesh``; JAX engine.py:202-273) every executor trains
 each shard's block of clients on its device and, under the ``shard_map``
 strategy, aggregates by the per-defense collectives
@@ -22,6 +22,16 @@ validation stay on the mesh's lead device.  JAX's rule picks or refuses
 the strategy, and a client count that does not divide falls back to no
 mesh.  ``run`` builds ``Simulator(cfg, use_mesh=True)``: on one card a
 one-device mesh, whose local update is the meshless call.
+
+A mesh over more than one process (after ``parallel.mesh.
+distributed_init``; JAX engine.py:202-241) runs this Simulator SPMD in
+every process, each training its own shards and holding the whole state;
+its client count must divide, and gmm, fltracer, ``resume`` and
+``reload_parameters_per_round`` are refused with JAX's messages.  Every
+process writes its own ``events.<i>.jsonl`` and ``trace.<i>.json`` under
+process 0's ``run_id``; process 0 alone keeps the monitor, the ledger and
+the checkpoint files, whose state every process gathers, and a
+``load_parameters`` restart restores process 0's bytes on every process.
 
 ``run`` saves a checkpoint after every ok round by default (reference
 server.py:549-553) through ``utils/checkpoint.CheckpointManager``:
@@ -135,6 +145,7 @@ import math
 import os
 import statistics
 import time
+import uuid
 from collections import deque
 from typing import Any, Callable
 
@@ -155,7 +166,10 @@ from attackfl_tpu_torch.models.hyper import make_hypernetwork
 from attackfl_tpu_torch.ops import build, defenses, fused_step
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.ops.metrics import Numerics, build_layout
-from attackfl_tpu_torch.parallel.mesh import ClientMesh, canonical, make_client_mesh
+from attackfl_tpu_torch.parallel.mesh import (
+    ClientMesh, broadcast_bytes, broadcast_string, canonical, gather_to_host, is_multiprocess,
+    make_client_mesh, replicate_to_mesh,
+)
 from attackfl_tpu_torch.parallel.shard import supports_shard_map
 from attackfl_tpu_torch.profiler.capture import HotspotCapture
 from attackfl_tpu_torch.registry import get_model
@@ -237,11 +251,6 @@ DONATION_SPEC: dict[str, tuple[int, ...]] = {
     "fused_chunk": (), "pipeline_step": ()}
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, {item})")
-
-
 # the models of the slice, each on its dataset
 MODEL_DATA = {"CNNModel": "ICU", "RNNModel": "ICU", "TransformerModel": "ICU",
               "TransformerClassifier": "HAR", "ResNet18": "CIFAR10"}
@@ -259,10 +268,10 @@ def check_slice(cfg: Config) -> None:
     for TransformerModel, pallas (the config refuses it for the others,
     for hyper and for a compute-dtype other than float32); the
     synchronous, fused and pipelined executors, each over a client mesh
-    of one process's devices too (``tpu.num-devices``); the event log,
-    trace, counters and ledger, the numerics ring, the live monitor, the
-    profiling and hotspot windows and the cost model.  A mesh over more
-    than one process is ROADMAP item 14b (``--coordinator`` refuses it)."""
+    of one process's devices (``tpu.num-devices``) or of every process's
+    (``--coordinator``); the event log, trace, counters and ledger, the
+    numerics ring, the live monitor, the profiling and hotspot windows
+    and the cost model."""
     if MODEL_DATA.get(cfg.model) != cfg.data_name:
         raise ValueError(f"model {cfg.model!r} does not run on {cfg.data_name!r}; the "
                          f"models and their datasets: {MODEL_DATA}")
@@ -354,10 +363,10 @@ def build_plain_tail(cfg: Config, device: torch.device, aggregate: Callable,
 
 class Simulator:
     """End-to-end federated simulation of one Config on one device, or
-    over a client mesh of one process's devices (``use_mesh`` builds it
-    from ``tpu.num-devices``; ``mesh`` gives one, its lead device the
-    run's ``device``; ``mesh_strategy`` ``shard_map`` or ``gspmd``, by
-    JAX's rule when None)."""
+    over a client mesh (``use_mesh`` builds it from ``tpu.num-devices``,
+    over every process's devices after ``distributed_init``; ``mesh``
+    gives one, its lead device the run's ``device``; ``mesh_strategy``
+    ``shard_map`` or ``gspmd``, by JAX's rule when None)."""
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda",
                  logger: Logger | None = None, use_mesh: bool = False,
@@ -369,12 +378,22 @@ class Simulator:
         # opened once the config and the device are accepted
         self.logger = logger or Logger(f"{cfg.log_path}/app.log")
         # the event log, tracer and counters (JAX engine.py:275-296); inert
-        # with telemetry.enabled false
-        self.telemetry = Telemetry.from_config(cfg)
+        # with telemetry.enabled false.  Over several processes each writes
+        # its own files under process 0's run_id, broadcast here: a
+        # collective, which every process reaches building the same
+        # Simulators in the same order
+        if self.multiprocess and cfg.telemetry.enabled:
+            rank = self.mesh.process_index
+            run_id = broadcast_string(uuid.uuid4().hex[:12] if rank == 0 else None)
+            self.telemetry = Telemetry.from_config(cfg, process_index=rank, run_id=run_id)
+        else:
+            self.telemetry = Telemetry.from_config(cfg)
+        # the monitor, the ledger and the checkpoint files are process 0's
+        self._writer_process = not self.multiprocess or self.mesh.process_index == 0
         # the live monitor (JAX engine.py:333-348): never built with
         # telemetry off; bound at the run's start
         self.monitor = None
-        if self.telemetry.enabled and cfg.telemetry.monitor:
+        if self.telemetry.enabled and cfg.telemetry.monitor and self._writer_process:
             self.monitor = RunMonitor(self.telemetry, port=cfg.telemetry.monitor_port,
                                       stall_factor=cfg.telemetry.stall_factor,
                                       stall_grace_seconds=cfg.telemetry.stall_grace_seconds)
@@ -401,7 +420,7 @@ class Simulator:
         self._ledger = None
         self._ledger_events_offset = 0
         self._ledger_trace_offset = 0
-        if self.telemetry.enabled and cfg.telemetry.ledger:
+        if self.telemetry.enabled and cfg.telemetry.ledger and self._writer_process:
             self._ledger = LedgerStore(resolve_ledger_dir(cfg.telemetry.ledger_dir or None,
                                                           base=self.telemetry.base_dir))
             if self._ledger.swept_orphans:
@@ -492,7 +511,7 @@ class Simulator:
         self.fault_injector = (HostFaultInjector(cfg.faults, self.telemetry)
                                if cfg.faults else None)
         # temp files of killed writes go before any new checkpoint activity
-        swept = ckpt.sweep_orphans(cfg.checkpoint_dir)
+        swept = ckpt.sweep_orphans(cfg.checkpoint_dir) if self._writer_process else []
         if swept:
             self.telemetry.counters.inc("orphan_tmp_swept", len(swept))
             print(f"[checkpoint] swept {len(swept)} orphaned temp file(s) from "
@@ -503,6 +522,8 @@ class Simulator:
             injector=self.fault_injector, telemetry=self.telemetry)
         # the `resume` event's payload, written after the run header
         self._resume_info: dict[str, Any] | None = None
+        # the broadcast checkpoint's size a multi-process restart restored
+        self.loaded_bytes: int | None = None
         self.checkpoint_writer = None
         if cfg.checkpoint_async:
             self.checkpoint_writer = ckpt.AsyncCheckpointWriter(
@@ -532,7 +553,9 @@ class Simulator:
         without a mesh, with JAX's message; ``shard_map`` where
         :func:`~attackfl_tpu_torch.parallel.shard.supports_shard_map`
         allows it, else ``gspmd``, and a forced ``shard_map`` it does not
-        allow is refused."""
+        allow is refused.  A mesh over several processes sets
+        ``multiprocess``: an indivisible client count and the host-local
+        modes raise there instead."""
         cfg = self.cfg
         self.mesh = mesh
         if use_mesh and mesh is None:
@@ -542,10 +565,32 @@ class Simulator:
             raise ValueError(f"the mesh's lead device {self.mesh.lead} is not the run's "
                              f"device {self.device}")
         if self.mesh is not None and cfg.total_clients % self.mesh.size != 0:
+            if is_multiprocess(self.mesh):
+                # no mesh would run one whole simulation a process
+                raise ValueError(f"{cfg.total_clients} clients must divide the "
+                                 f"{self.mesh.size}-device multi-host mesh")
             print_with_color(
                 f"[mesh] {cfg.total_clients} clients not divisible by "
                 f"{self.mesh.size} devices; running replicated.", "yellow")
             self.mesh = None
+        # a mesh over several processes (JAX engine.py:218-241): the host
+        # filters, the manifest resume and the per-round reload read
+        # host-local data, and are refused with JAX's messages
+        self.multiprocess = is_multiprocess(self.mesh)
+        if self.multiprocess and cfg.mode in ("gmm", "fltracer"):
+            raise ValueError(
+                f"mode '{cfg.mode}' filters on host with sklearn-style stats and needs the "
+                "full client matrix locally; run it single-process (the matrices are tiny "
+                "— SURVEY.md §7)")
+        if self.multiprocess and cfg.resume:
+            raise ValueError(
+                "--resume restores from the host-local manifest.json and is single-process; "
+                "multi-host resume goes through load_parameters (process-0 byte broadcast)")
+        if self.multiprocess and cfg.reload_parameters_per_round:
+            raise ValueError(
+                "reload_parameters_per_round re-reads a host-local file each round; under "
+                "DCN every process would race its own copy — run it single-process (the "
+                "reference it replicates is single-server, server.py:578-586)")
         self.mesh_strategy: str | None = None
         if self.mesh is not None:
             if mesh_strategy is None:
@@ -573,8 +618,10 @@ class Simulator:
         the mesh's type moved to the lead device, where the round
         programs' replicated state lives.  The host's own state (hyper
         mode's active mask and Adam count on the CPU) stays where it is,
-        and a state from this Simulator is returned as the same tensors."""
-        if self.mesh is None:
+        and a state from this Simulator is returned as the same tensors.
+        A state over several processes is placed already (``init_state``,
+        ``load_or_init_state``) and returned as it is."""
+        if self.mesh is None or self.multiprocess:
             return state
         lead = self.mesh.lead
 
@@ -607,7 +654,7 @@ class Simulator:
         else:
             params = self.model.init(torch.Generator().manual_seed(seed), self.device)
             state = {"global_params": params}
-        return {
+        state = {
             **state,
             "prev_genuine": pt.tree_map(
                 lambda x: torch.zeros((num_genuine,) + tuple(x.shape),
@@ -617,6 +664,9 @@ class Simulator:
             "completed_rounds": 0,
             "broadcasts": 0,
         }
+        # over several processes, every process's own values from the
+        # shared seed, in the mesh's replicated placement (JAX engine.py:866-872)
+        return replicate_to_mesh(state, self.mesh) if self.multiprocess else state
 
     def host_state(self, state: dict[str, Any]) -> dict[str, Any]:
         """``state`` as a checkpoint holds it: the generator as its
@@ -686,10 +736,28 @@ class Simulator:
         """The starting state (reference server.py:144-163,578-586):
         ``resume`` restores through the manifest and the round numbering
         continues; ``load_parameters`` reads the ``{model}.pth`` alias; a
-        missing checkpoint starts fresh."""
+        missing checkpoint starts fresh.  Over several processes process
+        0 reads the alias and broadcasts its bytes, and every process
+        restores those (JAX engine.py:1017-1032): the files of the others
+        may differ or be missing.  ``loaded_bytes`` keeps the count of
+        broadcast bytes a process restored."""
         if self.cfg.resume:
             state = self._load_resume_state()
             return state if state is not None else self.init_state()
+        if self.cfg.load_parameters and self.multiprocess:
+            path = ckpt.checkpoint_path(self.cfg)
+            data = None
+            if self.mesh.process_index == 0 and os.path.exists(path):
+                with open(path, "rb") as fh:
+                    data = fh.read()
+            data = broadcast_bytes(data)
+            if data is None:
+                return self.init_state()
+            self.loaded_bytes = len(data)
+            host = ckpt.load_state_bytes(data, self.host_state(self.init_state()), path)
+            print(f"Load state from checkpoint (process-0 broadcast): {path} "
+                  f"({len(data)} bytes)", flush=True)
+            return replicate_to_mesh(self.restore_state(host), self.mesh)
         state = self.init_state()
         if self.cfg.load_parameters:
             path = ckpt.checkpoint_path(self.cfg)
@@ -724,7 +792,9 @@ class Simulator:
         """Persist ``state`` as a round-stamped entry, the alias and the
         manifest record; False when the write failed open.  With
         ``checkpoint_async`` the host snapshot is taken here, on the round
-        loop, and handed to the writer's thread: True once submitted."""
+        loop, and handed to the writer's thread: True once submitted.
+        Over several processes every process gathers the state (a
+        collective) and process 0 alone writes (JAX engine.py:1441-1475)."""
         meta = {"round": state["completed_rounds"], "broadcast": state["broadcasts"]}
         writer = self.checkpoint_writer
         tel = self.telemetry
@@ -732,11 +802,15 @@ class Simulator:
             self.fault_injector.maybe_kill_writer(meta["round"], writer)
         # the span's `background` says which writer ran (JAX engine.py:1462-1479)
         with tel.tracer.span("checkpoint", background=writer is not None):
-            if writer is None:
-                written = self.checkpoints.write(self.host_state(state), meta)
+            target = self.host_state(state)
+            if self.multiprocess:
+                target = gather_to_host(target, self.mesh)
+            if not self._writer_process:
+                written = True
+            elif writer is None:
+                written = self.checkpoints.write(target, meta)
             else:
-                writer.submit(self.checkpoints.path,
-                              ckpt.host_snapshot(self.host_state(state)), meta)
+                writer.submit(self.checkpoints.path, ckpt.host_snapshot(target), meta)
                 tel.counters.inc("checkpoint_submits")
                 written = True
         tel.events.emit("checkpoint", path=self.checkpoints.path, round=meta["round"],
@@ -981,6 +1055,7 @@ class Simulator:
             model=self.cfg.model, data_name=self.cfg.data_name,
             total_clients=self.cfg.total_clients,
             attacks=describe_attack_groups(self.attack_groups), programs=programs,
+            multiprocess=self.multiprocess,
             torch_version=torch.__version__, platform=backend, git_rev=git_revision(),
             fault_plan=[spec.describe() for spec in self.cfg.faults],
             config=dataclasses.asdict(self.cfg),
@@ -1082,6 +1157,10 @@ class Simulator:
             if self._attribution is not None:
                 keep, scores = self._attribution(global_params, stacked, sizes, weights_mask,
                                                  draws)
+                if self.multiprocess:
+                    # process 0's verdict on every process: a collective
+                    # every process runs (JAX engine.py:1176-1179)
+                    keep, scores, sizes = gather_to_host((keep, scores, sizes), self.mesh)
                 keep, scores = keep.cpu().numpy(), scores.to(torch.float64).cpu().numpy()
             else:
                 keep = scores = defense_mask

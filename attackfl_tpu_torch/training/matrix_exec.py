@@ -84,7 +84,7 @@ from attackfl_tpu_torch.matrix.records import cell_event_summaries, sweep_record
 from attackfl_tpu_torch.ops import build
 from attackfl_tpu_torch.ops import pytree as pt
 from attackfl_tpu_torch.parallel.mesh import (
-    ClientMesh, build_per_device, canonical, make_client_mesh,
+    ClientMesh, build_per_device, canonical, gather_to_host, is_multiprocess, make_client_mesh,
 )
 from attackfl_tpu_torch.profiler.capture import HotspotCapture
 from attackfl_tpu_torch.registry import get_model
@@ -474,8 +474,13 @@ class MatrixRun:
         return drainer
 
     def _save_checkpoint(self, state: dict[str, dict[str, Any]], completed: int) -> None:
-        self._ckpt_manager.write(self.host_state(state),
-                                 {"round": completed, "broadcast": completed})
+        """The grid state's entry.  Over a mesh of several processes the
+        grid state is gathered first (a collective), so that every
+        process serializes process 0's bytes (JAX matrix_exec.py:630-648)."""
+        target = self.host_state(state)
+        if is_multiprocess(self.mesh):
+            target = gather_to_host(target, self.mesh)
+        self._ckpt_manager.write(target, {"round": completed, "broadcast": completed})
 
     def run(self, stop: Callable[[int], Any] | None = None, save_checkpoints: bool = True,
             verbose: bool = True

@@ -291,6 +291,30 @@ no result line):
                  the mesh: every cell bit for bit, no collective; g. the
                  sharded programs and the cell-sharded sweep under the
                  program audit: no sync, the table's collectives.
+ 22. client mesh over processes -- two ranks, each a fresh interpreter
+                 (``chip_smoke.py --child``) holding one shard of cuda:0,
+                 joined over 127.0.0.1 (multiprocess_phase): a. `python -m
+                 attackfl_tpu_torch run --coordinator --num-processes 2
+                 --process-id {0,1}` on config 4 (cut) under pallas, each
+                 rank in its own directory: process 0's checkpoint against
+                 the 2-shard single-process run of the same config file
+                 bit for bit, rank 1 writing none, the ranks' AUCs alike,
+                 K1 ranks x epochs x rounds; b. a round under xla (rbg,
+                 gspmd): the gathered rows and params against 21c's
+                 2-shard run bit for bit, K3 ranks x steps; and 3 rounds
+                 under pallas with threefry (shard_map, the psum across
+                 processes) against 21b's final state bit for bit; c. a
+                 `load_parameters` restart of a: each rank restores process
+                 0's broadcast bytes (their count the file's size), the
+                 state the checkpoint's bit for bit; d. a's events.0.jsonl
+                 and events.1.jsonl under one run_id, a run_header each
+                 stamped with its process_index, `metrics --merge` exit 0
+                 with a skew report.
+Phases 11b, 12d, 13d, 15e and 16e run hyper config 2 at half phase 10's
+samples a client (HYPER2_SEQUEL), and phases 14a and d, 15a-b, 16a-d and
+18a-b config 4 (cut) at half phase 4's (SEQUEL_CUT), every shape kept, so
+that the script's time stays as phases are added.  Phase 19b keeps phase
+4's samples: its card-against-CPU gradient gate is set for them.
 Each of phases 4-15 resets the kernel launch counts before each run and
 requires the run's kernel to have been launched.  The kernels record's
 launches are phase 4's main path's, phase 13a's pipelined runs', phase
@@ -298,7 +322,8 @@ launches are phase 4's main path's, phase 13a's pipelined runs', phase
 16a's windowed runs, phase 17a's sweep, phase 18's programs and runs,
 phase 19b's gradient runs, 19c's run through adam_step and 19d's runs,
 phase 20's service jobs (a's, a2's, and b's daemons' by their /metrics),
-and phase 21's mesh runs (b, c, e) and sharded sweep (f).
+phase 21's mesh runs (b, c, e) and sharded sweep (f), and phase 22's
+ranks' runs (a, b), which each rank counts and reports on its CHILD line.
 The second-to-last line is the kernels JSON record, the last line
 ``{"ok": true, "device": {...}}``.  It needs one CUDA device and the CUDA
 toolkit, imports nothing of JAX, and fails when run outside the repository.
@@ -316,6 +341,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -483,6 +509,11 @@ HYPER_RUNS = (
                             total_clients=4, model="ResNet18", data_name="CIFAR10"),
      dict(num_round=1)),
 )
+# hyper config 2 as phases 11b, 12d, 13d, 15e and 16e run it: phase 10's
+# cut at half its samples a client (600-750, every shape kept; its gates
+# hold within each phase's own runs), which saves the time phase 22 adds
+HYPER2_SEQUEL = (HYPER_RUNS[0][0], HYPER_RUNS[0][1],
+                 dict(HYPER_RUNS[0][2], num_data_range=(600, 750)))
 # the hypernetwork on the card against the CPU from the same warm state:
 # within this share of its largest magnitude; Adam's moments within
 # MV_SPREAD times the CPU float32's distance from a float64 evaluation
@@ -535,6 +566,11 @@ STOP_ROUNDS = 1
 # event (the defense's verdict), each run for ATTRIBUTION_ROUNDS rounds,
 # the last attacking
 TELEMETRY_EXECUTORS, TELEMETRY_DEPTH = ("run", "run_fast", "pipeline"), 2
+# phases 14a and d, 15a-b, 16a-d and 18a-b run config 4 (cut) at
+# these samples a client, half phase 4's (6 steps an epoch in place of 12;
+# every shape kept, and each gate holds within those runs), which saves the
+# time phase 22 adds
+SEQUEL_CUT = dict(num_data_range=(600, 750))
 # a's longer run under pallas, which spreads the run's end over more rounds
 TELEMETRY_LONG_ROUNDS = 20
 ATTRIBUTION_MODES = ("median", "trimmed_mean", "krum", "shieldfl", "byzantine", "scionfl",
@@ -572,6 +608,9 @@ MAIN_STATES: dict = {}
 RUN_GAPS: dict = {}
 # phase 21a's K1 against its plain version with a client base
 MESH_ERRORS: dict = {}
+# phase 21b's and 21c's 2-shard single-process states (on the host), the
+# references of phase 22's two-process runs
+MESH_REFS: dict = {}
 FAULT_STATES: dict = {}
 
 
@@ -2126,7 +2165,7 @@ def hyper_fault_run(workdir: str) -> None:
     """Run b: hyper config 2 (cut) with a NaN storm at broadcast 2: the
     broadcast fails, the hypernetwork and Adam's state stay, the retry
     is ok."""
-    label, config, cut = HYPER_RUNS[0]
+    label, config, cut = HYPER2_SEQUEL
     cfg = Config(**{**config, **cut, "log_path": workdir, "checkpoint_dir": workdir,
                     "faults": parse_fault_plan("nan_storm@2")})
     sim = Simulator(cfg, device="cuda")
@@ -2445,7 +2484,7 @@ def fused_fault_run(backend: str, root: str) -> None:
 
 def fused_hyper_run(workdir: str) -> None:
     """Phase 12 d: hyper config 2 (cut) under run and under run_fast."""
-    label, config, cut = HYPER_RUNS[0]
+    label, config, cut = HYPER2_SEQUEL
     cfg = Config(**{**config, **cut, "log_path": workdir, "checkpoint_dir": workdir})
     states = {}
     for how in ("run", "run_fast"):
@@ -2770,7 +2809,7 @@ def pipeline_checkpoint_runs(root: str) -> None:
 
 def pipeline_hyper_run(workdir: str) -> None:
     """Phase 13 d: hyper config 2 (cut) under run and the pipeline."""
-    label, config, cut = HYPER_RUNS[0]
+    label, config, cut = HYPER2_SEQUEL
     cfg = Config(**{**config, **cut, "log_path": workdir, "checkpoint_dir": workdir,
                     "pipeline_depth": 2})
     run_sim = Simulator(cfg, device="cuda")
@@ -2902,7 +2941,7 @@ def telemetry_run(backend: str, how: str, root: str, enabled: bool, turn: int,
                      pipeline=how == "pipeline", pipeline_depth=TELEMETRY_DEPTH,
                      telemetry=TelemetryConfig(enabled=enabled,
                                                ledger_dir=os.path.join(root, "ledger")),
-                     **({} if rounds is None else {"num_round": rounds}))
+                     **SEQUEL_CUT, **({} if rounds is None else {"num_round": rounds}))
     sim = Simulator(cfg, device="cuda")
     state = sim.init_state()
     end = {}
@@ -3080,7 +3119,8 @@ def ledger_auto_run(root: str) -> None:
     ledger = os.path.join(root, "ledger")
     directory = os.path.join(root, "auto")
     cfg = cut_config(local_backend="pallas", log_path=directory, pipeline=True,
-                     pipeline_depth="auto", telemetry=TelemetryConfig(ledger_dir=ledger))
+                     pipeline_depth="auto", telemetry=TelemetryConfig(ledger_dir=ledger),
+                     **SEQUEL_CUT)
     sim = Simulator(cfg, device="cuda")
     records = LedgerStore(ledger).records(fingerprint=sim.checkpoints.fingerprint)
     expect, info = engine.auto_depth_from_records(records, sim.checkpoints.fingerprint)
@@ -3151,7 +3191,8 @@ def numerics_run(backend: str, how: str, root: str, on: bool, turn: int):
     cfg = cut_config(local_backend=backend, log_path=directory, checkpoint_dir=directory,
                      pipeline=how == "pipeline", pipeline_depth=TELEMETRY_DEPTH,
                      telemetry=TelemetryConfig(numerics=on, numerics_window=NUMERICS_WINDOW,
-                                               ledger_dir=os.path.join(root, "ledger")))
+                                               ledger_dir=os.path.join(root, "ledger")),
+                     **SEQUEL_CUT)
     sim = Simulator(cfg, device="cuda")
     state = sim.init_state()
     drains = []
@@ -3437,7 +3478,7 @@ def monitor_demotion_run(root: str, events_dir: str) -> None:
 def numerics_hyper_run(root: str) -> None:
     """Phase 15 e: hyper config 2 (cut) under run with numerics on and
     off."""
-    label, config, cut = HYPER_RUNS[0]
+    label, config, cut = HYPER2_SEQUEL
     states, rows = [], []
     for on in (True, False):
         directory = os.path.join(root, f"hyper-{on}")
@@ -3530,7 +3571,8 @@ def hotspot_run(backend: str, how: str, root: str, on: bool) -> dict:
     tel = TelemetryConfig(hotspots=HOTSPOT_WINDOW if on else "", costmodel=on, monitor=on,
                           monitor_port=0, ledger_dir=os.path.join(root, "ledger"))
     cfg = cut_config(local_backend=backend, log_path=directory, checkpoint_dir=directory,
-                     pipeline=how == "pipeline", pipeline_depth=TELEMETRY_DEPTH, telemetry=tel)
+                     pipeline=how == "pipeline", pipeline_depth=TELEMETRY_DEPTH, telemetry=tel,
+                     **SEQUEL_CUT)
     sim = Simulator(cfg, device="cuda")
     state = sim.init_state()
     capture, marks = sim._hotspots, {}
@@ -3736,7 +3778,8 @@ def hotspot_fail_open(root: str, off: dict) -> None:
     with open(os.path.join(directory, "profile"), "w"):
         pass
     sim = Simulator(cut_config(local_backend="pallas", log_path=directory,
-                               telemetry=TelemetryConfig(hotspots=HOTSPOT_WINDOW)), device="cuda")
+                               telemetry=TelemetryConfig(hotspots=HOTSPOT_WINDOW), **SEQUEL_CUT),
+                    device="cuda")
     with contextlib.redirect_stdout(io.StringIO()):
         state, _ = sim.run(state=sim.init_state(), save_checkpoints=False, verbose=False)
     count = sim.telemetry.counters.get("hotspot_windows_unavailable")
@@ -3785,7 +3828,7 @@ def command_line_checks(runs: dict, root: str) -> None:
     validate`` on a's ledger."""
     directory = runs[("pallas", "run")]["dir"]
     ledger = os.path.join(root, "ledger")
-    path = config4_yaml(os.path.join(root, "config4.yaml"), "pallas", root)
+    path = config4_yaml(os.path.join(root, "config4.yaml"), "pallas", root, **SEQUEL_CUT)
     empty = os.path.join(root, "empty-ledger")
     os.makedirs(empty)
     commands = (["hotspots", "show", directory], ["hotspots", "diff", directory, directory],
@@ -3818,7 +3861,7 @@ def hotspot_hyper_run(root: str) -> None:
     """Phase 16 e: hyper config 2 (cut) under run with the window and the
     cost model, then with neither: one ``ok`` window, hyper_update
     profiled, the hypernetwork and its Adam state bit for bit."""
-    label, config, cut = HYPER_RUNS[0]
+    label, config, cut = HYPER2_SEQUEL
     states = []
     for on in (True, False):
         directory = os.path.join(root, f"hyper-{on}")
@@ -4373,7 +4416,7 @@ def audit_programs_check(backend: str, root: str) -> dict:
     the card: no sync, no float64, no input written in place, the
     backend's kernel launched epochs (x steps) times a trained broadcast."""
     cfg = cut_config(local_backend=backend, log_path=root, checkpoint_dir=root,
-                     telemetry=TelemetryConfig(enabled=False))
+                     telemetry=TelemetryConfig(enabled=False), **SEQUEL_CUT)
     sim = Simulator(cfg, device="cuda")
     reports = program_audit.audit_simulator(sim)
     sim.close()
@@ -4451,7 +4494,7 @@ def guard_check(backend: str, root: str) -> dict:
         directory = os.path.join(root, f"guard-{backend}-{how}")
         cfg = cut_config(local_backend=backend, log_path=directory, checkpoint_dir=directory,
                          pipeline_depth=TELEMETRY_DEPTH,
-                         telemetry=TelemetryConfig(ledger=False))
+                         telemetry=TelemetryConfig(ledger=False), **SEQUEL_CUT)
         sim = Simulator(cfg, device="cuda")
         reset_launches()
         t0 = time.perf_counter()
@@ -5967,6 +6010,7 @@ def mesh_pallas_check(mesh) -> tuple[dict, dict]:
     if (sim.mesh_strategy != "shard_map" or not rows_equal or oks != plain_oks
             or gap1 > MESH_PARAM_TOL or launches != expect):
         raise AssertionError("21b: the pallas mesh run differs from the meshless run")
+    MESH_REFS["pallas"] = to_cpu({k: final[k] for k in ("global_params", "prev_genuine")})
     return launches, {"sim": plain, "draws": draws, "rows": rows}
 
 
@@ -6007,6 +6051,7 @@ def mesh_xla_check(mesh) -> dict:
     if (sim.mesh_strategy != "gspmd" or row_err > PARAM_TOL or agg_gap > MESH_PARAM_TOL
             or hist[0]["ok"] != plain_hist[0]["ok"] or launches != expect):
         raise AssertionError("21c: the xla mesh round differs from the meshless round")
+    MESH_REFS["xla"] = to_cpu({"rows": mesh_rows[0], "params": one["global_params"]})
     return launches
 
 
@@ -6165,10 +6210,256 @@ def mesh_phase() -> dict:
     return dict(total)
 
 
+# phase 22: the client mesh over MP_RANKS processes (ROADMAP item 14b), each
+# rank a shard of cuda:0, joined over 127.0.0.1; the pair of ranks has
+# MP_TIMEOUT seconds and is killed after it
+MP_RANKS, MP_TIMEOUT = 2, 300
+
+
+def mp_free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mp_spawn(argvs: list, cwds: list, env: dict):
+    """The ranks, started together as fresh interpreters (never forked
+    from this process, which holds a CUDA context)."""
+    return [subprocess.Popen(argv, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+            for argv, cwd in zip(argvs, cwds)]
+
+
+def mp_finish(procs: list) -> list:
+    """Each rank's CHILD record, once every rank exited 0; a rank still
+    running after MP_TIMEOUT is killed, and so is every rank when one
+    call fails."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=MP_TIMEOUT)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    records = []
+    for rank, (rc, out, err) in enumerate(outs):
+        lines = [line for line in out.splitlines() if line.startswith("CHILD ")]
+        if rc != 0 or len(lines) != 1:
+            raise AssertionError(f"22: rank {rank} exited {rc}:\n{out[-3000:]}\n{err[-3000:]}")
+        records.append(dict(json.loads(lines[0][len("CHILD "):]), out=out))
+    return records
+
+
+def mp_child(argv: list) -> int:
+    """A rank of phase 22 (``chip_smoke.py --child COORDINATOR RANK ROOT
+    -- ARGS``): a. ``python -m attackfl_tpu_torch ARGS`` (a `run
+    --coordinator` of its own group) in this process, in its launch
+    directory; then, joined again at COORDINATOR, b (xla, rbg: gspmd,
+    one round), b' (pallas, threefry: shard_map, ROUNDS[1] rounds) and c
+    (a ``load_parameters`` restart of a's launch).  It prints its CHILD
+    record, the kernels' launches of a, b and b' as it counted them, and
+    saves the states the parent compares into ROOT."""
+    import torch.distributed as dist
+
+    from attackfl_tpu_torch.parallel.mesh import distributed_init, make_client_mesh
+
+    coordinator, rank, root = argv[0], int(argv[1]), argv[2]
+    resolve_device("cuda")
+    reset_launches()
+    rc = cli.main(argv[argv.index("--") + 1:])
+    torch.cuda.synchronize()
+    record, saved = {"rc": rc, "cli": launch_counts()}, {}
+    if rc != 0:
+        print("CHILD " + json.dumps(record), flush=True)
+        return rc
+    # b's and c's telemetry stays out of a's directory
+    os.environ["ATTACKFL_TELEMETRY_DIR"] = os.path.join(root, "mesh-events")
+    distributed_init(coordinator, MP_RANKS, rank)
+    try:
+        mesh = make_client_mesh(0, device="cuda")
+        record["mesh"] = [mesh.size, list(mesh.processes)]
+        for label, cfg, rounds in (
+                ("xla", cut_config(local_backend="xla"), 1),
+                ("pallas", cut_config(local_backend="pallas", prng_impl="threefry2x32"),
+                 ROUNDS[1])):
+            sim, one, final, history, launches = mesh_run(cfg, mesh, rounds)
+            record[label] = {"strategy": sim.mesh_strategy, "launches": launches,
+                             "ok": [bool(h["ok"]) for h in history],
+                             "auc": [h["roc_auc"] for h in history]}
+            if label == "xla":
+                _, rows = first_round(sim, sim.init_state())
+                saved["xla"] = to_cpu({"rows": rows[0], "params": one["global_params"]})
+            else:
+                saved["pallas"] = to_cpu({k: final[k] for k in ("global_params",
+                                                                "prev_genuine")})
+        cfg = load_config(os.path.join(root, "launch", "config4.yaml")).replace(
+            load_parameters=True, telemetry=TelemetryConfig(enabled=False))
+        sim = Simulator(cfg, device="cuda", use_mesh=True)
+        state = sim.load_or_init_state()
+        record["restart"] = {"loaded_bytes": sim.loaded_bytes, "mesh": sim.mesh.size,
+                             "completed_rounds": int(state["completed_rounds"])}
+        saved["restart"] = to_cpu(sim.host_state(state))
+        torch.save(saved, os.path.join(root, f"mesh{rank}.pt"))
+        print("CHILD " + json.dumps(record), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mp_launch_check(root: str, records: list, ref: dict) -> dict:
+    """22a: the two `python -m attackfl_tpu_torch run --coordinator` ranks
+    of config 4 (cut) under pallas, each in its own directory, telemetry
+    into one: process 0's checkpoint against the 2-shard single-process
+    run of the same config file (``ref``) bit for bit, rank 1 writing
+    none, one ok and AUC sequence, K1 ranks x epochs x rounds.  The
+    config file takes no key implementation, so the ranks run rbg keys
+    (gspmd) and the reference does too.  Returns the ranks' launches."""
+    launch = os.path.join(root, "launch")
+    rounds = [re.findall(r"Round (\d+) done in [0-9.]+s roc_auc=([0-9.]+)", r["out"])
+              for r in records]
+    saved = ckpt.load_state(os.path.join(launch, "rank0", "TransformerModel.pth"), ref["want"])
+    diff = first_difference(ref["want"], saved)
+    elsewhere = [n for n in os.listdir(os.path.join(launch, "rank1")) if n.endswith(".pth")]
+    launches = Counter()
+    for record in records:
+        launches.update(record["cli"])
+    expect = {"fused_step": MP_RANKS * ref["epochs"] * ROUNDS[1], "dropout_mask": 0}
+    log(f"[22a] `run --coordinator` x {MP_RANKS} ranks of cuda:0, config 4 (cut), pallas, "
+        f"rbg (gspmd): process 0's checkpoint "
+        f"{'bit-equal' if diff is None else f'DIFFERENT at {diff}'} to the 2-shard "
+        f"single-process run; rank 1 wrote {elsewhere or 'no checkpoint'}; (round, AUC) by "
+        f"rank {rounds} (single process {ref['rounds']}); launches {dict(launches)} "
+        f"(expected {expect}) ({card_line()})")
+    if (diff is not None or elsewhere or rounds[0] != rounds[1] or rounds[0] != ref["rounds"]
+            or dict(launches) != expect):
+        raise AssertionError("22a: the two-process launch differs from the one-process mesh")
+    return dict(launches)
+
+
+def mp_mesh_check(root: str, records: list) -> dict:
+    """22b and c: b, one round under xla (rbg, gspmd) over the two-process
+    mesh: the gathered rows and the params against phase 21c's 2-shard
+    run bit for bit, K3 ranks x steps; b', pallas with threefry
+    (shard_map): the final state against phase 21b's bit for bit, K1
+    ranks x epochs x rounds; c, a `load_parameters` restart of 22a's
+    launch: each rank restores process 0's broadcast bytes, rank 1 with
+    no file of its own, both states the checkpoint's bit for bit.
+    Returns b's and b''s launches."""
+    saved = [torch.load(os.path.join(root, f"mesh{r}.pt"), weights_only=False)
+             for r in range(MP_RANKS)]
+    cfg = cut_config(local_backend="xla")
+    nb = -(-cfg.num_data_range[1] // cfg.batch_size)
+    k3 = sum(r["xla"]["launches"]["dropout_mask"] for r in records)
+    k1 = sum(r["pallas"]["launches"]["fused_step"] for r in records)
+    xla = [first_difference(MESH_REFS["xla"], s["xla"]) for s in saved]
+    pallas = [first_difference(MESH_REFS["pallas"], s["pallas"]) for s in saved]
+    log(f"[22b] xla, rbg ({records[0]['xla']['strategy']}) over the {records[0]['mesh']} "
+        f"mesh, one round: rows and params against 21c's 2-shard run "
+        f"{['bit-equal' if d is None else f'DIFFERENT at {d}' for d in xla]} by rank, ok "
+        f"{[r['xla']['ok'] for r in records]}, K3 {k3} (expected {MP_RANKS * cfg.epochs * nb}); "
+        f"pallas, threefry ({records[0]['pallas']['strategy']}), {ROUNDS[1]} rounds: the final "
+        f"state against 21b's {['bit-equal' if d is None else f'DIFFERENT at {d}' for d in pallas]}"
+        f", AUC {[r['pallas']['auc'] for r in records]}, K1 {k1} (expected "
+        f"{MP_RANKS * cfg.epochs * ROUNDS[1]}) ({card_line()})")
+    if (any(d is not None for d in xla + pallas) or k3 != MP_RANKS * cfg.epochs * nb
+            or k1 != MP_RANKS * cfg.epochs * ROUNDS[1]
+            or records[0]["xla"]["strategy"] != "gspmd"
+            or records[0]["pallas"]["strategy"] != "shard_map"
+            or records[0]["pallas"]["auc"] != records[1]["pallas"]["auc"]):
+        raise AssertionError("22b: the two-process mesh differs from the one-process mesh")
+    path = os.path.join(root, "launch", "rank0", "TransformerModel.pth")
+    size = os.path.getsize(path)
+    restored = [ckpt.load_state(path, s["restart"]) for s in saved]
+    diffs = [first_difference(r, s["restart"]) for r, s in zip(restored, saved)]
+    restarts = [r["restart"] for r in records]
+    log(f"[22c] `load_parameters` restart of 22a's launch: bytes received by rank "
+        f"{[r['loaded_bytes'] for r in restarts]} against the file's {size}, completed rounds "
+        f"{[r['completed_rounds'] for r in restarts]}, states against the checkpoint "
+        f"{['bit-equal' if d is None else f'DIFFERENT at {d}' for d in diffs]} ({card_line()})")
+    if (any(r["loaded_bytes"] != size or r["completed_rounds"] != ROUNDS[1]
+            or r["mesh"] != MP_RANKS for r in restarts) or any(d is not None for d in diffs)):
+        raise AssertionError("22c: a rank did not restore process 0's checkpoint")
+    return {"fused_step": k1, "dropout_mask": k3}
+
+
+def mp_telemetry_check(events: str) -> None:
+    """22d: the launch's events.0.jsonl and events.1.jsonl under one
+    run_id, each with its own run_header stamped with its process_index;
+    `metrics --merge` over them exits 0 with a skew report."""
+    names = sorted(n for n in os.listdir(events) if n.startswith("events"))
+    run_ids, headers = set(), {}
+    for name in names:
+        records = load_events(os.path.join(events, name))
+        run_ids |= {r["run_id"] for r in records}
+        headers[name] = [r.get("process_index") for r in records if r["kind"] == "run_header"]
+    rc, out, seconds = run_command(["metrics", events, "--merge", "--json"])
+    skew = json.loads(out)["skew"] if rc == 0 else {}
+    log(f"[22d] {names} under run ids {sorted(run_ids)}, run_header process_index by file "
+        f"{headers}; `metrics --merge` exit {rc} in {seconds:.2f} s: rounds compared "
+        f"{skew.get('rounds_compared')}, completion skew {skew.get('completion_skew_s')} s, "
+        f"phase lag {skew.get('phase_lag_s')} ({card_line()})")
+    if (names != ["events.0.jsonl", "events.1.jsonl"] or len(run_ids) != 1
+            or headers != {"events.0.jsonl": [0], "events.1.jsonl": [1]} or rc != 0
+            or not skew.get("rounds_compared") or not skew.get("phase_lag_s")):
+        raise AssertionError("22d: the per-process telemetry or its merge")
+
+
+def multiprocess_phase() -> dict:
+    """Phase 22: a-d, one pair of ranks for a, b and c; the references,
+    here, while the ranks run.  Returns the kernels' launches in the
+    ranks' a and b, as each rank counted them."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    launch, events = os.path.join(root, "launch"), os.path.join(root, "events")
+    total = Counter()
+    try:
+        t0 = time.perf_counter()
+        for rank in range(MP_RANKS):
+            os.makedirs(os.path.join(launch, f"rank{rank}"))
+        yaml_path = config4_yaml(os.path.join(launch, "config4.yaml"), "pallas", ".")
+        cli_coordinator, mesh_coordinator = (f"127.0.0.1:{mp_free_port()}" for _ in range(2))
+        procs = mp_spawn([[sys.executable, os.path.abspath(__file__), "--child",
+                           mesh_coordinator, str(rank), root, "--", "run", "--config", yaml_path,
+                           "--device", "cuda", "--coordinator", cli_coordinator,
+                           "--num-processes", str(MP_RANKS), "--process-id", str(rank)]
+                          for rank in range(MP_RANKS)],
+                         [os.path.join(launch, f"rank{r}") for r in range(MP_RANKS)],
+                         {**os.environ, "ATTACKFL_TELEMETRY_DIR": events})
+        try:
+            if "xla" not in MESH_REFS or "pallas" not in MESH_REFS:
+                mesh_pallas_check(mesh_of(MP_RANKS))
+                mesh_xla_check(mesh_of(MP_RANKS))
+            cfg = load_config(yaml_path).replace(telemetry=TelemetryConfig(enabled=False),
+                                                 log_path=os.path.join(root, "ref"),
+                                                 checkpoint_dir=os.path.join(root, "ref"))
+            sim = Simulator(cfg, device="cuda", mesh=mesh_of(MP_RANKS))
+            final, history = sim.run(state=sim.init_state(), save_checkpoints=False,
+                                     verbose=False)
+            ref = {"want": to_cpu(sim.host_state(final)), "epochs": cfg.epochs,
+                   "rounds": [(str(h["round"]), f"{h['roc_auc']:.4f}") for h in history]}
+        finally:
+            records = mp_finish(procs)
+        ranks_s = time.perf_counter() - t0
+        total.update(mp_launch_check(root, records, ref))
+        total.update(mp_mesh_check(root, records))
+        mp_telemetry_check(events)
+        log(f"[phase 22] {time.perf_counter() - t0:.1f} s, the ranks {ranks_s:.1f} s of it; "
+            f"launches {dict(total)} ({card_line()})")
+    finally:
+        shutil.rmtree(root)
+    return dict(total)
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--child"]:
+        # a rank of phase 22, started by the phase itself
+        return mp_child(argv[1:])
     parser = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     parser.add_argument("--only", type=int, default=None, metavar="PHASE",
-                        help="after the build, run only this phase of 12-21 and print no "
+                        help="after the build, run only this phase of 12-22 and print no "
                              "result line (a development run)")
     parser.add_argument("--fixtures", type=str, default=None, metavar="DIR",
                         help="write phase 16's golden traces for the CPU tests into DIR")
@@ -6197,7 +6488,7 @@ def main(argv=None) -> int:
         phase = {12: fused_phase, 13: pipeline_phase, 14: telemetry_phase,
                  15: numerics_phase, 16: lambda: hotspots_phase(args.fixtures),
                  17: matrix_phase, 18: audit_phase, 19: grad_phase,
-                 20: service_phase, 21: mesh_phase}[args.only]
+                 20: service_phase, 21: mesh_phase, 22: multiprocess_phase}[args.only]
         t0 = time.perf_counter()
         log(f"[only] phase {args.only}: launches {phase()} in {time.perf_counter() - t0:.1f} "
             f"s; no result line")
@@ -6246,6 +6537,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     mesh_launches = mesh_phase()
     log(f"[client mesh] phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    multiprocess_launches = multiprocess_phase()
+    log(f"[client mesh over processes] phase done in {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] += (pipeline_launches.get(k["name"], 0)
                           + telemetry_launches.get(k["name"], 0)
@@ -6254,7 +6548,8 @@ def main(argv=None) -> int:
                           + audit_launches.get(k["name"], 0)
                           + grad_launches.get(k["name"], 0)
                           + service_launches.get(k["name"], 0)
-                          + mesh_launches.get(k["name"], 0))
+                          + mesh_launches.get(k["name"], 0)
+                          + multiprocess_launches.get(k["name"], 0))
         k["max_abs_err"] = max(k["max_abs_err"], MESH_ERRORS.get(k["name"], 0.0))
         if k["name"] == "dropout_mask":
             k["launches"] += matrix["launches"]

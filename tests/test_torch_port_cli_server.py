@@ -5,18 +5,22 @@ rendezvous of ``attackfl_tpu/cli.py:56-310``) and ``{log_path}/app.log``
 
 Registrations written by either package's client are read by either
 package's server into the same attack specs; every flag of JAX's
-``server_main`` sets the Config field JAX's sets, and the engine refuses
-the unported ones, naming their ROADMAP item (``--pipeline`` and
-``--pipeline-depth`` run the pipelined executor, ``--hotspots`` and
-``--profile-rounds`` write their profiling window); a server run from three
+``server_main`` sets the Config field JAX's sets, and each runs
+(``--pipeline`` and ``--pipeline-depth`` the pipelined executor,
+``--hotspots`` and ``--profile-rounds`` their profiling window,
+``--coordinator`` a process of a multi-process run, which fails within
+the group's timeout when its coordinator never answers); a server run from three
 registrations prints JAX's ``Finished`` line; a 3-broadcast run of each
 package under ``nan_storm@2`` writes the same ``app.log`` lines once the
 timestamps are cut and the numbers masked.
 """
 
+import datetime
 import json
 import os
 import re
+import socket
+import time
 
 import pytest
 from _torch_port_threads import one_torch_thread  # noqa: F401
@@ -30,6 +34,7 @@ from attackfl_tpu.training.engine import Simulator as JaxSimulator
 from attackfl_tpu_torch import cli
 from attackfl_tpu_torch.config import Config
 from attackfl_tpu_torch.faults.plan import parse_fault_plan
+from attackfl_tpu_torch.parallel import mesh
 from attackfl_tpu_torch.training import engine
 from attackfl_tpu_torch.training.engine import Simulator
 
@@ -139,18 +144,26 @@ def test_pipeline_flags_reach_the_config_and_run(flags, depth, tmp_path, capsys,
     (["--hotspots", "1:2"], None),
     (["--numerics", "--hotspots", "1:2"], None),
     pytest.param(["--coordinator", "localhost:1234", "--num-processes", "2",
-                  "--process-id", "1"], "item 14b", id="flags5-item 14"),
+                  "--process-id", "1"], "unanswered", id="flags5-item 14"),
 ])
-def test_unported_flags_are_refused_with_their_item(flags, item, tmp_path, monkeypatch):
-    """The multi-host flags stay refused with their item, 14b since the
-    single-process client mesh (14a) was ported.  The profiling
-    and hotspot windows (ROADMAP item 16c, refused until it was ported)
-    run and write their window: ``--hotspots 2`` is the window 2:2, as
-    JAX's server reads it."""
+def test_unported_flags_are_refused_with_their_item(flags, item, tmp_path, monkeypatch,
+                                                    capsys):
+    """What was refused until it was ported runs.  The multi-host flags
+    (ROADMAP item 14b) are accepted: process 1 of 2, whose coordinator
+    never answers, exits 1 within the group's timeout instead of hanging.
+    The profiling and hotspot windows (item 16c) run and write their
+    window: ``--hotspots 2`` is the window 2:2, as JAX's server reads it."""
     argv = ["server", "--config", _yaml(tmp_path), "--device", "cpu", "--no-wait", *flags]
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
-            cli.main(argv)
+    if item == "unanswered":
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            silent = f"127.0.0.1:{s.getsockname()[1]}"      # closed again: nobody answers
+        monkeypatch.setattr(mesh, "DIST_TIMEOUT", datetime.timedelta(seconds=2))
+        t0 = time.monotonic()
+        assert cli.main([silent if a == "localhost:1234" else a for a in argv]) == 1
+        assert time.monotonic() - t0 < 60
+        assert f"process 1 of 2 could not join the process group at {silent}" in \
+            capsys.readouterr().out
         return
     monkeypatch.setenv("ATTACKFL_TELEMETRY_DIR", str(tmp_path))
     assert cli.main(argv) == 0

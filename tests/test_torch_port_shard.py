@@ -78,17 +78,20 @@ def _port_mesh(n: int = 8):
     return make_client_mesh(devices=["cpu"] * n)
 
 
-def _draws(rng, train_np, groups, num_genuine: int, leak_k: int) -> RoundDraws:
-    """JAX round_step's draws (round.py:275-321) as a port RoundDraws."""
+def _draws(rng, train_np, groups, num_genuine: int, leak_k: int, clients: int = C,
+           num_data_range: tuple[int, int] = (LO, HI), epochs: int = EPOCHS) -> RoundDraws:
+    """JAX round_step's draws (round.py:275-321) as a port RoundDraws, at
+    this file's geometry unless another is given."""
+    lo, hi = num_data_range
     k_data, k_train, k_attack = jax.random.split(rng, 3)
-    idx, mask, sizes = jax_sample_round_indices(k_data, C, len(train_np["label"]), LO, HI)
+    idx, mask, sizes = jax_sample_round_indices(k_data, clients, len(train_np["label"]), lo, hi)
     leaks = []
     for gi, grp in enumerate(groups):
         keys = jax.random.split(jax.random.fold_in(k_attack, gi), len(grp.indices))
         leaks.append(as_t(jax.vmap(lambda key: jax.random.choice(
             jax.random.split(key)[0], num_genuine, (leak_k,), replace=False))(keys)))
     return RoundDraws(idx=as_t(idx), mask=torch.from_numpy(np.array(mask)), sizes=as_t(sizes),
-                      perms=jax_perms(jax.random.split(k_train, C), EPOCHS, HI),
+                      perms=jax_perms(jax.random.split(k_train, clients), epochs, hi),
                       dropout_seed=0, leaks=tuple(leaks))
 
 
