@@ -47,12 +47,18 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def promoted(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """``xs`` cast to their promoted dtype (flax ``promote_dtype``); the
-    tensors themselves when they share one."""
+def promoted_dtype(*xs: torch.Tensor) -> torch.dtype:
+    """The promoted dtype of ``xs`` (flax ``promote_dtype``'s)."""
     dtype = xs[0].dtype
     for x in xs[1:]:
         dtype = torch.promote_types(dtype, x.dtype)
+    return dtype
+
+
+def promoted(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``xs`` cast to their promoted dtype; the tensors themselves when
+    they share one."""
+    dtype = promoted_dtype(*xs)
     return tuple(x.to(dtype) for x in xs)
 
 
@@ -94,8 +100,19 @@ class Dense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.widened(x, None)
+
+    def widened(self, x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+        """The product in the promoted dtype of ``x`` and the kernel,
+        widened to ``dtype`` (None: kept) before the bias is added.  A
+        flax Dense whose output only feeds a float32 sum compiles so under
+        XLA: the bfloat16 product is rounded once and its bias added in
+        float32, the biased value never rounded to bfloat16 (the GRU's
+        input gates, :class:`GRUCell`)."""
         x, kernel = promoted(x, self.kernel)
         y = torch.tensordot(x, kernel, dims=self.n_in)
+        if dtype is not None:
+            y = y.to(dtype)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
@@ -345,7 +362,9 @@ class GRUCell(nn.Module):
     """flax ``nn.GRUCell``: r = sigmoid(ir(x) + hr(h)), z = sigmoid(iz(x) +
     hz(h)), n = tanh(in(x) + r * hn(h)), h' = (1 - z) n + z h.  ``ir``,
     ``iz``, ``in`` and ``hn`` have biases, ``hr`` and ``hz`` none; the
-    recurrent kernels are drawn orthogonal."""
+    recurrent kernels are drawn orthogonal.  With bfloat16 inputs and a
+    float32 carry the input gates' biases are added in float32, as the
+    JAX package's compiled cell adds them (:meth:`Dense.widened`)."""
 
     def __init__(self, in_features: int, hidden: int):
         super().__init__()
@@ -356,9 +375,10 @@ class GRUCell(nn.Module):
         self.hn = Dense((hidden,), (hidden,), orthogonal=True)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        r = torch.sigmoid(self.ir(x) + self.hr(h))
-        z = torch.sigmoid(self.iz(x) + self.hz(h))
-        n = torch.tanh(getattr(self, "in")(x) + r * self.hn(h))
+        dtype = promoted_dtype(x, self.ir.kernel, h)
+        r = torch.sigmoid(self.ir.widened(x, dtype) + self.hr(h))
+        z = torch.sigmoid(self.iz.widened(x, dtype) + self.hz(h))
+        n = torch.tanh(getattr(self, "in").widened(x, dtype) + r * self.hn(h))
         return (1.0 - z) * n + z * h
 
 

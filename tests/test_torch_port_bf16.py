@@ -7,9 +7,9 @@ and the port's ``build_step_grad``, for CNNModel, RNNModel,
 TransformerModel and the two-layer HAR TransformerClassifier in bfloat16,
 TransformerModel in float16: the loss within 1e-2 relative and the
 gradients within 5e-2 of the largest |g| (measured: at most 3.7e-3 and
-8.3e-3), except RNNModel's, 8.1e-2: there bfloat16 moves JAX's own
-gradient 1.0e-1 of the largest |g| from its float32 one, and the port's
-as far, so the two are held to that distance.  The dtype of every
+8.3e-3; RNNModel's 4.7e-4, since its GRU cells add the input gates'
+biases in float32 as the JAX package's compiled cells do, where they were
+8.1e-2 apart).  The dtype of every
 product (``dot_general`` and ``conv_general_dilated`` in JAX's jaxpr,
 ``mm``/``bmm``/``addmm``/``convolution`` under a ``TorchDispatchMode``)
 equals JAX's: the forward's as counts per dtype, the gradient's as the
@@ -102,14 +102,10 @@ def test_step_matches_jax(name, dtype):
     assert grads.dtype == loss.dtype == torch.float32
     assert float(((loss - jl).abs() / jl.abs()).max()) <= 1e-2
     # the packages' reduced-precision gradients are two roundings of one
-    # float32 gradient: they agree within 5e-2 of the largest |g|, or, where
-    # the compute dtype itself moves JAX's gradient further from its float32
-    # one (RNNModel here: 1.0e-1), within that distance
+    # float32 gradient: they agree within 5e-2 of the largest |g|
     gap = float((grads - jgrads).abs().max())
     scale = float(jgrads.abs().max())
-    if gap > 5e-2 * scale:
-        own = float((jgrads - jax_step(None)[1]).abs().max())
-        assert gap <= own, (gap / scale, own / scale)
+    assert gap <= 5e-2 * scale, gap / scale
 
 
 class _Products(TorchDispatchMode):
